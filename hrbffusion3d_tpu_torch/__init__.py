@@ -9,17 +9,21 @@ mirrors the JAX package module for module (``core/``, ``ops/``, ``map/``,
 Conventions:
   - plain functions on tensors and ``NamedTuple`` results with the JAX
     package's field names;
-  - the device comes from the input tensors (or an explicit ``device``
-    argument); nothing calls ``.cuda()`` implicitly;
+  - the device comes from the input tensors; a function with no input
+    tensor (``eval.synth.default_room``, ``core.camera.pixel_grid``,
+    ``ops.patches.window_offsets``) makes its tensors on the CUDA card
+    unless its ``device`` argument names another (the CPU tests pass
+    ``"cpu"``), and raises when there is no card;
   - nothing on this path needs a gradient, so there is no
     ``torch.autograd.Function``; nothing is random (the synthetic frames
     are exact), so there is no ``torch.Generator``;
-  - the one hand-written kernel (``ops/kernels.raycast_core``, CUDA C++ in
-    ``csrc/raycast.cu``) runs for CUDA tensors; a CPU tensor takes its plain
-    PyTorch version.  The tensor's device decides, and a CUDA tensor gets
-    the kernel or an error.
+  - four hand-written kernels, CUDA C++ for sm_90a: the ray cast
+    (``ops/kernels.raycast_core``, ``csrc/raycast.cu``) and the bilateral
+    filter, PCA normals and curvature sums (``ops/preprocess``,
+    ``csrc/preprocess.cu``) run for CUDA tensors; a CPU tensor takes each
+    one's plain PyTorch version.  The tensor's device decides, and a CUDA
+    tensor gets the kernel or an error.
 
-The package imports ``torch`` and never ``jax``.  The numpy/dataclass-only
-modules of the JAX package (``config``, ``eval.ate``) are imported, not
-copied.
+The package imports ``torch`` and never ``jax``, nor any module of the JAX
+package: it keeps its own copies of ``config`` and ``eval.ate``.
 """

@@ -8,10 +8,13 @@ import math
 import torch
 
 from ..config import CameraIntrinsics
+from ..utils.tensors import device_or_card
 
 
 def pixel_grid(h: int, w: int, device=None, dtype=torch.float32):
-    """Integer pixel coordinates as float (y, x) maps, each (H, W)."""
+    """Integer pixel coordinates as float (y, x) maps, each (H, W), on
+    ``device`` (default the CUDA card)."""
+    device = device_or_card(device)
     ys = torch.arange(h, dtype=dtype, device=device)[:, None]
     xs = torch.arange(w, dtype=dtype, device=device)[None, :]
     return ys.expand(h, w), xs.expand(h, w)

@@ -6,8 +6,8 @@
 // rendered attribute image, start at t0 = the nearest neighbour's projection
 // onto the viewing ray, march a directed ladder until the HRBF field
 //     f(x) = sum_k 20 (1 - r_k)^3 / T_k^2 * ((x - p_k) . 10 n_k),  r_k < 1
-// changes sign, refine the root (false position or bisection), and return
-// the HRBF gradient at the surface point plus the nearest tap.
+// changes sign, refine the root (false position, k-section or bisection),
+// and return the HRBF gradient at the surface point plus the nearest tap.
 //
 // What bounds it on this card: the per-pixel evaluations of f, which are
 // FLOPs (about 20 per tap per evaluation), not bytes: the input is 36 B per
@@ -39,6 +39,7 @@ constexpr int kMaxRadius = 7;  // window radius (cfg.predict_window_multiplier)
 
 struct Params {
   int h, w, radius, k, kmin, n_ladder, fp_iters, bis_iters;
+  int ksec_b, ksec_p;  // k-section: points per pass (> 1 to use it), passes
   float conf_t, fx, fy, cx, cy;
   float ladder[kMaxLadder];  // offset * step, ascending, in metres
 };
@@ -203,6 +204,19 @@ raycast_kernel(const float* __restrict__ attr, float* __restrict__ p_surf,
     float den = f_hi - f_lo;
     den = fabsf(den) > 1e-30f ? den : 1e-30f;
     t_surf = clipf(t_lo - f_lo * (t_hi - t_lo) / den, t_lo, t_hi);
+  } else if (p.ksec_b > 1) {
+    // k-section (l.408-423): B interior points per pass; with the invariant
+    // f(t_lo) < 0 <= f(t_hi) the crossing lies after the last negative one
+    const float inv = 1.f / (static_cast<float>(p.ksec_b) + 1.f);
+    for (int it = 0; it < p.ksec_p; ++it) {
+      const float wdt = (t_hi - t_lo) * inv;
+      int neg = 0;
+      for (int k = 1; k <= p.ksec_b; ++k)
+        if (field(T, t_lo + wdt * static_cast<float>(k), rx, ry, rz, nullptr) < 0.f) ++neg;
+      t_lo = t_lo + static_cast<float>(neg) * wdt;
+      t_hi = t_lo + wdt;
+    }
+    t_surf = 0.5f * (t_lo + t_hi);
   } else {
     for (int it = 0; it < p.bis_iters; ++it) {
       const float mid = 0.5f * (t_lo + t_hi);
@@ -264,21 +278,24 @@ raycast_kernel(const float* __restrict__ attr, float* __restrict__ p_surf,
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  ``ladder`` is a host array of
-// ``n_ladder`` offsets in metres.  Launches on ``stream`` and returns
+// ``n_ladder`` offsets in metres.  Refinement: false position when
+// ``fp_iters`` > 0, else k-section when ``ksec_b`` > 1, else bisection.  Launches on ``stream`` and returns
 // cudaGetLastError() of the launch (0 = success); returns
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int raycast_core_launch(
     const float* attr, float* p_surf, float* grad, int32_t* nearest,
     uint8_t* found, int h, int w, int radius, int k, int kmin, float conf_t,
-    const float* ladder, int n_ladder, int fp_iters, int bis_iters, float fx,
-    float fy, float cx, float cy, void* stream) {
+    const float* ladder, int n_ladder, int fp_iters, int bis_iters,
+    int ksec_b, int ksec_p, float fx, float fy, float cx, float cy,
+    void* stream) {
   if (h <= 0 || w <= 0 || radius < 0 || radius > kMaxRadius || k < 0 ||
       k > kMaxK || n_ladder < 0 || n_ladder > kMaxLadder || fp_iters < 0 ||
-      bis_iters < 0)
+      bis_iters < 0 || ksec_b < 1 || ksec_p < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.h = h; p.w = w; p.radius = radius; p.k = k; p.kmin = kmin;
   p.n_ladder = n_ladder; p.fp_iters = fp_iters; p.bis_iters = bis_iters;
+  p.ksec_b = ksec_b; p.ksec_p = ksec_p;
   p.conf_t = conf_t; p.fx = fx; p.fy = fy; p.cx = cx; p.cy = cy;
   for (int i = 0; i < kMaxLadder; ++i) p.ladder[i] = i < n_ladder ? ladder[i] : 0.f;
   const dim3 block(kBlockX, kBlockY);

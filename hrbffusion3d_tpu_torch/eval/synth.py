@@ -1,8 +1,8 @@
 """Synthetic RGB-D scene renderer on torch tensors (port of the parts of
 ``hrbffusion3d_tpu/eval/synth.py`` the dense step needs): analytic spheres
 and planes forming a room, exact z-depth and a procedural texture, rendered
-at a camera-to-world pose on the caller's device.  Frames are exact, so no
-random generator is involved.
+at a camera-to-world pose on the scene's device (the card unless the caller
+names another).  Frames are exact, so no random generator is involved.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..config import CameraIntrinsics
-from ..utils.tensors import const
+from ..utils.tensors import const, device_or_card
 
 
 class Scene(NamedTuple):
@@ -26,7 +26,9 @@ class Scene(NamedTuple):
 
 def default_room(device=None, dtype=torch.float32) -> Scene:
     """A 6x6x6 m room centred at the origin with three spheres in front of
-    the default camera start (camera looks down +z)."""
+    the default camera start (camera looks down +z), on ``device`` (default
+    the CUDA card; raises without one unless ``device="cpu"``)."""
+    device = device_or_card(device)
     planes = const([
         [0.0, -1.0, 0.0, -1.5],   # floor y = +1.5 (camera y points down)
         [0.0, 1.0, 0.0, -2.0],    # ceiling y = -2

@@ -1,15 +1,27 @@
-"""Hand-written kernels of the port, with their plain PyTorch versions.
+"""Hand-written kernels of the port: build, binding, launch counts, and the
+ray cast with its plain PyTorch version.
 
-``raycast_core`` is the counterpart of the TPU kernel
-``hrbffusion3d_tpu/ops/pallas_kernels.raycast_core`` (body
-``_raycast_kernel``): the fused HRBF ray cast, written in CUDA C++ for
-sm_90a in ``csrc/raycast.cu``.  The tensor's device picks the path: a CPU
-tensor runs ``raycast_core_ref``; a CUDA tensor launches the kernel or
-raises.  There is no fallback from the kernel to the plain version.
+Four kernels, each the counterpart of a TPU kernel of
+``hrbffusion3d_tpu/ops/pallas_kernels.py``, in CUDA C++ for sm_90a:
 
-The kernel library is built at the first CUDA call with ``nvcc`` into
-``hrbffusion3d_tpu_torch/_build/`` (named by the hash of the source, so a
-changed source is rebuilt) and loaded with ``ctypes``.
+  ==================  ========================  ==========================
+  kernel              source (``csrc/``)        wrapper and plain version
+  ==================  ========================  ==========================
+  raycast_core        raycast.cu                here: ``raycast_core`` /
+                                                ``raycast_core_ref``
+  bilateral_filter    preprocess.cu             ``ops/preprocess.py``
+  normal_pca          preprocess.cu             ``ops/preprocess.py``
+  curvature_gradient  preprocess.cu             ``ops/preprocess.py``
+  ==================  ========================  ==========================
+
+The tensor's device picks the path in every wrapper: a CPU tensor runs the
+plain version; a CUDA tensor launches the kernel or raises.  There is no
+fallback from the kernel to the plain version.
+
+At the first CUDA call ``build`` compiles every source with ``nvcc`` (one
+process per source, all started together) into plain-C shared libraries
+under ``hrbffusion3d_tpu_torch/_build/``, named by the hash of the source so
+a changed source is rebuilt, and loads them with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -17,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,15 +41,30 @@ from ..config import CameraIntrinsics, SLAMConfig
 from ..utils.tensors import const
 
 _PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "raycast.cu"
+_CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
-# launches of the CUDA raycast kernel (one per wrapper call on a CUDA
-# tensor); read and reset by callers to show a run went through the kernel
-RAYCAST_LAUNCHES = 0
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel -> (source in csrc/, C entry point, its argument types before the
+# trailing stream)
+_ENTRIES = {
+    "raycast_core": ("raycast.cu", "raycast_core_launch",
+                     [_P] * 5 + [_I] * 5 + [_F, _P] + [_I] * 5 + [_F] * 4),
+    "bilateral_filter": ("preprocess.cu", "bilateral_filter_launch",
+                         [_P, _P, _I, _I, _F, _F, _I]),
+    "normal_pca": ("preprocess.cu", "normal_pca_launch", [_P, _P, _I, _I, _F]),
+    "curvature_gradient": ("preprocess.cu", "curvature_sums_launch",
+                           [_P, _P, _P, _P, _I, _I, _I, _F]),
+}
 
-_LIB = None
-BUILD_SECONDS = None   # wall time of the nvcc build in this process, if any
+# launches of each kernel (one per wrapper call on a CUDA tensor, counted
+# nowhere else); callers reset and read them to show a run went through
+# the kernels
+LAUNCHES = dict.fromkeys(_ENTRIES, 0)
+BUILD_SECONDS: dict[str, float] = {}   # source -> nvcc wall time in this process
+PTXAS: dict[str, list[str]] = {}       # source -> ptxas register / spill lines
+
+_FNS: dict[str, ctypes._CFuncPtr] = {}
 
 
 def ring_taps(radius: int) -> list[tuple[int, int]]:
@@ -50,16 +78,16 @@ def ring_taps(radius: int) -> list[tuple[int, int]]:
 
 def _variant(cfg: SLAMConfig):
     """(ladder offsets in metres as Python floats, false-position
-    iterations, bisection iterations) of the kernel's refinement."""
-    from .raycast import ladder_offsets
+    iterations, bisection iterations, k-section points per pass, k-section
+    passes) of the kernel's refinement: false position when its count is
+    > 0, else k-section when ``raycast_bisection_batch`` > 1, else
+    bisection."""
+    from .raycast import bisection_plan, ladder_offsets
 
-    if cfg.raycast_bisection_batch > 1:
-        raise NotImplementedError(
-            "the k-section root refinement (raycast_bisection_batch > 1) is "
-            "not ported")
     offs, bis = ladder_offsets(cfg)
     fp = cfg.raycast_false_position if cfg.raycast_geometric_ladder else 0
-    return [float(o * cfg.raycast_coarse_step) for o in offs], fp, bis
+    ksec_b, ksec_p = bisection_plan(cfg)
+    return [float(o * cfg.raycast_coarse_step) for o in offs], fp, bis, ksec_b, ksec_p
 
 
 def _nvcc() -> str:
@@ -69,39 +97,109 @@ def _nvcc() -> str:
     cand = Path("/usr/local/cuda/bin/nvcc")
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA raycast kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; returns the handle."""
-    global _LIB, BUILD_SECONDS
-    if _LIB is not None:
-        return _LIB
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
-    lib_path = _BUILD / f"libraycast_{digest}.so"
-    if not lib_path.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = _BUILD / f".libraycast_{digest}.{os.getpid()}.so"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(tmp), str(_SRC)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-        BUILD_SECONDS = time.perf_counter() - t0
-        ptxas = [ln for ln in proc.stderr.splitlines() if "registers" in ln or "spill" in ln]
-        if ptxas:
-            print("raycast.cu ptxas: " + " | ".join(s.strip() for s in ptxas), flush=True)
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.raycast_core_launch
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, F, P, I, I, I, F, F, F, F, P]
-    fn.restype = ctypes.c_int
-    _LIB = lib
-    return lib
+def _ptxas_lines(log: str) -> list[str]:
+    """``kernel: registers ... | spills ...`` per entry function of an
+    ``nvcc -Xptxas -v`` log."""
+    out, name, info = [], None, []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            if name:
+                out.append(f"{name}: " + " | ".join(info))
+            mangled = ln.split("'")[1]
+            short = re.search(r"([a-z]+_kernel)", mangled)
+            name, info = short.group(1) if short else mangled, []
+        elif name and ("registers" in ln or "spill" in ln):
+            info.append(ln.split(":", 1)[-1].strip())
+    if name:
+        out.append(f"{name}: " + " | ".join(info))
+    return out
+
+
+def build() -> dict[str, ctypes._CFuncPtr]:
+    """Build (where needed) and load every kernel source; returns the bound
+    C entry points by kernel name.  The nvcc processes run in parallel, and
+    none outlives this call."""
+    if _FNS:
+        return _FNS
+    sources = sorted({src for src, _, _ in _ENTRIES.values()})
+    lib_paths, procs = {}, {}
+    try:
+        for src in sources:
+            path = _CSRC / src
+            digest = hashlib.sha256(path.read_bytes()).hexdigest()[:16]
+            lib_paths[src] = _BUILD / f"lib{path.stem}_{digest}.so"
+            if lib_paths[src].exists():
+                continue
+            _BUILD.mkdir(parents=True, exist_ok=True)
+            tmp = _BUILD / f".lib{path.stem}_{digest}.{os.getpid()}.so"
+            log = open(_BUILD / f"{path.stem}_{digest}.{os.getpid()}.log", "w+")
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                   "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                   "-o", str(tmp), str(path)]
+            procs[src] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                          tmp, log, time.perf_counter())
+        while procs:
+            for src in [s for s, (p, *_) in procs.items() if p.poll() is not None]:
+                proc, tmp, log, t0 = procs.pop(src)
+                BUILD_SECONDS[src] = time.perf_counter() - t0
+                log.seek(0)
+                text = log.read()
+                log.close()
+                os.unlink(log.name)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc {src} failed ({proc.returncode}):\n{text}")
+                os.replace(tmp, lib_paths[src])
+                PTXAS[src] = _ptxas_lines(text)
+            time.sleep(0.05)
+    finally:
+        for proc, *_ in procs.values():
+            proc.kill()
+            proc.wait()
+    libs = {src: ctypes.CDLL(str(path)) for src, path in lib_paths.items()}
+    fns = {}
+    for name, (src, entry, argtypes) in _ENTRIES.items():
+        fn = getattr(libs[src], entry)
+        fn.argtypes = argtypes + [_P]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    _FNS.update(fns)
+    return _FNS
+
+
+def on_card(name: str, x: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs), True for a CUDA
+    tensor (the kernel runs); raises for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return True
+
+
+def check_input(name: str, x: torch.Tensor, shape: tuple[int, ...]) -> None:
+    """Raise unless ``x`` is a contiguous float32 tensor of ``shape``."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: input must be float32, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: input shape {tuple(x.shape)} != {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+
+
+def launch(name: str, like: torch.Tensor, *args) -> None:
+    """Launch kernel ``name`` with the C arguments ``args`` on the current
+    stream of ``like``'s device; raises if the launch fails and counts it
+    in ``LAUNCHES`` if it does not."""
+    fn = build()[name]
+    with torch.cuda.device(like.device):
+        stream = torch.cuda.current_stream(like.device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    LAUNCHES[name] += 1
 
 
 def raycast_core(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfig):
@@ -112,43 +210,29 @@ def raycast_core(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfig):
     index (H,W) int32, found (H,W) bool) — the output contract of the TPU
     kernel.  CPU tensors run ``raycast_core_ref``; CUDA tensors launch the
     kernel."""
-    global RAYCAST_LAUNCHES
-    if attr9.device.type == "cpu":
+    if not on_card("raycast_core", attr9):
         return raycast_core_ref(attr9, intr, cfg)
-    if attr9.device.type != "cuda":
-        raise ValueError(f"raycast_core: unsupported device {attr9.device}")
     h, w = intr.height, intr.width
-    if attr9.dtype != torch.float32:
-        raise TypeError(f"raycast_core: attr9 must be float32, got {attr9.dtype}")
-    if tuple(attr9.shape) != (h, w, 9):
-        raise ValueError(f"raycast_core: attr9 shape {tuple(attr9.shape)} != {(h, w, 9)}")
-    if not attr9.is_contiguous():
-        raise ValueError("raycast_core: attr9 must be contiguous")
+    check_input("raycast_core", attr9, (h, w, 9))
     if cfg.predict_max_neighbors > 16 or cfg.predict_window_multiplier > 7:
         raise ValueError("raycast_core: the kernel takes predict_max_neighbors <= 16 "
                          "and predict_window_multiplier <= 7")
-    ladder, fp, bis = _variant(cfg)
+    ladder, fp, bis, ksec_b, ksec_p = _variant(cfg)
     if len(ladder) > 64:
         raise ValueError("raycast_core: the kernel takes at most 64 ladder taps")
-    lib = build()
     dev = attr9.device
     p_surf = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     grad = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     nearest = torch.empty((h, w), dtype=torch.int32, device=dev)
     found = torch.empty((h, w), dtype=torch.bool, device=dev)
     lad = (ctypes.c_float * max(len(ladder), 1))(*ladder)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.raycast_core_launch(
-            attr9.data_ptr(), p_surf.data_ptr(), grad.data_ptr(),
-            nearest.data_ptr(), found.data_ptr(), h, w,
-            cfg.predict_window_multiplier, cfg.predict_max_neighbors,
-            cfg.predict_min_neighbors, cfg.predict_conf_threshold,
-            ctypes.cast(lad, ctypes.c_void_p), len(ladder), fp, bis,
-            intr.fx, intr.fy, intr.cx, intr.cy, stream)
-    if rc != 0:
-        raise RuntimeError(f"raycast_core: CUDA launch failed with error {rc}")
-    RAYCAST_LAUNCHES += 1
+    launch("raycast_core", attr9,
+           attr9.data_ptr(), p_surf.data_ptr(), grad.data_ptr(),
+           nearest.data_ptr(), found.data_ptr(), h, w,
+           cfg.predict_window_multiplier, cfg.predict_max_neighbors,
+           cfg.predict_min_neighbors, cfg.predict_conf_threshold,
+           ctypes.cast(lad, ctypes.c_void_p), len(ladder), fp, bis, ksec_b, ksec_p,
+           intr.fx, intr.fy, intr.cx, intr.cy)
     return p_surf, grad, nearest, found
 
 
@@ -161,11 +245,13 @@ def _ring_patches(attr9: torch.Tensor, radius: int, rows: slice, w: int) -> torc
     return torch.stack(taps, dim=2).reshape((h1 - h0) * w, len(taps), 9)
 
 
-def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfig):
+def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfig,
+                     stats: bool = False):
     """Plain PyTorch version of ``raycast_core`` (same semantics, vectorised
     over (pixels, 49 taps) in chunks of whole image rows holding about
-    ``cfg.raycast_chunk`` pixels)."""
-    ladder, fp, bis = _variant(cfg)
+    ``cfg.raycast_chunk`` pixels).  With ``stats``, a fifth output: the
+    (H, W) number of selected taps (stable, capped at K)."""
+    ladder, fp, bis, ksec_b, ksec_p = _variant(cfg)
     R = cfg.predict_window_multiplier
     K = cfg.predict_max_neighbors
     kmin = cfg.predict_min_neighbors
@@ -252,6 +338,16 @@ def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfi
                 t_lo, f_lo = torch.where(neg, mid, t_lo), torch.where(neg, fm, f_lo)
                 t_hi, f_hi = torch.where(neg, t_hi, mid), torch.where(neg, f_hi, fm)
             t_surf = falsi_point(t_lo, t_hi, f_lo, f_hi)
+        elif ksec_b > 1:
+            frac = torch.arange(1, ksec_b + 1, dtype=torch.float32, device=dev)
+            for _ in range(ksec_p):
+                wdt = (t_hi - t_lo) * (1.0 / (ksec_b + 1.0))
+                fs = field(t_lo[:, None] + wdt[:, None] * frac)[0]      # (C, B)
+                # invariant f(t_lo) < 0 <= f(t_hi): the crossing lies after
+                # the last negative interior point
+                t_lo = t_lo + (fs < 0).sum(dim=1).to(torch.float32) * wdt
+                t_hi = t_lo + wdt
+            t_surf = 0.5 * (t_lo + t_hi)
         else:
             for _ in range(bis):
                 mid = 0.5 * (t_lo + t_hi)
@@ -279,8 +375,9 @@ def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfi
         # 1e12 start
         first_min = torch.argmax((d2n == best).to(torch.int32), dim=1)
         nearest = torch.where(best[:, 0] < 1e12, first_min, 0).to(torch.int32)
-        outs.append((p_surf, grad, nearest, found))
+        outs.append((p_surf, grad, nearest, found, n_sel))
 
-    p_surf, grad, nearest, found = (torch.cat(o, dim=0) for o in zip(*outs))
-    return (p_surf.reshape(h, w, 3), grad.reshape(h, w, 3),
-            nearest.reshape(h, w), found.reshape(h, w))
+    p_surf, grad, nearest, found, n_sel = (torch.cat(o, dim=0) for o in zip(*outs))
+    out = (p_surf.reshape(h, w, 3), grad.reshape(h, w, 3),
+           nearest.reshape(h, w), found.reshape(h, w))
+    return (*out, n_sel.reshape(h, w)) if stats else out

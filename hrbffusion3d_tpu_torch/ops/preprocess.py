@@ -1,6 +1,13 @@
 """Per-frame preprocessing on torch tensors (port of
-``hrbffusion3d_tpu/ops/preprocess.py``, the XLA formulations):
-bilateral depth filter, vertex/normal/radius, HRBF curvature, confidence.
+``hrbffusion3d_tpu/ops/preprocess.py``): bilateral depth filter,
+vertex/normal/radius, HRBF curvature, confidence.
+
+Three stencils are hand-written CUDA kernels (``csrc/preprocess.cu``, the
+counterparts of the TPU kernels ``bilateral_filter``, ``normal_pca`` and
+``curvature_gradient`` of ``hrbffusion3d_tpu/ops/pallas_kernels.py``).  Each
+wrapper here keeps the JAX package's name and launches its kernel for a CUDA
+tensor; a CPU tensor runs the plain version beside it (``*_ref``), which is
+the one place the semantics are written.
 """
 
 from __future__ import annotations
@@ -13,14 +20,34 @@ import torch.nn.functional as F
 
 from ..config import CameraIntrinsics, SLAMConfig
 from ..core import camera
-from . import hrbf
+from . import hrbf, kernels
 from .patches import extract_patches
 
 
-def bilateral_filter(depth: torch.Tensor, cfg: SLAMConfig) -> torch.Tensor:
+def bilateral_filter(depth: torch.Tensor, cfg: SLAMConfig,
+                     pallas_form: bool = False) -> torch.Tensor:
+    """Bilateral filter on metric depth (H, W): the CUDA kernel for a CUDA
+    tensor, ``bilateral_filter_ref`` for a CPU tensor.  ``pallas_form``
+    picks the denominator (see the plain version)."""
+    if not kernels.on_card("bilateral_filter", depth):
+        return bilateral_filter_ref(depth, cfg, pallas_form)
+    h, w = depth.shape
+    kernels.check_input("bilateral_filter", depth, (h, w))
+    out = torch.empty_like(depth)
+    kernels.launch("bilateral_filter", depth, depth.data_ptr(), out.data_ptr(), h, w,
+                   cfg.depth_min, cfg.depth_cutoff, int(pallas_form))
+    return out
+
+
+def bilateral_filter_ref(depth: torch.Tensor, cfg: SLAMConfig,
+                         pallas_form: bool = False, stats: bool = False):
     """depth_bilateral.frag: R=6 window, sigma_space 4.5 px, sigma_color
-    30 mm; depths outside (depth_min, depth_cutoff] are zeroed first and
-    invalid in-image neighbours stay in the denominator (shader-exact)."""
+    30 mm; depths outside (depth_min, depth_cutoff] are zeroed first.
+    Out-of-image taps are absent.  Denominator: the shader form (default,
+    the JAX package's XLA version) keeps invalid in-image neighbours in it;
+    the Pallas form (``pallas_form=True``, the TPU kernel's) drops every
+    neighbour of depth 0.  With ``stats``, returns (filtered depth, the
+    (H, W) count of weighted taps, 0 where the output is 0)."""
     d = torch.where((depth > cfg.depth_min) & (depth <= cfg.depth_cutoff), depth, 0.0)
     R = 6
     sigma_space2_inv_half = 0.024691358  # 0.5 / 4.5^2
@@ -33,12 +60,13 @@ def bilateral_filter(depth: torch.Tensor, cfg: SLAMConfig) -> torch.Tensor:
     space2 = dy * dy + dx * dx
     color2 = (d[..., None] - patches) ** 2
     w = torch.exp(-(space2 * sigma_space2_inv_half + color2 * sigma_color2_inv_half))
-    inb = extract_patches(torch.ones_like(d), R) > 0
-    w = torch.where(inb, w, 0.0)
+    in_image = extract_patches(torch.ones_like(d), R) > 0
+    keep = patches > 0 if pallas_form else in_image
+    w = torch.where(keep, w, 0.0)
     num = torch.sum(patches * w, dim=-1)
     den = torch.sum(w, dim=-1)
-    out = num / torch.clamp(den, min=1e-12)
-    return torch.where(d > 0, out, 0.0)
+    out = torch.where(d > 0, num / torch.clamp(den, min=1e-12), 0.0)
+    return (out, torch.where(d > 0, keep.sum(-1), 0)) if stats else out
 
 
 def _smallest_eigvec_3x3(A: torch.Tensor) -> torch.Tensor:
@@ -93,9 +121,24 @@ def _window_slices(x: torch.Tensor, radius: int):
 
 
 def normal_pca(vertex_f: torch.Tensor, cfg: SLAMConfig) -> torch.Tensor:
+    """PCA normals (H, W, 3) of a filtered vertex map: the CUDA kernel for
+    a CUDA tensor, ``normal_pca_ref`` for a CPU tensor."""
+    if not kernels.on_card("normal_pca", vertex_f):
+        return normal_pca_ref(vertex_f, cfg)
+    h, w = vertex_f.shape[:2]
+    kernels.check_input("normal_pca", vertex_f, (h, w, 3))
+    out = torch.empty_like(vertex_f)
+    kernels.launch("normal_pca", vertex_f, vertex_f.data_ptr(), out.data_ptr(), h, w,
+                   cfg.depth_min)
+    return out
+
+
+def normal_pca_ref(vertex_f: torch.Tensor, cfg: SLAMConfig, stats: bool = False):
     """PCA normal over a 7x7 window: neighbours with z > depth_min and
     |dz| < 0.05, >= 8 of them, smallest covariance eigenvector flipped to
-    n_z > 0.  Moments accumulate in centre-relative coordinates."""
+    n_z > 0, 0 where invalid.  Moments accumulate in centre-relative
+    coordinates (raw coordinates lose ~6 digits in float32).  With
+    ``stats``, returns (normals, the (H, W) count of accepted neighbours)."""
     R = 3
     h, w_ = vertex_f.shape[:2]
     z = vertex_f[..., 2]
@@ -119,7 +162,8 @@ def normal_pca(vertex_f: torch.Tensor, cfg: SLAMConfig) -> torch.Tensor:
     n = _smallest_eigvec_3x3(cov)
     n = n * torch.where(n[..., 2:3] < 0, -1.0, 1.0)
     ok = (cnt >= 8) & (z > cfg.depth_min)
-    return torch.where(ok[..., None], n, 0.0)
+    normals = torch.where(ok[..., None], n, 0.0)
+    return (normals, cnt) if stats else normals
 
 
 class VertexNormalRadius(NamedTuple):
@@ -167,20 +211,60 @@ class CurvatureResult(NamedTuple):
 def curvature_gradient(pre: VertexNormalRadius, intr: CameraIntrinsics,
                        cfg: SLAMConfig) -> CurvatureResult:
     """HRBF curvature/gradient pass (depth_curvature_gradient.frag:28-142):
-    per window offset, add the neighbour's direct (grad f, hess f)
-    contribution into image-sized accumulators; > 15 supports required."""
-    R = cfg.curv_window
-    v = pre.vertex_filtered
-    n = pre.normal
+    the window sums (``curvature_sums``: the CUDA kernel for CUDA tensors),
+    then the per-pixel epilogue in torch ops."""
+    sums = curvature_sums(pre.vertex_filtered, pre.normal, pre.radius, cfg)
+    return _curvature_epilogue(sums, pre, intr, cfg)
+
+
+def curvature_gradient_ref(pre: VertexNormalRadius, intr: CameraIntrinsics,
+                           cfg: SLAMConfig) -> CurvatureResult:
+    """Plain version of ``curvature_gradient``: the plain window sums and
+    the same epilogue, on any device."""
+    sums = curvature_sums_ref(pre.vertex_filtered, pre.normal, pre.radius, cfg)
+    return _curvature_epilogue(sums, pre, intr, cfg)
+
+
+def curvature_sums(v: torch.Tensor, n: torch.Tensor, rad: torch.Tensor,
+                   cfg: SLAMConfig) -> torch.Tensor:
+    """The (H, W, 10) window sums of ``curvature_sums_ref``: the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    if not kernels.on_card("curvature_gradient", v):
+        return curvature_sums_ref(v, n, rad, cfg)
     h, w = v.shape[:2]
-    vc = v.reshape(h * w, 3)
-    nc = n.reshape(h * w, 3)
+    for x, shape in ((v, (h, w, 3)), (n, (h, w, 3)), (rad, (h, w))):
+        kernels.check_input("curvature_gradient", x, shape)
+    if not 0 <= cfg.curv_window <= 7:
+        raise ValueError("curvature_gradient: the kernel takes curv_window <= 7")
+    acc = torch.empty((h, w, 10), dtype=torch.float32, device=v.device)
+    kernels.launch("curvature_gradient", v, v.data_ptr(), n.data_ptr(), rad.data_ptr(),
+                   acc.data_ptr(), h, w, cfg.curv_window, cfg.depth_min)
+    return acc
+
+
+def curvature_sums_ref(v: torch.Tensor, n: torch.Tensor, radius: torch.Tensor,
+                       cfg: SLAMConfig, stats: bool = False):
+    """(H, W, 10) = [grad f (3) | hess f as h6 (6) | count] at each centre
+    vertex: per window offset ((2 curv_window + 1)^2, row-major), add the
+    neighbour's direct (grad f, hess f) contribution where it passes the
+    mask (|dz| < 0.10, z > depth_min, |n|^2 > 0.64).  Every masked
+    neighbour counts, inside its support or not.
+
+    With ``stats``, returns (sums, scale, inside): ``scale`` (H, W, 10) is
+    the sum over taps of each contribution's magnitude (the 1-norm of its
+    gradient part in channels 0-2, of its h6 part in 3-8, 0 for the
+    count), the yardstick of the sums' float rounding; ``inside`` (H, W) is
+    the number of masked taps whose support holds the centre."""
+    R = cfg.curv_window
+    h, w = v.shape[:2]
     z_c = v[..., 2]
     grad = torch.zeros((h, w, 3), dtype=v.dtype, device=v.device)
     h6 = torch.zeros((h, w, 6), dtype=v.dtype, device=v.device)
     cnt = torch.zeros((h, w), dtype=torch.int32, device=v.device)
+    scale = torch.zeros((h, w, 2), dtype=v.dtype, device=v.device)
+    inside = torch.zeros((h, w), dtype=torch.int32, device=v.device)
     for nb_v, nb_n, nb_r in zip(_window_slices(v, R), _window_slices(n, R),
-                                _window_slices(pre.radius, R)):
+                                _window_slices(radius, R)):
         mask = ((torch.abs(nb_v[..., 2] - z_c) < 0.10)
                 & (nb_v[..., 2] > cfg.depth_min)
                 & (torch.sum(nb_n * nb_n, dim=-1) > 0.64))
@@ -190,14 +274,33 @@ def curvature_gradient(pre: VertexNormalRadius, intr: CameraIntrinsics,
         grad += g_c
         h6 += h_c
         cnt += mask.to(torch.int32)
+        if stats:
+            scale += torch.stack([g_c.abs().sum(-1), h_c.abs().sum(-1)], dim=-1)
+            inside += (mask & (d2 <= nb_r * nb_r) & (d2 > 0.0)).to(torch.int32)
+    sums = torch.cat([grad, h6, cnt.to(v.dtype)[..., None]], dim=-1)
+    if not stats:
+        return sums
+    scale = torch.cat([scale[..., 0:1].expand(h, w, 3), scale[..., 1:2].expand(h, w, 6),
+                       torch.zeros_like(scale[..., 0:1])], dim=-1)
+    return sums, scale, inside
 
-    grad = grad.reshape(h * w, 3)
-    H = hrbf.hess_from_h6(h6.reshape(h * w, 6))
+
+def _curvature_epilogue(acc: torch.Tensor, pre: VertexNormalRadius,
+                        intr: CameraIntrinsics, cfg: SLAMConfig) -> CurvatureResult:
+    """Principal curvatures, gradient magnitude, optimised normal and
+    radius from the window sums; > 15 supports required."""
+    h, w = acc.shape[:2]
+    vc = pre.vertex_filtered.reshape(h * w, 3)
+    nc = pre.normal.reshape(h * w, 3)
+    acc = acc.reshape(h * w, 10)
+    grad = acc[:, 0:3]
+    cnt = acc[:, 9]
+    H = hrbf.hess_from_h6(acc[:, 3:9])
     k1, k2, d1, d2, kvalid = hrbf.principal_curvatures(grad, H)
     gmag = torch.abs(torch.sum(grad * nc, dim=-1))
     gn = grad / torch.clamp(torch.linalg.vector_norm(grad, dim=-1, keepdim=True), min=1e-20)
     center_ok = (vc[..., 2] > cfg.depth_min) & (torch.linalg.vector_norm(nc, dim=-1) > 0.5)
-    ok = (cnt.reshape(h * w) > 15) & kvalid & center_ok
+    ok = (cnt > 15) & kvalid & center_ok
     ok3 = ok[..., None]
     gn = torch.where(ok3, gn, 0.0)
     rad_opt = torch.where(

@@ -50,8 +50,10 @@ class FrameInput(NamedTuple):
 
 
 def _preprocess(frame: FrameInput, intr: CameraIntrinsics, cfg: SLAMConfig):
-    """filter -> vertex/normal/radius -> curvature/gradient -> update normal."""
-    depth_f = (preprocess.bilateral_filter(frame.depth, cfg)
+    """filter -> vertex/normal/radius -> curvature/gradient -> update normal.
+    ``cfg.use_pallas`` picks the bilateral denominator as the JAX step's
+    choice of filter does (shader form when False, Pallas form when True)."""
+    depth_f = (preprocess.bilateral_filter(frame.depth, cfg, pallas_form=cfg.use_pallas)
                if cfg.use_bilateral_filter else frame.depth)
     pre = preprocess.vertex_normal_radius(frame.depth, depth_f, intr, cfg)
     curv = preprocess.curvature_gradient(pre, intr, cfg)

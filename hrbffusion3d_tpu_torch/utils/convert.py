@@ -1,9 +1,12 @@
-"""Carry SLAM state across between the JAX package and the port.
+"""Carry SLAM state and configuration across between the JAX package and
+the port, without importing the JAX package.
 
-The surfel map is the system's "weights": with these two functions a JAX
-``SLAMState`` (its fields turned into numpy arrays, the map flattened to
-``map.data`` / ``map.count``) becomes a port ``SLAMState`` on a device, and
-back, exactly.
+The surfel map is the system's "weights": with ``state_from_numpy`` /
+``state_to_numpy`` a JAX ``SLAMState`` (its fields turned into numpy
+arrays, the map flattened to ``map.data`` / ``map.count``) becomes a port
+``SLAMState`` on a device, and back, exactly.  ``config_from_fields`` and
+``intrinsics_from_fields`` take ``dataclasses.asdict`` of a JAX
+``SLAMConfig`` / ``CameraIntrinsics`` and give the port's own.
 """
 
 from __future__ import annotations
@@ -11,10 +14,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import CameraIntrinsics, SLAMConfig
 from ..map.surfel_map import SurfelMap
 from ..pipeline.slam import SLAMState
 
 _HOST_INTS = ("time", "submap_idx")
+
+
+def config_from_fields(fields: dict) -> SLAMConfig:
+    """``dataclasses.asdict`` of a JAX ``SLAMConfig`` -> the port's; a field
+    the port's copy lacks raises ``TypeError``."""
+    return SLAMConfig(**fields)
+
+
+def intrinsics_from_fields(fields: dict) -> CameraIntrinsics:
+    """``dataclasses.asdict`` of a JAX ``CameraIntrinsics`` -> the port's."""
+    return CameraIntrinsics(**fields)
 
 
 def state_from_numpy(fields: dict[str, np.ndarray], device) -> SLAMState:

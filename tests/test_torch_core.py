@@ -1,4 +1,5 @@
-"""Parity of the port's core math (lie, camera, patches, hrbf) and of its
+"""Parity of the port's core math (lie, camera, patches, hrbf), of its own
+copies of the configuration and the trajectory metrics, and of its
 synthetic-frame renderer with the JAX package, on the same seeded numpy
 inputs.
 
@@ -6,18 +7,24 @@ Tolerance: atol 1e-6 (both sides are float32 with the same formulas; the
 gap is operation order), 1e-5 where the JAX suite already allows it for the
 HRBF derivatives (tests/test_hrbf.py)."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity_utils import INTR, jax_frames, n, port_frames, t
+from torch_parity_utils import INTR, PINTR, jax_frames, n, port_cfg, port_frames, port_intr, t
 
+from hrbffusion3d_tpu import config as jconfig
 from hrbffusion3d_tpu.core import camera as jcam
+from hrbffusion3d_tpu.eval import ate as jate
 from hrbffusion3d_tpu.core import lie as jlie
 from hrbffusion3d_tpu.ops import hrbf as jhrbf
 from hrbffusion3d_tpu.ops import patches as jpatches
 from hrbffusion3d_tpu_torch.core import camera as tcam
+from hrbffusion3d_tpu_torch import config as tconfig
 from hrbffusion3d_tpu_torch.core import lie as tlie
+from hrbffusion3d_tpu_torch.eval import ate as tate
 from hrbffusion3d_tpu_torch.eval import synth as tsynth
 from hrbffusion3d_tpu_torch.ops import hrbf as thrbf
 from hrbffusion3d_tpu_torch.ops import patches as tpatches
@@ -54,18 +61,18 @@ def test_lie_se3_and_orthonormalise():
 def test_camera():
     depth = RNG.uniform(0.0, 3.0, (INTR.height, INTR.width)).astype(np.float32)
     depth[::7, ::5] = 0.0
-    np.testing.assert_allclose(n(tcam.unproject(t(depth), INTR)),
+    np.testing.assert_allclose(n(tcam.unproject(t(depth), PINTR)),
                                n(jcam.unproject(jnp.asarray(depth), INTR)), atol=1e-6)
     pts = RNG.uniform([-1, -1, 0.2], [1, 1, 3], (500, 3)).astype(np.float32)
-    for a, b in zip(tcam.project(t(pts), INTR), jcam.project(jnp.asarray(pts), INTR)):
+    for a, b in zip(tcam.project(t(pts), PINTR), jcam.project(jnp.asarray(pts), INTR)):
         np.testing.assert_allclose(n(a), n(b), rtol=1e-6, atol=1e-6)
     u, v, _ = jcam.project(jnp.asarray(pts), INTR)
-    for a, b in zip(tcam.in_bounds(t(u), t(v), INTR), jcam.in_bounds(u, v, INTR)):
+    for a, b in zip(tcam.in_bounds(t(u), t(v), PINTR), jcam.in_bounds(u, v, INTR)):
         np.testing.assert_array_equal(n(a), n(b))
-    for a, b in zip(tcam.pixel_grid(5, 7), jcam.pixel_grid(5, 7)):
+    for a, b in zip(tcam.pixel_grid(5, 7, "cpu"), jcam.pixel_grid(5, 7)):
         np.testing.assert_array_equal(n(a), n(b))
-    assert tcam.mean_focal(INTR) == jcam.mean_focal(INTR)
-    assert tcam.max_radial_dist(INTR) == jcam.max_radial_dist(INTR)
+    assert tcam.mean_focal(PINTR) == jcam.mean_focal(INTR)
+    assert tcam.max_radial_dist(PINTR) == jcam.max_radial_dist(INTR)
 
 
 @pytest.mark.parametrize("shape,radius,fill", [((6, 9), 2, 0.0), ((6, 9, 3), 1, -1.0)])
@@ -73,7 +80,7 @@ def test_patches(shape, radius, fill):
     x = RNG.standard_normal(shape).astype(np.float32)
     np.testing.assert_array_equal(n(tpatches.extract_patches(t(x), radius, fill)),
                                   n(jpatches.extract_patches(jnp.asarray(x), radius, fill)))
-    np.testing.assert_array_equal(n(tpatches.window_offsets(radius)),
+    np.testing.assert_array_equal(n(tpatches.window_offsets(radius, "cpu")),
                                   n(jpatches.window_offsets(radius)))
 
 
@@ -184,3 +191,59 @@ def test_synth_matches_jax():
         # the cell-hash texture multiplies sin() rounding (1 ulp ~ 6e-8) by
         # 0.35 * 43758: ~1e-3 on the hashed cells
         np.testing.assert_allclose(ct, cj, atol=3e-3)
+
+
+@pytest.mark.parametrize("name", ["default", "small_test", "TUM1"])
+def test_config_copy_matches_jax(name):
+    """The port's own config.py: every field and default of the JAX
+    package's, and the converters of tests/torch_parity_utils.py give the
+    port's classes."""
+    if name == "TUM1":
+        jax_obj, port_obj = jconfig.TUM1, tconfig.TUM1
+        assert port_intr(jax_obj) == port_obj
+        assert port_obj.level(2) == port_intr(jax_obj.level(2))
+    else:
+        make = "SLAMConfig" if name == "default" else "small_test_config"
+        jax_obj, port_obj = getattr(jconfig, make)(), getattr(tconfig, make)()
+        assert port_cfg(jax_obj) == port_obj
+        assert [f.name for f in dataclasses.fields(port_obj)] == \
+            [f.name for f in dataclasses.fields(jax_obj)]
+    assert type(port_obj).__module__ == "hrbffusion3d_tpu_torch.config"
+    assert dataclasses.asdict(port_obj) == dataclasses.asdict(jax_obj)
+
+
+def test_ate_copy_matches_jax():
+    """The port's own eval/ate.py against the JAX package's on a seeded
+    noisy trajectory (the same numpy code: equal to float64 rounding)."""
+    rng = np.random.default_rng(5)
+    gt = tsynth.orbit_trajectory(12, angle_per_frame=0.02).astype(np.float64)
+    est = gt.copy()
+    est[:, :3, 3] += 0.01 * rng.standard_normal((12, 3))
+    est[:, :3, :3] = np.asarray(jlie.so3_exp(jnp.asarray(
+        0.01 * rng.standard_normal((12, 3)), jnp.float32))) @ est[:, :3, :3]
+    for align in (True, False):
+        assert tate.ate_rmse(est, gt, align=align) == pytest.approx(
+            jate.ate_rmse(est, gt, align=align), rel=1e-12)
+    for delta in (1, 3):
+        np.testing.assert_allclose(tate.rpe_rmse(est, gt, delta), jate.rpe_rmse(est, gt, delta),
+                                   rtol=1e-12)
+    for a, b in zip(tate.align_umeyama(est[:, :3, 3], gt[:, :3, 3], with_scale=True),
+                    jate.align_umeyama(est[:, :3, 3], gt[:, :3, 3], with_scale=True)):
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-15)
+
+
+def test_default_device_is_the_card():
+    """Functions that make tensors without an input to take the device from
+    default to the CUDA card: without one they raise, and the CPU is taken
+    only when asked for."""
+    if torch.cuda.is_available():
+        assert tsynth.default_room().planes.device.type == "cuda"
+    else:
+        for make in (tsynth.default_room, lambda: tcam.pixel_grid(2, 3),
+                     lambda: tpatches.window_offsets(1)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+    scene = tsynth.default_room("cpu")
+    assert scene.planes.device.type == scene.spheres.device.type == "cpu"
+    depth, _ = tsynth.render_frame(scene, np.eye(4, dtype=np.float32), PINTR)
+    assert depth.device.type == "cpu" and (depth > 0).all()

@@ -1,6 +1,7 @@
-"""The port runs where there is no JAX: importing the package, every one of
-its submodules and ``chip_smoke``'s imports leaves ``jax`` out of
-``sys.modules``.
+"""The port runs where there is no JAX and stands alone from the JAX
+package: importing the package, every one of its submodules and
+``chip_smoke``'s imports leaves ``jax`` and every ``hrbffusion3d_tpu``
+module out of ``sys.modules``.
 
 It runs in a fresh interpreter, because ``tests/conftest.py`` imports jax
 into the test process itself."""
@@ -18,12 +19,14 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # its imports only: main() runs under __main__
-leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "hrbffusion3d_tpu")
+                or m.startswith(("jax.", "jaxlib", "hrbffusion3d_tpu.")))
 print(len(names), leaked)
 """
 
 
-def test_port_imports_without_jax():
+def test_port_imports_without_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

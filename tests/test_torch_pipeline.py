@@ -3,10 +3,12 @@
 loops against plain ``bootstrap`` + ``step`` calls (exact: the same calls
 in the same order)."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from torch_parity_utils import CFG, INTR, n, port_frames, t
+from torch_parity_utils import CFG, PCFG, PINTR, n, port_frames, t
 
 from hrbffusion3d_tpu.map import surfel_map as jsm
 from hrbffusion3d_tpu.pipeline import slam as jslam
@@ -26,8 +28,8 @@ def test_ensure_capacity_matches_jax(count, threshold):
     tm = tsm.empty_map(cap, "cpu")._replace(count=t(np.int32(count)))
     ts = tslam.SLAMState(*([tm] + [None] * (len(tslam.SLAMState._fields) - 1)))
     js2, jcfg = jslam.ensure_capacity(js, CFG, threshold=threshold)
-    ts2, tcfg = tslam.ensure_capacity(ts, CFG, threshold=threshold)
-    assert tcfg == jcfg
+    ts2, tcfg = tslam.ensure_capacity(ts, PCFG, threshold=threshold)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert (tcfg.map_capacity > cap) == (count > threshold * cap)
     np.testing.assert_array_equal(n(ts2.map.data), n(js2.map.data))
 
@@ -38,18 +40,18 @@ def _frames():
 
 def test_run_sequence_replay():
     """Replay mode takes the given poses as they are."""
-    state, poses = tslam.run_sequence(_frames(), INTR, CFG, input_trajectory=POSES)
+    state, poses = tslam.run_sequence(_frames(), PINTR, PCFG, input_trajectory=POSES)
     np.testing.assert_array_equal(poses, POSES)
     assert state.time == len(FRAMES)
 
 
 def test_step_many_and_run_sequence_match_steps():
     frames = _frames()
-    s = tslam.bootstrap(frames[0], INTR, CFG, init_pose=POSES[0])
-    s_many, ts = tslam.step_many(s, frames[1:], INTR, CFG)
-    s_seq, poses = tslam.run_sequence(frames, INTR, CFG, init_pose=POSES[0], grow=False)
+    s = tslam.bootstrap(frames[0], PINTR, PCFG, init_pose=POSES[0])
+    s_many, ts = tslam.step_many(s, frames[1:], PINTR, PCFG)
+    s_seq, poses = tslam.run_sequence(frames, PINTR, PCFG, init_pose=POSES[0], grow=False)
     for i, f in enumerate(frames[1:]):
-        s = tslam.step(s, f, INTR, CFG)
+        s = tslam.step(s, f, PINTR, PCFG)
         np.testing.assert_array_equal(n(ts[i]), n(s.t))
         np.testing.assert_array_equal(poses[i + 1, :3, 3], n(s.t))
     for a in (s_many, s_seq):

@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from torch_parity_utils import CFG, INTR, n, port_frames, t
+from torch_parity_utils import CFG, INTR, PCFG, PINTR, n, port_frames, t
 
 from hrbffusion3d_tpu.ops import preprocess as jpre
 from hrbffusion3d_tpu.ops import pyramid as jpyr
@@ -28,9 +28,9 @@ def pre_pair():
     dj = jpre.bilateral_filter(jnp.asarray(DEPTH), CFG)
     prej = jpre.vertex_normal_radius(jnp.asarray(DEPTH), dj, INTR, CFG)
     curvj = jpre.curvature_gradient(prej, INTR, CFG)
-    dt = tpre.bilateral_filter(t(DEPTH), CFG)
-    pret = tpre.vertex_normal_radius(t(DEPTH), dt, INTR, CFG)
-    curvt = tpre.curvature_gradient(pret, INTR, CFG)
+    dt = tpre.bilateral_filter(t(DEPTH), PCFG)
+    pret = tpre.vertex_normal_radius(t(DEPTH), dt, PINTR, PCFG)
+    curvt = tpre.curvature_gradient(pret, PINTR, PCFG)
     return (dj, prej, curvj), (dt, pret, curvt)
 
 
@@ -45,10 +45,10 @@ def test_normal_pca():
     from hrbffusion3d_tpu.core import camera as jcam
     from hrbffusion3d_tpu_torch.eval import synth
 
-    depth, _ = synth.render_frame(synth.default_room(), np.eye(4), INTR)
+    depth, _ = synth.render_frame(synth.default_room("cpu"), np.eye(4), PINTR)
     v = np.asarray(jcam.unproject(jnp.asarray(n(depth)), INTR))
     r = n(jpre.normal_pca(jnp.asarray(v), CFG))
-    o = n(tpre.normal_pca(t(v), CFG))
+    o = n(tpre.normal_pca(t(v), PCFG))
     both = (np.linalg.norm(r, axis=-1) > 0.5) & (np.linalg.norm(o, axis=-1) > 0.5)
     assert both.mean() > 0.9
     assert (np.sum(r[both] * o[both], axis=-1) > 0.999).mean() > 0.99
@@ -81,12 +81,12 @@ def test_curvature_gradient(pre_pair):
 def test_update_normal_and_confidence(pre_pair):
     (_, prej, curvj), (_, pret, curvt) = pre_pair
     upj = jpre.update_normal_rad(prej, curvj, CFG)
-    upt = tpre.update_normal_rad(pret, curvt, CFG)
+    upt = tpre.update_normal_rad(pret, curvt, PCFG)
     agree = np.all(np.abs(n(upt.normal) - n(upj.normal)) < 1e-4, axis=-1)
     assert agree.mean() > 0.99
     for weighting in (1.0, 0.6):
         cj = jpre.confidence_map(prej, curvj, INTR, CFG, weighting=weighting)
-        ct = tpre.confidence_map(pret, curvt, INTR, CFG, weighting=weighting)
+        ct = tpre.confidence_map(pret, curvt, PINTR, PCFG, weighting=weighting)
         np.testing.assert_allclose(n(ct), n(cj), atol=1e-6)
 
 

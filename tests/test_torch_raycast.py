@@ -4,8 +4,8 @@ The JAX reference is the XLA ``predict_hrbf`` (use_pallas_raycast=False):
 the Pallas ``raycast_core`` in interpret mode takes ~100 s and 3.5 GB at
 64x48 on this CPU, too slow for tier-1.  The port's ``predict_hrbf`` runs
 ``raycast_core_ref`` (the plain version of the CUDA kernel) on the CPU; it
-is compared for the bench's false-position refinement and for bisection,
-and ``fill_in`` on top.  Tolerances are those of
+is compared for the bench's false-position refinement, for bisection and
+for the batched k-section, and ``fill_in`` on top.  Tolerances are those of
 tests/test_pallas_kernels.py::test_raycast_matches_xla (kernel form vs XLA
 form): ``found`` agreement > 0.995 (the XLA form also gates ``found`` by
 the nearest tap's selection, the kernel form does not), vertex atol 1e-4
@@ -22,7 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity_utils import CFG, INTR, n, port_frames, port_measurement, t
+from torch_parity_utils import (CFG, INTR, PCFG, PINTR, n, port_cfg, port_frames,
+                                port_measurement, t)
 
 from hrbffusion3d_tpu.ops import pallas_kernels as jpk
 from hrbffusion3d_tpu.ops import raycast as jray
@@ -38,6 +39,8 @@ VARIANTS = {
     "false_position": dict(raycast_bisection_iters=6, raycast_false_position=3),
     # JAX default: geometric ladder + bisection
     "bisection": {},
+    # batched k-section, 7 points per pass (tests/test_raycast.py)
+    "ksection": dict(raycast_bisection_batch=7),
 }
 
 
@@ -47,10 +50,10 @@ def scene():
     test_torch_surfel_map.py's): the pose, index map, attr images and the
     frame-0 live measurement, all numpy."""
     meas = port_measurement(*FRAMES[0])
-    m = tsm.initialise(CFG.map_capacity, tsm.FrameMeasurement(*map(t, meas)),
-                       t(POSES[0]), CFG)
+    m = tsm.initialise(PCFG.map_capacity, tsm.FrameMeasurement(*map(t, meas)),
+                       t(POSES[0]), PCFG)
     pinv = tlie.se3_inverse(t(POSES[1]))
-    idx = tsm.render_index(m, pinv, INTR)
+    idx = tsm.render_index(m, pinv, PINTR)
     attr_ext = n(tsm.render_attr_image(m, idx, pinv, extended=True))
     attr9 = attr_ext[..., [0, 1, 2, 3, 4, 5, tsm.A_CONF, tsm.A_RADIUS, tsm.A_VALID]]
     live = {k: getattr(meas, f) for k, f in (
@@ -64,7 +67,7 @@ def _predict_pair(scene, cfg):
     # predict_hrbf reads only the attr image when it is given (no map)
     pj = _jax_predict(None, jnp.asarray(pinv), jnp.asarray(idx), INTR, cfg,
                       chunk=cfg.raycast_chunk, attr_ext=jnp.asarray(attr_ext))
-    pt = tray.predict_hrbf(None, t(pinv), t(idx), INTR, cfg, attr_ext=t(attr_ext))
+    pt = tray.predict_hrbf(None, t(pinv), t(idx), PINTR, port_cfg(cfg), attr_ext=t(attr_ext))
     return pt, pj
 
 
@@ -85,32 +88,43 @@ def test_raycast_core_ref_matches_jax(scene, variant):
     cfg = dataclasses.replace(CFG, **VARIANTS[variant])
     pt, pj = _predict_pair(scene, cfg)
     _check_prediction(pt, pj)
-    # the wrapper takes the plain version for a CPU tensor, and the kernel's
-    # launch count does not move
+    # the wrapper takes the plain version for a CPU tensor, and no launch
+    # count moves
     attr9 = t(scene[3])
-    before = tk.RAYCAST_LAUNCHES
-    out = tk.raycast_core(attr9, INTR, cfg)
+    before = dict(tk.LAUNCHES)
+    out = tk.raycast_core(attr9, PINTR, port_cfg(cfg))
     assert out[2].dtype == torch.int32 and out[3].dtype == torch.bool
-    for a, b in zip(out, tk.raycast_core_ref(attr9, INTR, cfg)):
+    for a, b in zip(out, tk.raycast_core_ref(attr9, PINTR, port_cfg(cfg))):
         np.testing.assert_array_equal(n(a), n(b))
-    assert tk.RAYCAST_LAUNCHES == before
+    assert tk.LAUNCHES == before
+
+
+def test_ref_stats_count_selected_taps(scene):
+    """The plain version's work count: per pixel, the stable taps of its
+    ring-ordered window, capped at K."""
+    attr9 = scene[3]
+    cfg = PCFG
+    *out, n_sel = tk.raycast_core_ref(t(attr9), PINTR, cfg, stats=True)
+    for a, b in zip(out, tk.raycast_core_ref(t(attr9), PINTR, cfg)):
+        np.testing.assert_array_equal(n(a), n(b))
+    pos, nrm = attr9[..., 0:3], attr9[..., 3:6]
+    stable = ((attr9[..., 8] > 0.5) & (pos[..., 2] > 0.1) & ((nrm * nrm).sum(-1) > 0.01)
+              & (attr9[..., 6] >= cfg.predict_conf_threshold) & (nrm[..., 2] > 0.0))
+    R = cfg.predict_window_multiplier
+    h, w = stable.shape
+    sp = np.pad(stable, R)
+    count = sum(sp[dy:dy + h, dx:dx + w].astype(np.int64)
+                for dy in range(2 * R + 1) for dx in range(2 * R + 1))
+    np.testing.assert_array_equal(n(n_sel), np.minimum(count, cfg.predict_max_neighbors))
+    assert n(n_sel).max() == cfg.predict_max_neighbors
 
 
 def test_ring_order_and_ladder():
     assert tk.ring_taps(3) == jpk._ring_taps(3) == jray._ring_offsets(3)
     for kw in ({}, {"raycast_geometric_ladder": False}, {"raycast_coarse_steps": 10}):
         cfg = dataclasses.replace(CFG, **kw)
-        assert tray.ladder_offsets(cfg) == jray.ladder_offsets(cfg)
-        assert tray.bisection_plan(cfg) == jray.bisection_plan(cfg)
-
-
-def test_ksection_not_ported(scene):
-    *_, attr9, _ = scene
-    cfg = dataclasses.replace(CFG, raycast_bisection_batch=3)
-    with pytest.raises(NotImplementedError):
-        tk.raycast_core_ref(t(attr9), INTR, cfg)
-    with pytest.raises(NotImplementedError):
-        tk.raycast_core(t(attr9), INTR, cfg)
+        assert tray.ladder_offsets(port_cfg(cfg)) == jray.ladder_offsets(cfg)
+        assert tray.bisection_plan(port_cfg(cfg)) == jray.bisection_plan(cfg)
 
 
 def test_fill_in(scene):
@@ -119,7 +133,7 @@ def test_fill_in(scene):
     pt, pj = _predict_pair(scene, cfg)
     keys = ("vertex", "normal", "radius", "color", "conf", "k1", "k2")
     fj = jray.fill_in(pj, *(jnp.asarray(live[k]) for k in keys), cfg)
-    ft = tray.fill_in(pt, *(t(live[k]) for k in keys), cfg)
+    ft = tray.fill_in(pt, *(t(live[k]) for k in keys), port_cfg(cfg))
     same = n(ft.from_model) == n(fj.from_model)
     assert same.mean() > 0.995
     for f in ("vertex", "normal", "conf", "radius", "color", "k1", "k2", "icp_weight"):
@@ -136,13 +150,13 @@ def test_cuda_kernel_matches_ref(scene):
         pytest.skip("needs a CUDA device (runs on the card)")
     *_, attr9, _ = scene
     for variant in sorted(VARIANTS):
-        cfg = dataclasses.replace(CFG, **VARIANTS[variant])
+        cfg = port_cfg(dataclasses.replace(CFG, **VARIANTS[variant]))
         a = t(attr9).cuda()
-        before = tk.RAYCAST_LAUNCHES
-        out = tk.raycast_core(a, INTR, cfg)
+        before = tk.LAUNCHES["raycast_core"]
+        out = tk.raycast_core(a, PINTR, cfg)
         torch.cuda.synchronize()
-        assert tk.RAYCAST_LAUNCHES == before + 1
-        ref = tk.raycast_core_ref(a, INTR, cfg)
+        assert tk.LAUNCHES["raycast_core"] == before + 1
+        ref = tk.raycast_core_ref(a, PINTR, cfg)
         f_k, f_r = n(out[3]), n(ref[3])
         assert (f_k == f_r).mean() > 0.995
         both = f_k & f_r

@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity_utils import CFG, INTR, n, port_frames, rot_angle, t
+from torch_parity_utils import CFG, INTR, PCFG, PINTR, n, port_frames, rot_angle, t
 
 from hrbffusion3d_tpu.core import lie as jlie
 from hrbffusion3d_tpu.pipeline import slam as jslam
@@ -84,7 +84,7 @@ def test_state_round_trip(boot):
 
 def test_bootstrap(boot):
     js, fields = boot
-    ts = tslam.bootstrap(tslam.FrameInput(t(FRAMES[0][0]), t(FRAMES[0][1])), INTR, CFG,
+    ts = tslam.bootstrap(tslam.FrameInput(t(FRAMES[0][0]), t(FRAMES[0][1])), PINTR, PCFG,
                          init_pose=POSES[0])
     assert int(ts.map.count) == int(fields["map.count"])
     # every channel to 1e-5 but the curvature: k1/k2 to 1e-3 (near-zero on
@@ -114,7 +114,7 @@ def test_three_steps(boot, mode):
     for i in (1, 2, 3):
         js = _jax_step(js, i, tracked)
         frame = tslam.FrameInput(t(FRAMES[i][0]), t(FRAMES[i][1]))
-        ts = tslam.step(ts, frame, INTR, CFG, fixed_pose=None if tracked else POSES[i])
+        ts = tslam.step(ts, frame, PINTR, PCFG, fixed_pose=None if tracked else POSES[i])
         assert ts.time == int(js.time) == i + 1
         if tracked:
             assert np.abs(n(ts.t) - np.asarray(js.t)).max() < 1e-3, i

@@ -13,7 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity_utils import CFG, INTR, n, port_frames, port_measurement, t
+from torch_parity_utils import (CFG, INTR, PCFG, PINTR, n, port_cfg, port_frames,
+                                port_measurement, t)
 
 from hrbffusion3d_tpu.core import lie as jlie
 from hrbffusion3d_tpu.map import surfel_map as jsm
@@ -30,7 +31,7 @@ def world():
     with jax.disable_jit():
         jm = jsm.initialise(CFG.map_capacity, jsm.FrameMeasurement(*map(jnp.asarray, m0)),
                             pose0, CFG)
-    tm = tsm.initialise(CFG.map_capacity, tsm.FrameMeasurement(*map(t, m0)), t(POSES[0]), CFG)
+    tm = tsm.initialise(PCFG.map_capacity, tsm.FrameMeasurement(*map(t, m0)), t(POSES[0]), PCFG)
     return jm, tm, m1
 
 
@@ -51,7 +52,7 @@ def test_render_index(world, active):
     kw_j = {"active": jm.active} if active else {}
     kw_t = {"active": tm.active} if active else {}
     ij = jsm.render_index(jm, jnp.asarray(pinv), INTR, **kw_j)
-    it = tsm.render_index(tm, t(pinv), INTR, **kw_t)
+    it = tsm.render_index(tm, t(pinv), PINTR, **kw_t)
     assert (n(ij) >= 0).sum() > 1000
     np.testing.assert_array_equal(n(it), n(ij))
 
@@ -76,7 +77,7 @@ def fused(world):
         jm, jsm.FrameMeasurement(*map(jnp.asarray, m1)), jnp.asarray(pose1),
         jnp.asarray(idx), INTR, CFG, time=jnp.int32(2), submap_idx=jnp.int32(0))
     tm2, tidx = tsm.fuse(tm, tsm.FrameMeasurement(*map(t, m1)), t(pose1), t(idx),
-                         INTR, CFG, time=2, submap_idx=0)
+                         PINTR, PCFG, time=2, submap_idx=0)
     return (jm2, jidx), (tm2, tidx), pose1
 
 
@@ -108,7 +109,7 @@ def test_clean_with_remap(fused, mode):
     jm4, jremap = jax.jit(jsm.clean_with_remap, static_argnames=("intr", "cfg"))(
         jm3, jnp.asarray(pose1), jidx, INTR, cfg, time=jnp.int32(2),
         attr=aj[..., :jsm.ATTR_CHANNELS])
-    tm4, tremap = tsm.clean_with_remap(tm3, t(pose1), t(jidx), INTR, cfg, time=2,
+    tm4, tremap = tsm.clean_with_remap(tm3, t(pose1), t(jidx), PINTR, port_cfg(cfg), time=2,
                                        attr=at[..., :tsm.ATTR_CHANNELS])
     assert (n(jremap)[:cnt] < 0).sum() > 0
     np.testing.assert_array_equal(n(tremap), n(jremap))
@@ -117,7 +118,7 @@ def test_clean_with_remap(fused, mode):
                                   n(jsm.remap_index_map(jidx, jremap)))
     if mode == "tombstone":
         keep_j = jsm.pixel_keep_mask(aj, cfg, 2)
-        keep_t = tsm.pixel_keep_mask(at, cfg, 2)
+        keep_t = tsm.pixel_keep_mask(at, port_cfg(cfg), 2)
         np.testing.assert_array_equal(n(keep_t), n(keep_j))
         # on tombstone frames the pixel-space mask IS the remap
         via_remap = n(tsm.remap_index_map(t(jidx), tremap))

@@ -15,13 +15,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from torch_parity_utils import CFG, INTR, n, port_frames, rot_angle, t
+from torch_parity_utils import CFG, INTR, PINTR, n, port_cfg, port_frames, rot_angle, t
 
 from hrbffusion3d_tpu.tracking import odometry as jodo
 from hrbffusion3d_tpu_torch.pipeline import slam as tslam
 from hrbffusion3d_tpu_torch.tracking import odometry as todo
 
-TCFG = dataclasses.replace(CFG, pyramid_iterations=(2, 2, 2))
+JCFG = dataclasses.replace(CFG, pyramid_iterations=(2, 2, 2))
+TCFG = port_cfg(JCFG)
 POSES, FRAMES = port_frames(2, angle_per_frame=0.01)
 
 
@@ -30,7 +31,7 @@ def inputs():
     """build_inputs arguments as numpy: model = frame 0, live = frame 1."""
     outs = []
     for d, c in FRAMES:
-        depth_f, pre, curv, inten = tslam._preprocess(tslam.FrameInput(t(d), t(c)), INTR, TCFG)
+        depth_f, pre, curv, inten = tslam._preprocess(tslam.FrameInput(t(d), t(c)), PINTR, TCFG)
         outs.append((depth_f, pre, inten))
     (_, pre0, int0), (df1, pre1, int1) = outs
     args = dict(
@@ -44,7 +45,7 @@ def inputs():
 @pytest.fixture(scope="module")
 def pyramids(inputs):
     ij = jax.jit(jodo.build_inputs, static_argnames=("cfg",))(
-        **{k: jnp.asarray(v) for k, v in inputs.items()}, cfg=TCFG)
+        **{k: jnp.asarray(v) for k, v in inputs.items()}, cfg=JCFG)
     it = todo.build_inputs(**{k: t(v) for k, v in inputs.items()}, cfg=TCFG)
     return ij, it
 
@@ -63,8 +64,8 @@ def test_track(pyramids, inputs):
                                for f in todo.TrackingInputs._fields))
     R0, t0 = inputs["prev_R"], inputs["prev_t"]
     track_j = jax.jit(jodo.track, static_argnames=("intr", "cfg"))
-    rj = track_j(jnp.asarray(R0), jnp.asarray(t0), ij, INTR, TCFG)
-    rt = todo.track(t(R0), t(t0), it, INTR, TCFG)
+    rj = track_j(jnp.asarray(R0), jnp.asarray(t0), ij, INTR, JCFG)
+    rt = todo.track(t(R0), t(t0), it, PINTR, TCFG)
     # the solve moved the pose (frames are 0.01 orbit steps apart)
     assert np.linalg.norm(np.asarray(rj.t) - t0) > 1e-3
     assert rot_angle(n(rt.R), np.asarray(rj.R)) < 1e-4
@@ -82,4 +83,4 @@ def test_non_default_modes_raise(pyramids, mode):
     cfg = dataclasses.replace(TCFG, **mode)
     with pytest.raises(NotImplementedError):
         todo.track(it.last_vmap_g[0].new_tensor(np.eye(3, dtype=np.float32)),
-                   it.last_vmap_g[0].new_zeros(3), it, INTR, cfg)
+                   it.last_vmap_g[0].new_zeros(3), it, PINTR, cfg)

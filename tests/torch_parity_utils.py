@@ -2,7 +2,10 @@
 inputs go through a JAX function and its counterpart in the PyTorch port.
 
 Sizes follow ``__graft_entry__`` (64x48 intrinsics, the small test config).
-Tier-1 runs several xdist workers, so torch is pinned to one thread.
+``CFG`` / ``INTR`` are the JAX package's objects, for its calls; every port
+call takes the port's own ``SLAMConfig`` / ``CameraIntrinsics`` (``PCFG``,
+``PINTR``, ``port_cfg``), made from the same fields.  Tier-1 runs several
+xdist workers, so torch is pinned to one thread.
 """
 
 from __future__ import annotations
@@ -16,12 +19,28 @@ import torch
 
 from __graft_entry__ import _CFG, _INTR
 
+from hrbffusion3d_tpu_torch.utils.convert import config_from_fields, intrinsics_from_fields
+
 torch.set_num_threads(1)
 
 INTR = _INTR
 # The JAX side has no compiled Pallas on the CPU: it runs the XLA raycast
 # (use_pallas_raycast=False); the port always runs its kernel's semantics.
 CFG = dataclasses.replace(_CFG, use_pallas_raycast=False)
+
+
+def port_cfg(cfg):
+    """The port's SLAMConfig with the fields of a JAX one."""
+    return config_from_fields(dataclasses.asdict(cfg))
+
+
+def port_intr(intr):
+    """The port's CameraIntrinsics with the fields of JAX ones."""
+    return intrinsics_from_fields(dataclasses.asdict(intr))
+
+
+PCFG = port_cfg(CFG)
+PINTR = port_intr(INTR)
 
 
 def t(x) -> torch.Tensor:
@@ -48,7 +67,7 @@ def jax_frames(n_frames: int, angle_per_frame: float = 0.004, intr=INTR):
     return poses, frames
 
 
-def port_frames(n_frames: int, angle_per_frame: float = 0.004, intr=INTR):
+def port_frames(n_frames: int, angle_per_frame: float = 0.004, intr=PINTR):
     """The same orbit rendered by the port's synth (as numpy): the shared
     input of both sides wherever the renderer itself is not under test.
     JAX's eager renderer compiles for seconds; this one takes milliseconds
@@ -56,12 +75,12 @@ def port_frames(n_frames: int, angle_per_frame: float = 0.004, intr=INTR):
     from hrbffusion3d_tpu_torch.eval import synth
 
     poses = synth.orbit_trajectory(n_frames, angle_per_frame=angle_per_frame)
-    scene = synth.default_room()
+    scene = synth.default_room("cpu")
     frames = [tuple(n(a) for a in synth.render_frame(scene, p, intr)) for p in poses]
     return poses, frames
 
 
-def port_measurement(depth: np.ndarray, rgb: np.ndarray, cfg=CFG, intr=INTR):
+def port_measurement(depth: np.ndarray, rgb: np.ndarray, cfg=PCFG, intr=PINTR):
     """The ``FrameMeasurement`` of one frame from the port's preprocess, as
     numpy: the shared input of the map and raycast parity tests
     (test_torch_preprocess.py holds the preprocess itself against JAX)."""
