@@ -5,14 +5,23 @@ synthetic 640x480 RGB-D frames under the bench configuration — through its
 four hand-written CUDA kernels, checks the trajectory and each kernel
 against its plain PyTorch version, and prints:
   - the card's name and power limit (nvidia-smi);
-  - each kernel source's build time and each kernel's ptxas registers and
-    spills;
+  - each kernel source's build time, each kernel's ptxas registers and
+    spills, and for the two redesigned kernels the registers, spilled bytes
+    and resident warps per SM the runtime reports (the K = 10 ray cast must
+    stay within 128 registers, unspilled, at 16 warps);
   - the median ms per step, the host syncs of the last step and every
     kernel's launches on the main path;
   - each kernel (and each ray-cast refinement variant) against its plain
-    version: error and both times (CUDA events, median of 20);
+    version: error and times (CUDA events, median of 20): the kernel's
+    device time (the card kept busy while the host issues the call), one
+    call with the wrapper's host work in it (the card idle meanwhile)
+    and the plain version's; the ray cast with two bounds, on the least work
+    (the plain version's evaluations) and on the work the kernel does (its
+    batched ladder);
   - a short ``use_pallas=True`` run (the Pallas bilateral denominator);
-  - a per-phase breakdown of the step (each phase synchronised);
+  - a per-phase breakdown of the step (each phase synchronised), the
+    device ops and busy time per step and each kernel's device time per
+    launch on the step (torch.profiler);
   - a JSON line ``{"kernels": [...]}``: per kernel its launches on the main
     path, max abs error against the plain version, both times and the
     bound (the least time the card could take for the same work);
@@ -59,6 +68,9 @@ RAYCAST_VARIANTS = {
     "ksection": dataclasses.replace(BENCH_CFG, raycast_bisection_iters=10,
                                     raycast_false_position=0, raycast_bisection_batch=7),
 }
+# the name of each kernel's __global__ function, as the profiler reports it
+KERNEL_SYMBOLS = {"raycast_core": "raycast_kernel", "bilateral_filter": "bilateral_kernel",
+                  "normal_pca": "pca_kernel", "curvature_gradient": "curvature_kernel"}
 SOURCES = {"raycast_core": "raycast.cu", "bilateral_filter": "preprocess.cu",
            "normal_pca": "preprocess.cu", "curvature_gradient": "preprocess.cu"}
 REPLACES = {"raycast_core": 476, "bilateral_filter": 74, "normal_pca": 140,
@@ -71,7 +83,8 @@ MEM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 67e12 / 2
 MUFU_PER_S = 132 * 16 * 1.98e9
 # (float32, MUFU) instructions per tap or per pixel, counted from the CUDA
-# sources: a fused multiply-add is one float32 instruction; an IEEE
+# sources: a fused multiply-add is one float32 instruction; an approximate
+# square root or reciprocal one MUFU instruction; an IEEE
 # division is a MUFU reciprocal and about 6 float32 instructions around it,
 # a sqrtf a MUFU reciprocal square root and about 5, an expf a MUFU exp2
 # and about 4, an atan2f about 25 and a reciprocal, a sinf / cosf pair
@@ -83,13 +96,27 @@ OPS = {
     "pca_test": np.array([3, 0]),                    # two compares, sub
     "pca_accept": np.array([12, 0]),                 # 3 sub, 3 add, 6 fma
     "pca_pixel": np.array([100, 0]) + 12 * DIV + 3 * SQRT + ATAN2 + SINCOS,  # eigen-solve
-    "curv_test": np.array([7, 0]),                   # sub, 3 compares, |n|^2
-    "curv_masked": np.array([13, 0]),                # v, d2, T^2, c, support tests
-    "curv_inside": np.array([69, 0]) + 6 * DIV + SQRT,  # the HRBF terms
-    "ray_select": np.array([12, 0]),                 # stability tests, projection
-    "ray_field": np.array([18, 0]) + SQRT,           # one tap of one evaluation of f
-    "ray_grad": np.array([40, 0]) + SQRT + DIV,      # one tap of the gradient
+    # per input pixel: |n|^2, mask, T^2, 1/T^2, 60/T^4, c
+    "curv_stage": np.array([12, 0]) + 2 * DIV,
+    "curv_test": np.array([3, 0]),                   # sub, |.|, compare
+    "curv_masked": np.array([9, 0]),                 # count, v, d2, support tests
+    "curv_inside": np.array([66, 2]),                # the HRBF terms, sqrt + rcp
+    # per pixel: principal curvatures, directions, normal, radius, validity
+    "curv_pixel": np.array([95, 0]) + 22 * DIV + 6 * SQRT,
+    # per input pixel: stability tests, T^2, 1/T^2, h = 20/T^2 10 n
+    "ray_stage": np.array([18, 0]) + DIV,
+    "ray_visit": np.array([2, 0]),                   # one ring tap tested
+    "ray_select": np.array([5, 0]),                  # its projection for t0
+    "ray_support": np.array([8, 0]),                 # one tap of the count at t0
+    "ray_field": np.array([11, 1]),                  # one tap of one evaluation of f
+    "ray_grad": np.array([30, 0]) + SQRT + DIV,      # one tap of the gradient
 }
+# spin cycles queued before a primed timing (~0.5 ms at 1.98 GHz), more
+# than the host needs to issue one wrapper call
+PRIME_CYCLES = 1_000_000
+# the K = 10 ray cast's launch bounds: two blocks of 256 threads per SM
+RAYCAST_MAX_REGISTERS = 128
+RAYCAST_MIN_BLOCKS = 2
 # the curvature sums against their plain version: each channel within this
 # share of the summed magnitude of its terms (the check prints the plain
 # float32 sums' own error against float64 in the same unit); the count
@@ -117,7 +144,7 @@ def phase_card() -> str:
     return name
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     t0 = time.perf_counter()
     kernels.build()
     print(f"build: {len(set(SOURCES.values()))} sources loaded in "
@@ -127,6 +154,20 @@ def phase_build() -> None:
         print(f"build: {src} nvcc {'cached' if secs is None else f'{secs:.2f} s'}")
         for line in kernels.PTXAS.get(src, []):
             print(f"ptxas {src} {line}")
+    cfg = BENCH_CFG
+    attrs = {f"raycast_core K={k}": kernels.kernel_attributes(
+                 "raycast_core", k, cfg.predict_window_multiplier) for k in (10, 16)}
+    attrs["curvature_gradient"] = kernels.kernel_attributes(
+        "curvature_gradient", cfg.curv_window)
+    for name, a in attrs.items():
+        print(f"attributes {name}: {a['registers']} registers, {a['local_bytes']} bytes "
+              f"spilled per thread, {a['blocks_per_sm']} blocks = "
+              f"{a['blocks_per_sm'] * 8} warps resident per SM")
+    a = attrs["raycast_core K=10"]
+    if (a["registers"] > RAYCAST_MAX_REGISTERS or a["local_bytes"] > 0
+            or a["blocks_per_sm"] < RAYCAST_MIN_BLOCKS):
+        raise RuntimeError(f"the K = 10 ray cast compiled outside its launch bounds: {a}")
+    return attrs
 
 
 def phase_frames(dev):
@@ -210,13 +251,19 @@ def phase_main_path(poses, frames):
     return state, launches, med
 
 
-def _median_ms(fn, n=20) -> float:
+def _median_ms(fn, n=20, primed=False) -> float:
+    """Median ms between CUDA events around one call of ``fn``.  Unprimed,
+    the card idles while the host runs the wrapper, so the time holds that
+    host work too; primed, a spin kernel queued first keeps the card busy
+    meanwhile, so the time is the device's alone."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if primed:
+            torch.cuda._sleep(PRIME_CYCLES)
         start.record()
         fn()
         end.record()
@@ -245,7 +292,7 @@ def phase_raycast_vs_plain(state):
     results = {}
     for variant, cfg in RAYCAST_VARIANTS.items():
         out = kernels.raycast_core(attr9, TUM1, cfg)
-        *ref, n_sel = kernels.raycast_core_ref(attr9, TUM1, cfg, stats=True)
+        *ref, st = kernels.raycast_core_ref(attr9, TUM1, cfg, stats=True)
         torch.cuda.synchronize()
         f_k, f_r = out[3], ref[3]
         agree = (f_k == f_r).float().mean().item()
@@ -255,26 +302,42 @@ def phase_raycast_vs_plain(state):
         gr = torch.nn.functional.normalize(ref[1][both], dim=-1)
         dots = ((gk * gr).sum(-1) > 0.9999).float().mean().item()
         near = (out[2][both] == ref[2][both]).float().mean().item()
-        ms = _median_ms(lambda: kernels.raycast_core(attr9, TUM1, cfg))
+        ms = _median_ms(lambda: kernels.raycast_core(attr9, TUM1, cfg), primed=True)
+        call_ms = _median_ms(lambda: kernels.raycast_core(attr9, TUM1, cfg))
         plain_ms = _median_ms(lambda: kernels.raycast_core_ref(attr9, TUM1, cfg))
-        # the least evaluations a pixel needs: f0, one ladder tap, the
-        # refinement and the gradient, each over its selected taps
-        _, fp, bis, ksec_b, ksec_p = kernels._variant(cfg)
-        refine = fp if fp > 0 else (ksec_b * ksec_p if ksec_b > 1 else bis)
-        n_ops = (float(n_sel.sum()) * ((2 + refine) * OPS["ray_field"] + OPS["ray_grad"])
-                 + attr9.shape[0] * attr9.shape[1] * 49 * OPS["ray_select"])
-        n_bytes = attr9.numel() * 4 + attr9.shape[0] * attr9.shape[1] * (12 + 12 + 4 + 1)
-        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        # the work, from the plain version's counts: per pixel f0, the
+        # ladder up to the bracket and the refinement (least work) or the
+        # kernel's batched ladder and k-section (work done), the count at
+        # t0 and the gradient, each over the selected taps; the ring walk
+        # up to the K-th selection; staging once per input pixel (least
+        # work) or per halo-tile pixel (work done)
+        px = attr9.shape[0] * attr9.shape[1]
+        blocks = -(-attr9.shape[0] // 16) * -(-attr9.shape[1] // 16)
+        tile_px = (16 + 2 * cfg.predict_window_multiplier) ** 2
+        n_sel = st.n_sel.double()
+        common = (float(n_sel.sum()) * (OPS["ray_support"] + OPS["ray_grad"] + OPS["ray_select"])
+                  + float(st.n_visit.sum()) * OPS["ray_visit"])
+        n_bytes = attr9.numel() * 4 + px * (12 + 12 + 4 + 1)
+        bound_ms, bound_by = _bound(n_bytes, common + px * OPS["ray_stage"] + float(
+            (n_sel * st.n_eval).sum()) * OPS["ray_field"])
+        done_ms, done_by = _bound(n_bytes, common + blocks * tile_px * OPS["ray_stage"] + float(
+            (n_sel * kernels.raycast_kernel_evals(st, cfg)).sum()) * OPS["ray_field"])
         print(f"raycast_core vs plain [{variant}]: found agree {agree:.5f} "
               f"(both {both.float().mean().item():.4f}), p_surf max abs err {max_err:.3e} m, "
               f"normal dot>0.9999 {dots:.5f}, nearest equal {near:.5f}; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
-              f"({bound_by})")
+              f"kernel {ms:.3f} ms (one call with its host work {call_ms:.3f} ms), "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}) on the least work, {done_ms * 1e3:.2f} us ({done_by}) on the "
+              f"work done; evaluations of f per pixel with taps: "
+              f"{float(st.n_eval[st.n_sel > 0].double().mean()):.3f} least, "
+              f"{float(kernels.raycast_kernel_evals(st, cfg)[st.n_sel > 0].double().mean()):.3f} "
+              f"done")
         if not (agree > 0.995 and both.float().mean().item() > 0.5 and max_err < 1e-4
                 and dots > 0.99 and near >= 0.99):
             raise RuntimeError(f"raycast kernel disagrees with its plain version ({variant})")
-        results[variant] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=bound_ms, bound_by=bound_by)
+        results[variant] = dict(max_abs_err=max_err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                bound_done_ms=done_ms, bound_done_by=done_by)
     return results
 
 
@@ -295,9 +358,14 @@ def _pca_rule(name, out, ref):
 
 def _curv_rule(name, pre, cfg):
     """The window sums within CURV_SUMS_RTOL of their terms' magnitude (the
-    count exact); then, of the results: valid agreement > 0.999, k1/k2
-    within atol 5e-2 rtol 1e-3 where well conditioned (CURV_COND_FLOOR),
-    normal_opt dot > 0.9999 on >= 99 % of the pixels valid in both.
+    count exact); then, of the fused kernel's fields: valid agreement
+    > 0.999; k1/k2 within atol 5e-2 rtol 1e-3 and dir1/dir2 |dot| > 0.9999
+    on >= 99 % where well conditioned (CURV_COND_FLOOR: both divide by
+    g_z); normal_opt dot > 0.9999 on >= 99 % of the pixels valid in both;
+    gradient_mag within rtol 1e-4 + atol 1e-6 there (|<g, n>| of sums held
+    to 1e-5 of their terms, which may partly cancel); radius_opt within
+    1e-6 m there (z / |n_z| at |n_z| >= 0.5: twice normal_opt's error on a
+    radius of a few cm); k = 1000 exactly where not valid, in both.
     Returns the max abs error of normal_opt there."""
     args = (pre.vertex_filtered, pre.normal, pre.radius, cfg)
     sums, scale, _ = preprocess.curvature_sums_ref(*args, stats=True)
@@ -320,14 +388,25 @@ def _curv_rule(name, pre, cfg):
                 for k in ("k1", "k2"))
     dots = ((out.normal_opt[both] * ref.normal_opt[both]).sum(-1) > 0.9999).float().mean().item()
     err = (out.normal_opt[both] - ref.normal_opt[both]).abs().max().item()
+    dir_dots = min(((getattr(out, f)[held] * getattr(ref, f)[held]).sum(-1).abs() > 0.9999)
+                   .float().mean().item() for f in ("dir1", "dir2"))
+    gm_o, gm_r = out.gradient_mag[both], ref.gradient_mag[both]
+    gm_bad = int(((gm_o - gm_r).abs() > 1e-6 + 1e-4 * gm_r.abs()).sum())
+    gm_err = ((gm_o - gm_r).abs() / gm_r.abs().clamp(min=1e-30)).max().item()
+    rad_err = (out.radius_opt[both] - ref.radius_opt[both]).abs().max().item()
+    sentinel = all(bool((r.k1[~r.valid] == 1000.0).all() and (r.k2[~r.valid] == 1000.0).all())
+                   for r in (out, ref))
     print(f"{name}: sums max err {rel:.3e} of their terms' magnitude (plain float32 vs "
           f"float64: {rel64:.3e}), count equal "
           f"{bool((diff[..., 9] == 0).all())}; valid agree {agree:.5f} "
           f"(both {both.float().mean().item():.4f}), k1/k2 held on {1 - left_out:.5f} of "
           f"those (|g_z| >= {CURV_COND_FLOOR} |g|), outside tolerance on {k_bad} values "
-          f"(max abs err {k_err:.3e}); normal_opt dot>0.9999 {dots:.5f}, "
-          f"max abs err {err:.3e}")
+          f"(max abs err {k_err:.3e}); dir1/dir2 |dot|>0.9999 {dir_dots:.5f}; normal_opt "
+          f"dot>0.9999 {dots:.5f}, max abs err {err:.3e}; gradient_mag out of tolerance on "
+          f"{gm_bad} (max rel err {gm_err:.3e}); radius_opt max abs err {rad_err:.3e} m; "
+          f"k = 1000 where invalid {sentinel}")
     if not (sums_ok and agree > 0.999 and k_bad == 0 and left_out <= 0.01 and dots >= 0.99
+            and dir_dots >= 0.99 and gm_bad == 0 and rad_err <= 1e-6 and sentinel
             and both.float().mean().item() > 0.5):
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
     return err
@@ -386,9 +465,11 @@ def phase_preprocess_vs_plain(frames):
     # the work each needs on these inputs, from its plain version's counts
     taps = preprocess.bilateral_filter_ref(depth, cfg, stats=True)[1]
     res["bilateral_filter"] = dict(
-        ms=_median_ms(lambda: preprocess.bilateral_filter(depth, cfg)),
+        ms=_median_ms(lambda: preprocess.bilateral_filter(depth, cfg), primed=True),
+        call_ms=_median_ms(lambda: preprocess.bilateral_filter(depth, cfg)),
         plain_ms=_median_ms(lambda: preprocess.bilateral_filter_ref(depth, cfg)),
-        pallas_form_ms=_median_ms(lambda: preprocess.bilateral_filter(depth, cfg, True)),
+        pallas_form_ms=_median_ms(lambda: preprocess.bilateral_filter(depth, cfg, True),
+                                  primed=True),
         pallas_form_plain_ms=_median_ms(
             lambda: preprocess.bilateral_filter_ref(depth, cfg, True)),
         bound=_bound(2 * px * 4, float(taps.sum()) * OPS["bilateral_tap"]))
@@ -398,21 +479,23 @@ def phase_preprocess_vs_plain(frames):
              + float(accepted[centre].sum()) * OPS["pca_accept"]
              + float((normals != 0).any(-1).sum()) * OPS["pca_pixel"])
     res["normal_pca"] = dict(
-        ms=_median_ms(lambda: preprocess.normal_pca(v_f, cfg)),
+        ms=_median_ms(lambda: preprocess.normal_pca(v_f, cfg), primed=True),
+        call_ms=_median_ms(lambda: preprocess.normal_pca(v_f, cfg)),
         plain_ms=_median_ms(lambda: preprocess.normal_pca_ref(v_f, cfg)),
         bound=_bound(2 * px * 12, n_ops))
     sums_in = (pre.vertex_filtered, pre.normal, pre.radius, cfg)
     sums, _, inside = preprocess.curvature_sums_ref(*sums_in, stats=True)
-    n_ops = (px * (2 * cfg.curv_window + 1) ** 2 * OPS["curv_test"]
+    n_ops = (px * (OPS["curv_stage"] + (2 * cfg.curv_window + 1) ** 2 * OPS["curv_test"]
+                   + OPS["curv_pixel"])
              + float(sums[..., 9].sum()) * OPS["curv_masked"]
              + float(inside.sum()) * OPS["curv_inside"])
+    # reads vertex, normal, radius (28 B), writes 13 floats and valid (53 B)
     res["curvature_gradient"] = dict(
-        ms=_median_ms(lambda: preprocess.curvature_sums(*sums_in)),
-        plain_ms=_median_ms(lambda: preprocess.curvature_sums_ref(*sums_in)),
-        with_epilogue_ms=_median_ms(lambda: preprocess.curvature_gradient(pre, TUM1, cfg)),
-        with_epilogue_plain_ms=_median_ms(
-            lambda: preprocess.curvature_gradient_ref(pre, TUM1, cfg)),
-        bound=_bound(px * (28 + 40), n_ops))
+        ms=_median_ms(lambda: preprocess.curvature_gradient(pre, TUM1, cfg), primed=True),
+        call_ms=_median_ms(lambda: preprocess.curvature_gradient(pre, TUM1, cfg)),
+        plain_ms=_median_ms(lambda: preprocess.curvature_gradient_ref(pre, TUM1, cfg)),
+        with_sums_ms=_median_ms(lambda: preprocess.curvature_sums(*sums_in), primed=True),
+        bound=_bound(px * (28 + 53), n_ops))
     for name, r in res.items():
         r["max_abs_err"] = errs[name]
         r["bound_ms"], r["bound_by"] = r.pop("bound")
@@ -448,7 +531,7 @@ _PHASES = [
     (slam, "_preprocess", "preprocess"),
     (preprocess, "bilateral_filter", "  bilateral_filter (kernel)"),
     (preprocess, "normal_pca", "  normal_pca (kernel)"),
-    (preprocess, "curvature_gradient", "  curvature_gradient (kernel + epilogue)"),
+    (preprocess, "curvature_gradient", "  curvature_gradient (fused kernel)"),
     (odometry, "build_inputs", "track: build_inputs (pyramids)"),
     (odometry, "track", "track: odometry.track"),
     (sm, "render_index", "render_index"),
@@ -491,7 +574,8 @@ def _phase_timers(totals):
 def phase_breakdown(poses, frames, n_steps=6):
     """Per-phase ms of a step (median over steps 2-6 after a bootstrap),
     each phase synchronised; then a profiler's device time and kernel
-    count over 2 more steps."""
+    count over 2 more steps.  Returns each kernel's device ms per launch
+    there."""
     cfg = BENCH_CFG
     state = slam.bootstrap(frames[0], TUM1, cfg, init_pose=poses[0])
     per_step, step_ms = [], []
@@ -514,23 +598,34 @@ def phase_breakdown(poses, frames, n_steps=6):
             state = slam.step(state, f, TUM1, cfg)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    dev_us = sum(getattr(e, "self_device_time_total", None)
-                 or getattr(e, "self_cuda_time_total", 0) for e in events)
+
+    def dev_time(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+    dev_us = sum(dev_time(e) for e in events)
     n_ops = sum(e.count for e in events)
     print(f"breakdown: profiler over 2 steps: {n_ops / 2:.0f} device ops per step, "
           f"device busy {dev_us / 2e3:.2f} ms per step")
+    per_launch = {}
+    for kname, symbol in KERNEL_SYMBOLS.items():
+        hits = [e for e in events if symbol in e.key]
+        count = sum(e.count for e in hits)
+        per_launch[kname] = sum(dev_time(e) for e in hits) / max(count, 1) / 1e3
+        print(f"breakdown: profiler {kname}: {count} launches in 2 steps, "
+              f"{per_launch[kname] * 1e3:.2f} us of device time per launch")
+    return per_launch
 
 
 def main() -> None:
     name = phase_card()
     dev = torch.device("cuda", 0)
-    phase_build()
+    attrs = phase_build()
     poses, frames = phase_frames(dev)
     state, launches, _ = phase_main_path(poses, frames)
     ray = phase_raycast_vs_plain(state)
     pre = phase_preprocess_vs_plain(frames)
     phase_use_pallas(poses, frames)
-    phase_breakdown(poses, frames)
+    profiled = phase_breakdown(poses, frames)
 
     rows = []
     for kname in kernels.LAUNCHES:
@@ -540,10 +635,14 @@ def main() -> None:
                "replaces": f"hrbffusion3d_tpu/ops/pallas_kernels.py:{REPLACES[kname]}",
                "launches": launches[kname], "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-               "bound_by": r["bound_by"], "library_ms": None}
+               "bound_by": r["bound_by"], "library_ms": None,
+               "profiled_ms": profiled[kname]}
         row.update({k: v for k, v in r.items() if k not in row})
         if kname == "raycast_core":
             row["variants"] = ray
+            row["attributes"] = {k: attrs[f"raycast_core K={k}"] for k in (10, 16)}
+        elif kname in attrs:
+            row["attributes"] = attrs[kname]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

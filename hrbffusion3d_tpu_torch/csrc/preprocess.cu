@@ -1,32 +1,42 @@
 // Preprocessing stencils for Hopper (sm_90a): the bilateral depth filter,
-// PCA normals and the HRBF curvature window sums.  One thread per output
-// pixel, one 32x8 block per tile, and one shared-memory halo tile per block.
+// PCA normals and the HRBF curvature pass.  One thread per output pixel, one
+// 32x8 block per tile, and one shared-memory halo tile per block.
 //
 // Replaces three TPU kernels of hrbffusion3d_tpu/ops/pallas_kernels.py:
 //   bilateral_filter   / _bilateral_kernel  -> bilateral_kernel
 //   normal_pca         / _pca_kernel        -> pca_kernel (eigen-solve fused)
-//   curvature_gradient / _curv_kernel       -> curvature_kernel
+//   curvature_gradient / _curv_kernel       -> curvature_kernel (window sums
+//                      and the epilogue that the TPU wrapper runs in XLA,
+//                      l.637-663, fused)
 // The plain PyTorch versions in ops/preprocess.py are the one place where the
 // semantics are written; these kernels follow them tap for tap.
 //
 // What bounds them on this card: arithmetic, not bytes.  Each reads a few
-// floats per pixel and writes 1, 3 or 10 (under 10 MB per call at 640x480),
+// floats per pixel and writes 1, 3 or 14 (under 20 MB per call at 640x480),
 // while each pixel does
 //   bilateral: 169 taps with one expf each (the MUFU unit's exp2 plus a few
 //              FP32 ops): 51.9 M exponentials per frame;
 //   pca:       49 taps of ~20 FP32 ops (test, subtract, 9 multiply-adds);
-//   curvature: 49 taps of ~70 FP32 ops plus a sqrtf and three divisions
-//              where the tap is inside its support.
+//   curvature: 49 taps of ~10 FP32 ops (mask, v, d2), and ~65 more plus a
+//              square root and a reciprocal where the tap is inside its
+//              support, then ~100 and ~30 divisions and roots per pixel.
 // What the design does about it: every tap reads the block's halo tile in
 // shared memory (staged once from device memory, zero outside the image),
-// so device memory is read about once; the tap loops are unrolled for the
-// fixed radii; accumulators live in registers; the PCA eigen-solve (which
-// the Pallas kernel left to XLA because Mosaic cannot lower atan2) runs in
-// the same thread.  No fast-math: expf, sqrtf, atan2f and true division
-// keep the results within float rounding of the plain versions (the
-// compiler may contract products and sums into fused multiply-adds, which
-// the plain versions' separate torch ops do not).  No library kernel is
-// called.
+// so device memory is read about once; accumulators live in registers; the
+// PCA eigen-solve (which the Pallas kernel left to XLA because Mosaic cannot
+// lower atan2) runs in the same thread.  The curvature kernel's halo tile
+// holds each pixel's centre-independent terms (the mask's |n| and z part,
+// T^2, 1/T^2, 60/T^4), so a tap does one square root and one reciprocal
+// (each one MUFU instruction) instead of six IEEE divisions and an IEEE
+// square root, and the thread that holds a pixel's sums computes its
+// curvatures, normal and radius and writes every output field: one launch
+// per frame, where the same epilogue as separate torch ops costs ~40
+// launches and ten times the kernel's time; the configured window (R = 3)
+// is compiled with its tap loops unrolled.  Elsewhere no fast-math: expf,
+// sqrtf, atan2f and true division keep the results within float rounding of
+// the plain versions (the compiler may contract products and sums into fused
+// multiply-adds, which the plain versions' separate torch ops do not).  No
+// library kernel is called.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,6 +51,21 @@ constexpr int kBilateralR = 6;   // depth_bilateral.frag window radius
 constexpr int kBilateralD = 2 * kBilateralR + 1;
 constexpr int kPcaR = 3;         // depth_vertex_normal_radius.frag winMultiply
 constexpr int kMaxCurvR = 7;     // cfg.curv_window cap (28 KB of halo tile)
+
+// one MUFU instruction each (relative error below 2^-22), where IEEE
+// rounding costs ~8: for the curvature terms, whose sums are held to 1e-5
+// of their magnitude
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
 
 __device__ __forceinline__ bool in_image(int x, int y, int w, int h) {
   return x >= 0 && x < w && y >= 0 && y < h;
@@ -225,30 +250,102 @@ pca_kernel(const float* __restrict__ vertex, float* __restrict__ normal,
 }
 
 // ---------------------------------------------------------------------------
-// HRBF curvature window sums
+// HRBF curvature: window sums and the per-pixel epilogue, fused
 // ---------------------------------------------------------------------------
 
-// (2R+1)^2 window at each centre vertex: masked neighbours (|dz| < 0.10,
-// z > depth_min, |n|^2 > 0.64) add their direct HRBF gradient and Hessian
-// terms (hrbf.grad_hess_direct, Hermite coefficient 10 n):
+// Principal curvatures and directions of the implicit's Monge patch from
+// the gradient g and the Hessian h6 (hrbf.principal_curvatures,
+// depth_curvature_gradient.frag:95-137).  Clamps keep a NaN as torch.clamp
+// does (x < lo ? lo : x), so an invalid value stays invalid.
+struct Curvature {
+  float k1, k2, d1[3], d2[3];
+  bool valid;
+};
+
+__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
+
+// unit principal direction r_u + lam r_v = (1, lam, h_x + lam h_y) of k
+__device__ __forceinline__ void direction(float k, float M, float F, float N,
+                                          float G, float hx, float hy, float* d) {
+  const float dd = N - k * G;
+  const float lam = -(M - k * F) / (fabsf(dd) > 1e-9f ? dd : 1e-9f);
+  const float vz = hx + lam * hy;
+  const float len = clamp_min(sqrtf(1.f + lam * lam + vz * vz), 1e-12f);
+  d[0] = 1.f / len;
+  d[1] = lam / len;
+  d[2] = vz / len;
+}
+
+__device__ __forceinline__ void principal_curvatures(
+    float gx, float gy, float gz, float h00, float h01, float h02, float h11,
+    float h12, float h22, Curvature* c) {
+  const float sgz = fabsf(gz) > 1e-9f ? gz : 1e-9f;
+  const float hx = -gx / sgz;
+  const float hy = -gy / sgz;
+  const float gz3 = sgz * sgz * sgz;
+  const float hxx = (2.f * gx * gz * h02 - gx * gx * h22 - gz * gz * h00) / gz3;
+  const float hxy = (gx * gz * h12 + gy * gz * h02 - gx * gy * h22 - gz * gz * h01) / gz3;
+  const float hyy = (2.f * gy * gz * h12 - gy * gy * h22 - gz * gz * h11) / gz3;
+  const float E = 1.f + hx * hx;
+  const float F = hx * hy;
+  const float G = 1.f + hy * hy;
+  const float ln = sqrtf(hx * hx + hy * hy + 1.f);
+  const float L = hxx / ln, M = hxy / ln, N = hyy / ln;
+  const float den = E * G - F * F;
+  const float sden = fabsf(den) > 1e-12f ? den : 1e-12f;
+  const float kg = (L * N - M * M) / sden;
+  const float km = (E * N + G * L - 2.f * F * M) / (2.f * sden);
+  const float sq = sqrtf(clamp_min(km * km - kg, 0.f));
+  c->k1 = km + sq;
+  c->k2 = km - sq;
+  direction(c->k1, M, F, N, G, hx, hy, c->d1);
+  direction(c->k2, M, F, N, G, hx, hy, c->d2);
+  c->valid = isfinite(c->k1) && isfinite(c->k2);
+}
+
+// Per centre vertex, over the (2R+1)^2 window: masked neighbours (|dz| <
+// 0.10, z > depth_min, |n|^2 > 0.64) add their direct HRBF gradient and
+// Hessian terms (hrbf.grad_hess_direct, Hermite coefficient c = 10 n):
 //   inside the support (0 < d2 <= T^2), with r = |v| / T, s = 1 - r:
 //     g -= a c + b2 (v.c) v,       a = -20 s^3 / T^2, b2 = 60 s^2 / (r T^4)
 //     h -= cb (c v^T + v c^T + (v.c) I) - ck v v^T,
 //          cb = 60 s^2 / (r T^4), ck = 60 (2s + s^2/r) (v.c) / (r^2 T^6)
 //   at the neighbour itself (d2 == 0, T^2 > 0): g += (20 / T^2) c.
-// Every masked neighbour counts, inside its support or not.  Output per
-// pixel: [g(3) | h00 h01 h02 h11 h12 h22 | count].
+// Every masked neighbour counts, inside its support or not.  The staged
+// tile holds each pixel's centre-independent terms once: x, y, the z of a
+// pixel that passes the centre-independent part of the mask (NaN where it
+// fails, so the |dz| test rejects it), c, T^2, 1/T^2 and 60/T^4; a tap
+// inside its support then needs one square root and one reciprocal (1/r),
+// one MUFU instruction each.
+// The thread that holds the sums finishes the pixel (preprocess.
+// _curvature_epilogue): principal curvatures, |<g, n>|, the normalised
+// gradient as normal, its surfel radius, validity (count > 15, finite
+// curvatures, z > depth_min, |n| > 0.5) and the k = 1000 sentinel.
+// Outputs: ``fields`` planes [k1 | k2 | dir1(3) | dir2(3) | |<g,n>| |
+// normal_opt(3) | radius_opt] of h*w (3-vectors interleaved), ``valid``,
+// and, when ``sums`` is not null, [g(3) | h00 h01 h02 h11 h12 h22 | count].
+// RW > 0 fixes the window radius at compile time (the tap loops unroll);
+// RW = 0 takes it from ``window``.
+template <int RW>
 __global__ void __launch_bounds__(kThreads)
 curvature_kernel(const float* __restrict__ vertex, const float* __restrict__ normal,
-                 const float* __restrict__ radius, float* __restrict__ out,
-                 int h, int w, int R, float depth_min) {
+                 const float* __restrict__ radius, float* __restrict__ fields,
+                 uint8_t* __restrict__ valid, float* __restrict__ sums, int h,
+                 int w, int window, float depth_min, float rad_scale, float rad_mult) {
+  const int R = RW > 0 ? RW : window;
   extern __shared__ float smem[];
   const int TW = kTileX + 2 * R;
   const int TH = kTileY + 2 * R;
   const int n_pix = TW * TH;
-  float* tv = smem;              // [n_pix][3] vertex
-  float* tn = smem + 3 * n_pix;  // [n_pix][3] normal
-  float* tr = smem + 6 * n_pix;  // [n_pix] support radius
+  float* s_x = smem;
+  float* s_y = s_x + n_pix;
+  float* s_zm = s_y + n_pix;    // z where |n|^2 > 0.64 and z > depth_min, else NaN
+  float* s_cx = s_zm + n_pix;
+  float* s_cy = s_cx + n_pix;
+  float* s_cz = s_cy + n_pix;
+  float* s_t2 = s_cz + n_pix;
+  float* s_it2 = s_t2 + n_pix;  // 1 / max(T^2, 1e-12)
+  float* s_c60 = s_it2 + n_pix; // 60 / max(T^2, 1e-12)^2
   const int x0 = blockIdx.x * kTileX - R;
   const int y0 = blockIdx.y * kTileY - R;
   const int tid = threadIdx.y * kTileX + threadIdx.x;
@@ -256,53 +353,66 @@ curvature_kernel(const float* __restrict__ vertex, const float* __restrict__ nor
   for (int i = tid; i < n_pix; i += kThreads) {
     const int gx = x0 + i % TW;
     const int gy = y0 + i / TW;
-    const bool in = in_image(gx, gy, w, h);
-    const int64_t g = static_cast<int64_t>(gy) * w + gx;
+    float v[3] = {0.f, 0.f, 0.f}, n[3] = {0.f, 0.f, 0.f}, T = 0.f;
+    if (in_image(gx, gy, w, h)) {
+      const int64_t g = static_cast<int64_t>(gy) * w + gx;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      tv[i * 3 + c] = in ? vertex[g * 3 + c] : 0.f;
-      tn[i * 3 + c] = in ? normal[g * 3 + c] : 0.f;
+      for (int c = 0; c < 3; ++c) {
+        v[c] = vertex[g * 3 + c];
+        n[c] = normal[g * 3 + c];
+      }
+      T = radius[g];
     }
-    tr[i] = in ? radius[g] : 0.f;
+    const bool keep = n[0] * n[0] + n[1] * n[1] + n[2] * n[2] > 0.64f && v[2] > depth_min;
+    const float T2 = T * T;
+    const float sT2 = fmaxf(T2, 1e-12f);
+    s_x[i] = v[0];
+    s_y[i] = v[1];
+    s_zm[i] = keep ? v[2] : __int_as_float(0x7fc00000);
+    s_cx[i] = 10.f * n[0];
+    s_cy[i] = 10.f * n[1];
+    s_cz[i] = 10.f * n[2];
+    s_t2[i] = T2;
+    s_it2[i] = 1.f / sT2;
+    s_c60[i] = 60.f / (sT2 * sT2);
   }
   __syncthreads();
 
   const int x = blockIdx.x * kTileX + threadIdx.x;
   const int y = blockIdx.y * kTileY + threadIdx.y;
   if (x >= w || y >= h) return;
+  const int64_t pix = static_cast<int64_t>(y) * w + x;
+  const float px = vertex[pix * 3], py = vertex[pix * 3 + 1], pz = vertex[pix * 3 + 2];
   const int ci = (threadIdx.y + R) * TW + threadIdx.x + R;
-  const float px = tv[ci * 3], py = tv[ci * 3 + 1], pz = tv[ci * 3 + 2];
   float g0 = 0.f, g1 = 0.f, g2 = 0.f;
   float h00 = 0.f, h01 = 0.f, h02 = 0.f, h11 = 0.f, h12 = 0.f, h22 = 0.f;
   int cnt = 0;
+#pragma unroll
   for (int dy = -R; dy <= R; ++dy) {
+#pragma unroll
     for (int dx = -R; dx <= R; ++dx) {
       const int j = ci + dy * TW + dx;
-      const float qz = tv[j * 3 + 2];
-      const float nx = tn[j * 3], ny = tn[j * 3 + 1], nz = tn[j * 3 + 2];
-      if (!(fabsf(qz - pz) < 0.10f && qz > depth_min &&
-            nx * nx + ny * ny + nz * nz > 0.64f))
-        continue;
+      const float qz = s_zm[j];
+      if (!(fabsf(qz - pz) < 0.10f)) continue;
       ++cnt;
-      const float vx = px - tv[j * 3], vy = py - tv[j * 3 + 1], vz = pz - qz;
+      const float vx = px - s_x[j], vy = py - s_y[j], vz = pz - qz;
       const float d2 = vx * vx + vy * vy + vz * vz;
-      const float T = tr[j];
-      const float T2 = T * T;
-      const float sT2 = fmaxf(T2, 1e-12f);
-      const float cx = 10.f * nx, cy = 10.f * ny, cz = 10.f * nz;
+      const float T2 = s_t2[j];
       if (d2 <= T2 && d2 > 0.f) {
-        const float r = sqrtf(fmaxf(d2, 0.f) / sT2);
-        const float sr = fmaxf(r, 1e-20f);
+        const float it2 = s_it2[j];
+        const float c60 = s_c60[j];
+        const float cx = s_cx[j], cy = s_cy[j], cz = s_cz[j];
+        const float r = sqrt_approx(d2 * it2);
+        const float ir = rcp_approx(fmaxf(r, 1e-20f));
         const float s = fmaxf(1.f - r, 0.f);
-        const float b = s * s / sr;
+        const float b = s * s * ir;
         const float vc = vx * cx + vy * cy + vz * cz;
-        const float a = -20.f * (s * s * s) / sT2;
-        const float bvc = (60.f * b / (sT2 * sT2)) * vc;
-        g0 += -a * cx - bvc * vx;
-        g1 += -a * cy - bvc * vy;
-        g2 += -a * cz - bvc * vz;
-        const float c60 = 60.f / (sT2 * sT2);
-        const float k = (2.f * s + b) / (sT2 * sr * sr);
+        const float ma = 20.f * (s * s * s) * it2;  // -a
+        const float bvc = c60 * b * vc;
+        g0 += ma * cx - bvc * vx;
+        g1 += ma * cy - bvc * vy;
+        g2 += ma * cz - bvc * vz;
+        const float k = (2.f * s + b) * it2 * ir * ir;
         const float cb = c60 * b;
         const float ck = c60 * k * vc;
         const float cbvc = cb * vc;
@@ -313,21 +423,60 @@ curvature_kernel(const float* __restrict__ vertex, const float* __restrict__ nor
         h12 += -(cb * (cy * vz + cz * vy) - ck * vy * vz);
         h22 += -(cb * 2.f * cz * vz + cbvc - ck * vz * vz);
       } else if (d2 == 0.f && T2 > 0.f) {
-        const float a0 = 20.f / sT2;
-        g0 += a0 * cx;
-        g1 += a0 * cy;
-        g2 += a0 * cz;
+        const float a0 = 20.f * s_it2[j];
+        g0 += a0 * s_cx[j];
+        g1 += a0 * s_cy[j];
+        g2 += a0 * s_cz[j];
       }
     }
   }
-  float* o = out + (static_cast<int64_t>(y) * w + x) * 10;
-  o[0] = g0; o[1] = g1; o[2] = g2;
-  o[3] = h00; o[4] = h01; o[5] = h02; o[6] = h11; o[7] = h12; o[8] = h22;
-  o[9] = static_cast<float>(cnt);
+  if (sums != nullptr) {
+    float* o = sums + pix * 10;
+    o[0] = g0; o[1] = g1; o[2] = g2;
+    o[3] = h00; o[4] = h01; o[5] = h02; o[6] = h11; o[7] = h12; o[8] = h22;
+    o[9] = static_cast<float>(cnt);
+  }
+
+  Curvature c;
+  principal_curvatures(g0, g1, g2, h00, h01, h02, h11, h12, h22, &c);
+  const float nx = normal[pix * 3], ny = normal[pix * 3 + 1], nz = normal[pix * 3 + 2];
+  const float glen = clamp_min(sqrtf(g0 * g0 + g1 * g1 + g2 * g2), 1e-20f);
+  const bool ok = cnt > 15 && c.valid && pz > depth_min &&
+                  sqrtf(nx * nx + ny * ny + nz * nz) > 0.5f;
+  const float gn[3] = {ok ? g0 / glen : 0.f, ok ? g1 / glen : 0.f, ok ? g2 / glen : 0.f};
+  // surfel_radius: sqrt2 z / mean focal, slanted by 1 / |n_z|, capped at 2x
+  const float base = pz * rad_scale;
+  const float slant = base / fmaxf(fabsf(gn[2]), 1e-6f);
+  const int64_t P = static_cast<int64_t>(h) * w;
+  fields[pix] = ok ? c.k1 : 1000.f;
+  fields[P + pix] = ok ? c.k2 : 1000.f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    fields[2 * P + pix * 3 + i] = ok ? c.d1[i] : 0.f;
+    fields[5 * P + pix * 3 + i] = ok ? c.d2[i] : 0.f;
+    fields[9 * P + pix * 3 + i] = gn[i];
+  }
+  fields[8 * P + pix] = ok ? fabsf(g0 * nx + g1 * ny + g2 * nz) : 0.f;
+  fields[12 * P + pix] = ok ? fminf(2.f * base, slant) * rad_mult : 0.f;
+  valid[pix] = ok ? 1 : 0;
 }
 
 dim3 grid_for(int h, int w) {
   return dim3((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
+}
+
+// the curvature kernel's instance for ``window`` (the configured 3
+// unrolled)
+using CurvatureKernel = void (*)(const float*, const float*, const float*, float*,
+                                 uint8_t*, float*, int, int, int, float, float, float);
+
+CurvatureKernel curvature_for(int window) {
+  return window == 3 ? curvature_kernel<3> : curvature_kernel<0>;
+}
+
+size_t curvature_smem(int window) {
+  return static_cast<size_t>(kTileX + 2 * window) * (kTileY + 2 * window) * 9 *
+         sizeof(float);
 }
 
 }  // namespace
@@ -362,17 +511,35 @@ extern "C" int normal_pca_launch(const float* vertex, float* normal, int h,
   return static_cast<int>(cudaGetLastError());
 }
 
-// vertex (h, w, 3), normal (h, w, 3), radius (h, w) -> out (h, w, 10).
-extern "C" int curvature_sums_launch(const float* vertex, const float* normal,
-                                     const float* radius, float* out, int h,
-                                     int w, int window, float depth_min,
-                                     void* stream) {
+// vertex (h, w, 3), normal (h, w, 3), radius (h, w) -> fields (13, h, w)
+// planes [k1 | k2 | dir1(3) | dir2(3) | gradient_mag | normal_opt(3) |
+// radius_opt], valid (h, w) uint8 and, unless ``sums`` is null, the window
+// sums (h, w, 10).  ``rad_scale`` = sqrt2 / mean focal length.
+extern "C" int curvature_gradient_launch(const float* vertex, const float* normal,
+                                         const float* radius, float* fields,
+                                         uint8_t* valid, float* sums, int h,
+                                         int w, int window, float depth_min,
+                                         float rad_scale, float rad_mult,
+                                         void* stream) {
   if (h <= 0 || w <= 0 || window < 0 || window > kMaxCurvR)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(kTileX + 2 * window) *
-                      (kTileY + 2 * window) * 7 * sizeof(float);
-  curvature_kernel<<<grid_for(h, w), dim3(kTileX, kTileY), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      vertex, normal, radius, out, h, w, window, depth_min);
+  curvature_for(window)<<<grid_for(h, w), dim3(kTileX, kTileY), curvature_smem(window),
+                          static_cast<cudaStream_t>(stream)>>>(
+      vertex, normal, radius, fields, valid, sums, h, w, window, depth_min,
+      rad_scale, rad_mult);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the curvature kernel compiled to at window radius ``window``:
+// out[0] registers per thread, out[1] local (spilled) bytes per thread,
+// out[2] resident blocks of 256 threads per SM.  Returns a cudaError_t.
+extern "C" int curvature_gradient_attributes(int window, int* out) {
+  if (window < 0 || window > kMaxCurvR) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, curvature_for(window));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], curvature_for(window), kThreads, curvature_smem(window)));
 }

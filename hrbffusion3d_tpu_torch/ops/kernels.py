@@ -27,6 +27,7 @@ a changed source is rebuilt, and loads them with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -34,6 +35,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -49,13 +51,22 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # trailing stream)
 _ENTRIES = {
     "raycast_core": ("raycast.cu", "raycast_core_launch",
-                     [_P] * 5 + [_I] * 5 + [_F, _P] + [_I] * 5 + [_F] * 4),
+                     [_P] * 5 + [_I] * 5 + [_F, _P, _I, _P] + [_I] * 5 + [_F] * 4),
     "bilateral_filter": ("preprocess.cu", "bilateral_filter_launch",
                          [_P, _P, _I, _I, _F, _F, _I]),
     "normal_pca": ("preprocess.cu", "normal_pca_launch", [_P, _P, _I, _I, _F]),
-    "curvature_gradient": ("preprocess.cu", "curvature_sums_launch",
-                           [_P, _P, _P, _P, _I, _I, _I, _F]),
+    "curvature_gradient": ("preprocess.cu", "curvature_gradient_launch",
+                           [_P] * 6 + [_I] * 3 + [_F] * 3),
 }
+# kernel -> (source, C entry point reporting what the kernel compiled to,
+# its integer arguments before the output pointer)
+_ATTRIBUTES = {
+    "raycast_core": ("raycast.cu", "raycast_core_attributes", 2),
+    "curvature_gradient": ("preprocess.cu", "curvature_gradient_attributes", 1),
+}
+# ladder taps (and k-section points) the ray-cast kernel evaluates per pass
+# over its taps (kLadderBatch in csrc/raycast.cu)
+RAYCAST_LADDER_BATCH = 4
 
 # launches of each kernel (one per wrapper call on a CUDA tensor, counted
 # nowhere else); callers reset and read them to show a run went through
@@ -65,6 +76,7 @@ BUILD_SECONDS: dict[str, float] = {}   # source -> nvcc wall time in this proces
 PTXAS: dict[str, list[str]] = {}       # source -> ptxas register / spill lines
 
 _FNS: dict[str, ctypes._CFuncPtr] = {}
+_ATTR_FNS: dict[str, ctypes._CFuncPtr] = {}
 
 
 def ring_taps(radius: int) -> list[tuple[int, int]]:
@@ -74,6 +86,14 @@ def ring_taps(radius: int) -> list[tuple[int, int]]:
             for dx in range(-radius, radius + 1)]
     offs.sort(key=lambda o: (max(abs(o[0]), abs(o[1])), o[0], o[1]))
     return offs
+
+
+@functools.lru_cache(maxsize=None)
+def ring_table(radius: int):
+    """``ring_taps(radius)`` as the kernel takes it: a C array of int8
+    (dy, dx) pairs."""
+    flat = [o for tap in ring_taps(radius) for o in tap]
+    return (ctypes.c_int8 * len(flat))(*flat)
 
 
 def _variant(cfg: SLAMConfig):
@@ -88,6 +108,16 @@ def _variant(cfg: SLAMConfig):
     fp = cfg.raycast_false_position if cfg.raycast_geometric_ladder else 0
     ksec_b, ksec_p = bisection_plan(cfg)
     return [float(o * cfg.raycast_coarse_step) for o in offs], fp, bis, ksec_b, ksec_p
+
+
+@functools.lru_cache(maxsize=8)
+def _launch_variant(cfg: SLAMConfig):
+    """``_variant(cfg)`` with the ladder as the C array the kernel takes
+    and its length (made once per configuration)."""
+    ladder, fp, bis, ksec_b, ksec_p = _variant(cfg)
+    if len(ladder) > 64:
+        raise ValueError("raycast_core: the kernel takes at most 64 ladder taps")
+    return (ctypes.c_float * max(len(ladder), 1))(*ladder), len(ladder), fp, bis, ksec_b, ksec_p
 
 
 def _nvcc() -> str:
@@ -110,7 +140,9 @@ def _ptxas_lines(log: str) -> list[str]:
                 out.append(f"{name}: " + " | ".join(info))
             mangled = ln.split("'")[1]
             short = re.search(r"([a-z]+_kernel)", mangled)
-            name, info = short.group(1) if short else mangled, []
+            targ = re.search(r"ILi(\d+)E", mangled)
+            name = short.group(1) if short else mangled
+            name, info = f"{name}<{targ.group(1)}>" if targ else name, []
         elif name and ("registers" in ln or "spill" in ln):
             info.append(ln.split(":", 1)[-1].strip())
     if name:
@@ -165,8 +197,26 @@ def build() -> dict[str, ctypes._CFuncPtr]:
         fn.argtypes = argtypes + [_P]
         fn.restype = ctypes.c_int
         fns[name] = fn
+    for name, (src, entry, n_int) in _ATTRIBUTES.items():
+        fn = getattr(libs[src], entry)
+        fn.argtypes = [_I] * n_int + [_P]
+        fn.restype = ctypes.c_int
+        _ATTR_FNS[name] = fn
     _FNS.update(fns)
     return _FNS
+
+
+def kernel_attributes(name: str, *args: int) -> dict[str, int]:
+    """What kernel ``name`` compiled to on the current card, for its
+    integer arguments (ray cast: tap cap K and window radius; curvature:
+    window radius): registers per thread, local (spilled) bytes per thread
+    and resident blocks of 256 threads per SM.  Launches nothing."""
+    build()
+    out = (ctypes.c_int * 3)()
+    rc = _ATTR_FNS[name](*args, ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"{name}: attribute query failed with error {rc}")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2])
 
 
 def on_card(name: str, x: torch.Tensor) -> bool:
@@ -217,21 +267,20 @@ def raycast_core(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfig):
     if cfg.predict_max_neighbors > 16 or cfg.predict_window_multiplier > 7:
         raise ValueError("raycast_core: the kernel takes predict_max_neighbors <= 16 "
                          "and predict_window_multiplier <= 7")
-    ladder, fp, bis, ksec_b, ksec_p = _variant(cfg)
-    if len(ladder) > 64:
-        raise ValueError("raycast_core: the kernel takes at most 64 ladder taps")
+    lad, n_lad, fp, bis, ksec_b, ksec_p = _launch_variant(cfg)
     dev = attr9.device
     p_surf = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     grad = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     nearest = torch.empty((h, w), dtype=torch.int32, device=dev)
     found = torch.empty((h, w), dtype=torch.bool, device=dev)
-    lad = (ctypes.c_float * max(len(ladder), 1))(*ladder)
+    ring = ring_table(cfg.predict_window_multiplier)
     launch("raycast_core", attr9,
            attr9.data_ptr(), p_surf.data_ptr(), grad.data_ptr(),
            nearest.data_ptr(), found.data_ptr(), h, w,
            cfg.predict_window_multiplier, cfg.predict_max_neighbors,
            cfg.predict_min_neighbors, cfg.predict_conf_threshold,
-           ctypes.cast(lad, ctypes.c_void_p), len(ladder), fp, bis, ksec_b, ksec_p,
+           ctypes.cast(lad, ctypes.c_void_p), n_lad,
+           ctypes.cast(ring, ctypes.c_void_p), len(ring) // 2, fp, bis, ksec_b, ksec_p,
            intr.fx, intr.fy, intr.cx, intr.cy)
     return p_surf, grad, nearest, found
 
@@ -245,13 +294,42 @@ def _ring_patches(attr9: torch.Tensor, radius: int, rows: slice, w: int) -> torc
     return torch.stack(taps, dim=2).reshape((h1 - h0) * w, len(taps), 9)
 
 
+class RaycastStats(NamedTuple):
+    """Per-pixel work of the ray cast, (H, W) int tensors."""
+    n_sel: torch.Tensor    # selected taps (stable, capped at K)
+    n_eval: torch.Tensor   # evaluations of f: f0, the ladder up to the bracket, refinement
+    n_visit: torch.Tensor  # ring-ordered taps tested until K are selected
+
+
+def _refine_evals(fp: int, bis: int, ksec_b: int, ksec_p: int) -> int:
+    """Evaluations of f in the root refinement (the same for every pixel)."""
+    return fp if fp > 0 else (ksec_b * ksec_p if ksec_b > 1 else bis)
+
+
+def raycast_kernel_evals(stats: RaycastStats, cfg: SLAMConfig) -> torch.Tensor:
+    """(H, W) evaluations of f that the CUDA kernel makes where the plain
+    version makes ``stats.n_eval``: its ladder and its k-section evaluate
+    ``RAYCAST_LADDER_BATCH`` points per pass over the taps, so a pass that
+    brackets early, or the last one, evaluates up to that many - 1 extra;
+    a pixel with no selected tap evaluates nothing."""
+    _, fp, bis, ksec_b, ksec_p = _variant(cfg)
+    G = RAYCAST_LADDER_BATCH
+    refine = _refine_evals(fp, bis, ksec_b, ksec_p)
+    ladder = stats.n_eval - 1 - refine
+    if fp <= 0 and ksec_b > 1:
+        refine = -(-ksec_b // G) * G * ksec_p
+    done = 1 + (-(-ladder // G)) * G + refine
+    return torch.where(stats.n_sel > 0, done, 0)
+
+
 def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfig,
                      stats: bool = False):
     """Plain PyTorch version of ``raycast_core`` (same semantics, vectorised
     over (pixels, 49 taps) in chunks of whole image rows holding about
     ``cfg.raycast_chunk`` pixels).  With ``stats``, a fifth output: the
-    (H, W) number of selected taps (stable, capped at K)."""
+    per-pixel work, ``RaycastStats``."""
     ladder, fp, bis, ksec_b, ksec_p = _variant(cfg)
+    refine = _refine_evals(fp, bis, ksec_b, ksec_p)
     R = cfg.predict_window_multiplier
     K = cfg.predict_max_neighbors
     kmin = cfg.predict_min_neighbors
@@ -278,8 +356,12 @@ def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfi
               & (nrm[..., 0] * nrm[..., 0] + nrm[..., 1] * nrm[..., 1]
                  + nrm[..., 2] * nrm[..., 2] > 0.01)
               & (nb[..., 6] >= cfg.predict_conf_threshold) & (nrm[..., 2] > 0.0))
-        sel = ok & (torch.cumsum(ok.to(torch.int32), dim=1) - 1 < K)
+        n_ok = torch.cumsum(ok.to(torch.int32), dim=1)
+        sel = ok & (n_ok - 1 < K)
         n_sel = sel.sum(dim=1)
+        # the walk stops at the K-th selected tap
+        kth = torch.argmax((n_ok >= K).to(torch.int32), dim=1) + 1
+        n_visit = torch.where(n_ok[:, -1] >= K, kth, n_ok.shape[1]) if K > 0 else 0 * n_sel
         proj = torch.abs(pos[..., 0] * ray[:, 0:1] + pos[..., 1] * ray[:, 1:2]
                          + pos[..., 2] * ray[:, 2:3])
         t0 = torch.where(sel, proj, 1e6).amin(dim=1)
@@ -322,6 +404,7 @@ def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfi
         f_lo = torch.where(fnd, torch.where(gb, at(fv), at(f_prev)), 0.0)
         f_hi = torch.where(fnd, torch.where(gb, at(f_prev), at(fv)), 0.0)
         found = enough & fnd
+        n_eval = 1 + torch.where(fnd, first[:, 0] + 1, len(ladder)) + refine
 
         def falsi_point(lo, hi, flo, fhi):
             den = fhi - flo
@@ -375,9 +458,9 @@ def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfi
         # 1e12 start
         first_min = torch.argmax((d2n == best).to(torch.int32), dim=1)
         nearest = torch.where(best[:, 0] < 1e12, first_min, 0).to(torch.int32)
-        outs.append((p_surf, grad, nearest, found, n_sel))
+        outs.append((p_surf, grad, nearest, found, n_sel, n_eval, n_visit))
 
-    p_surf, grad, nearest, found, n_sel = (torch.cat(o, dim=0) for o in zip(*outs))
+    p_surf, grad, nearest, found, *work = (torch.cat(o, dim=0) for o in zip(*outs))
     out = (p_surf.reshape(h, w, 3), grad.reshape(h, w, 3),
            nearest.reshape(h, w), found.reshape(h, w))
-    return (*out, n_sel.reshape(h, w)) if stats else out
+    return (*out, RaycastStats(*(x.reshape(h, w) for x in work))) if stats else out

@@ -4,7 +4,8 @@ vertex/normal/radius, HRBF curvature, confidence.
 
 Three stencils are hand-written CUDA kernels (``csrc/preprocess.cu``, the
 counterparts of the TPU kernels ``bilateral_filter``, ``normal_pca`` and
-``curvature_gradient`` of ``hrbffusion3d_tpu/ops/pallas_kernels.py``).  Each
+``curvature_gradient`` of ``hrbffusion3d_tpu/ops/pallas_kernels.py``; the
+curvature kernel also runs the epilogue that the TPU wrapper left to XLA).  Each
 wrapper here keeps the JAX package's name and launches its kernel for a CUDA
 tensor; a CPU tensor runs the plain version beside it (``*_ref``), which is
 the one place the semantics are written.
@@ -100,10 +101,15 @@ def _smallest_eigvec_3x3(A: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-20)
 
 
+def _radius_scale(intr: CameraIntrinsics) -> float:
+    """sqrt2 / meanFocal: a surfel's radius per metre of depth."""
+    return 1.41421356237 / camera.mean_focal(intr)
+
+
 def surfel_radius(z: torch.Tensor, n_z: torch.Tensor, intr: CameraIntrinsics) -> torch.Tensor:
     """surfels.glsl:19-34: sqrt2 * z / meanFocal, slanted by 1/|n_z|,
     clamped at 2x."""
-    base = z * (1.41421356237 / camera.mean_focal(intr))
+    base = z * _radius_scale(intr)
     slant = base / torch.clamp(torch.abs(n_z), min=1e-6)
     return torch.minimum(2.0 * base, slant)
 
@@ -211,10 +217,12 @@ class CurvatureResult(NamedTuple):
 def curvature_gradient(pre: VertexNormalRadius, intr: CameraIntrinsics,
                        cfg: SLAMConfig) -> CurvatureResult:
     """HRBF curvature/gradient pass (depth_curvature_gradient.frag:28-142):
-    the window sums (``curvature_sums``: the CUDA kernel for CUDA tensors),
-    then the per-pixel epilogue in torch ops."""
-    sums = curvature_sums(pre.vertex_filtered, pre.normal, pre.radius, cfg)
-    return _curvature_epilogue(sums, pre, intr, cfg)
+    for CUDA tensors one launch of the fused CUDA kernel (window sums and
+    epilogue), for CPU tensors ``curvature_gradient_ref``."""
+    if not kernels.on_card("curvature_gradient", pre.vertex_filtered):
+        return curvature_gradient_ref(pre, intr, cfg)
+    return _curvature_launch(pre.vertex_filtered, pre.normal, pre.radius, cfg,
+                             _radius_scale(intr))[0]
 
 
 def curvature_gradient_ref(pre: VertexNormalRadius, intr: CameraIntrinsics,
@@ -227,19 +235,41 @@ def curvature_gradient_ref(pre: VertexNormalRadius, intr: CameraIntrinsics,
 
 def curvature_sums(v: torch.Tensor, n: torch.Tensor, rad: torch.Tensor,
                    cfg: SLAMConfig) -> torch.Tensor:
-    """The (H, W, 10) window sums of ``curvature_sums_ref``: the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
+    """The (H, W, 10) window sums of ``curvature_sums_ref``: for a CUDA
+    tensor the fused curvature kernel, asked to write its sums too (one
+    launch; its other fields are dropped), for a CPU tensor the plain
+    version."""
     if not kernels.on_card("curvature_gradient", v):
         return curvature_sums_ref(v, n, rad, cfg)
+    return _curvature_launch(v, n, rad, cfg, 0.0, with_sums=True)[1]
+
+
+def _curvature_launch(v: torch.Tensor, n: torch.Tensor, rad: torch.Tensor,
+                      cfg: SLAMConfig, rad_scale: float, with_sums: bool = False):
+    """One launch of the fused curvature kernel on CUDA tensors: returns
+    (``CurvatureResult``, the (H, W, 10) sums or None).  ``rad_scale`` is
+    sqrt2 / mean focal length (``surfel_radius``).  The float fields are
+    views of one buffer, each contiguous."""
     h, w = v.shape[:2]
     for x, shape in ((v, (h, w, 3)), (n, (h, w, 3)), (rad, (h, w))):
         kernels.check_input("curvature_gradient", x, shape)
     if not 0 <= cfg.curv_window <= 7:
         raise ValueError("curvature_gradient: the kernel takes curv_window <= 7")
-    acc = torch.empty((h, w, 10), dtype=torch.float32, device=v.device)
+    P = h * w
+    fields = torch.empty(13 * P, dtype=torch.float32, device=v.device)
+    valid = torch.empty((h, w), dtype=torch.bool, device=v.device)
+    sums = (torch.empty((h, w, 10), dtype=torch.float32, device=v.device)
+            if with_sums else None)
     kernels.launch("curvature_gradient", v, v.data_ptr(), n.data_ptr(), rad.data_ptr(),
-                   acc.data_ptr(), h, w, cfg.curv_window, cfg.depth_min)
-    return acc
+                   fields.data_ptr(), valid.data_ptr(),
+                   sums.data_ptr() if with_sums else None, h, w, cfg.curv_window,
+                   cfg.depth_min, rad_scale, cfg.radius_multiplier)
+    k1, k2, d1, d2, gmag, nopt, rad_opt = torch.split(fields, [P, P, 3 * P, 3 * P, P, 3 * P, P])
+    out = CurvatureResult(k1=k1.view(h, w), k2=k2.view(h, w), dir1=d1.view(h, w, 3),
+                          dir2=d2.view(h, w, 3), gradient_mag=gmag.view(h, w),
+                          normal_opt=nopt.view(h, w, 3), radius_opt=rad_opt.view(h, w),
+                          valid=valid)
+    return out, sums
 
 
 def curvature_sums_ref(v: torch.Tensor, n: torch.Tensor, radius: torch.Tensor,

@@ -31,8 +31,9 @@ count; the plain versions' work counts (``stats=True``, which the chip
 smoke run's bounds read) are held to counts made here.  The ``cuda``-marked
 tests hold each kernel against its plain version on the card and skip here:
 the curvature sums within 1e-5 of their terms' summed magnitude (count
-exact), k1/k2 where |g_z| >= 0.1 |g| (at most 1 % of the valid pixels
-left out)."""
+exact), k1/k2 and the principal directions where |g_z| >= 0.1 |g| (at most
+1 % of the valid pixels left out), gradient_mag and radius_opt where both
+are valid, the k = 1000 sentinel where not."""
 
 import dataclasses
 from unittest import mock
@@ -213,6 +214,31 @@ def test_wrapper_on_cpu_runs_plain(name):
     assert kernels.LAUNCHES == before
 
 
+def test_curvature_result_fields_on_cpu():
+    """The curvature wrapper on CPU tensors returns every CurvatureResult
+    field through the plain path, with the contract the fused kernel is held
+    to: k = 1000 exactly and every other field 0 where not valid."""
+    pre = _port_pre()
+    before = dict(kernels.LAUNCHES)
+    out = tpre.curvature_gradient(pre, PINTR, PCFG)
+    assert kernels.LAUNCHES == before
+    assert isinstance(out, tpre.CurvatureResult)
+    h, w = pre.radius.shape
+    for f in out._fields:
+        x = getattr(out, f)
+        assert x.device.type == "cpu" and x.shape[:2] == (h, w), f
+        assert x.dtype == (torch.bool if f == "valid" else torch.float32), f
+    valid = n(out.valid)
+    assert 0.3 < valid.mean() < 1.0
+    assert (n(out.k1)[~valid] == 1000.0).all() and (n(out.k2)[~valid] == 1000.0).all()
+    for f in ("dir1", "dir2", "gradient_mag", "normal_opt", "radius_opt"):
+        assert (n(getattr(out, f))[~valid] == 0.0).all(), f
+    for f in ("dir1", "dir2", "normal_opt"):
+        np.testing.assert_allclose(np.linalg.norm(n(getattr(out, f))[valid], axis=-1), 1.0,
+                                   atol=1e-5)
+    assert (n(out.radius_opt)[valid] > 0).all() and (n(out.gradient_mag)[valid] > 0).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["bilateral_filter", "normal_pca", "curvature_gradient"])
 def test_cuda_kernel_matches_plain(name):
@@ -246,3 +272,14 @@ def test_cuda_kernel_matches_plain(name):
         np.testing.assert_allclose(n(out.k2)[held], n(ref.k2)[held], atol=5e-2, rtol=1e-3)
         dots = np.sum(n(out.normal_opt)[both] * n(ref.normal_opt)[both], axis=-1)
         assert (dots > 0.9999).mean() >= 0.99
+        for f in ("dir1", "dir2"):
+            dots = np.abs(np.sum(n(getattr(out, f))[held] * n(getattr(ref, f))[held], axis=-1))
+            assert (dots > 0.9999).mean() >= 0.99, f
+        np.testing.assert_allclose(n(out.gradient_mag)[both], n(ref.gradient_mag)[both],
+                                   rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(n(out.radius_opt)[both], n(ref.radius_opt)[both], atol=1e-6)
+        for res in (out, ref):
+            inv = ~n(res.valid)
+            assert (n(res.k1)[inv] == 1000.0).all() and (n(res.k2)[inv] == 1000.0).all()
+        at = kernels.kernel_attributes("curvature_gradient", PCFG.curv_window)
+        assert at["local_bytes"] == 0 and at["blocks_per_sm"] >= 2

@@ -101,22 +101,60 @@ def test_raycast_core_ref_matches_jax(scene, variant):
 
 def test_ref_stats_count_selected_taps(scene):
     """The plain version's work count: per pixel, the stable taps of its
-    ring-ordered window, capped at K."""
+    ring-ordered window, capped at K, and the taps the ring walk tests
+    before it holds K."""
     attr9 = scene[3]
     cfg = PCFG
-    *out, n_sel = tk.raycast_core_ref(t(attr9), PINTR, cfg, stats=True)
+    *out, st = tk.raycast_core_ref(t(attr9), PINTR, cfg, stats=True)
     for a, b in zip(out, tk.raycast_core_ref(t(attr9), PINTR, cfg)):
         np.testing.assert_array_equal(n(a), n(b))
     pos, nrm = attr9[..., 0:3], attr9[..., 3:6]
     stable = ((attr9[..., 8] > 0.5) & (pos[..., 2] > 0.1) & ((nrm * nrm).sum(-1) > 0.01)
               & (attr9[..., 6] >= cfg.predict_conf_threshold) & (nrm[..., 2] > 0.0))
-    R = cfg.predict_window_multiplier
+    R, K = cfg.predict_window_multiplier, cfg.predict_max_neighbors
     h, w = stable.shape
     sp = np.pad(stable, R)
-    count = sum(sp[dy:dy + h, dx:dx + w].astype(np.int64)
-                for dy in range(2 * R + 1) for dx in range(2 * R + 1))
-    np.testing.assert_array_equal(n(n_sel), np.minimum(count, cfg.predict_max_neighbors))
-    assert n(n_sel).max() == cfg.predict_max_neighbors
+    ring = [sp[R + dy:R + dy + h, R + dx:R + dx + w] for dy, dx in tk.ring_taps(R)]
+    count = np.cumsum(np.stack(ring).astype(np.int64), axis=0)     # (taps, H, W)
+    np.testing.assert_array_equal(n(st.n_sel), np.minimum(count[-1], K))
+    assert n(st.n_sel).max() == K
+    visit = np.where(count[-1] >= K, np.argmax(count >= K, axis=0) + 1, len(ring))
+    np.testing.assert_array_equal(n(st.n_visit), visit)
+    assert (n(st.n_visit) < len(ring)).any()
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_ref_stats_count_evaluations(scene, variant):
+    """Evaluations of f per pixel: f0, the ladder taps up to the bracket and
+    the refinement, so at least 2 + refinement where found and at most
+    1 + |ladder| + refinement; the kernel's batched ladder (and k-section)
+    adds fewer than a batch per pass, and nothing where no tap is
+    selected."""
+    cfg = port_cfg(dataclasses.replace(CFG, **VARIANTS[variant]))
+    *out, st = tk.raycast_core_ref(t(scene[3]), PINTR, cfg, stats=True)
+    ladder, fp, bis, ksec_b, ksec_p = tk._variant(cfg)
+    refine = fp if fp > 0 else (ksec_b * ksec_p if ksec_b > 1 else bis)
+    found, n_eval = n(out[3]), n(st.n_eval)
+    assert len(ladder) == 8 and found.mean() > 0.5
+    assert (n_eval[found] >= 2 + refine).all()
+    assert (n_eval >= 2 + refine).all() and (n_eval <= 1 + len(ladder) + refine).all()
+    assert (n_eval[~found] == 1 + len(ladder) + refine).any()
+    done = n(tk.raycast_kernel_evals(st, cfg))
+    sel = n(st.n_sel) > 0
+    G = tk.RAYCAST_LADDER_BATCH
+    spare = (G - 1) * (1 + (ksec_p if fp <= 0 and ksec_b > 1 else 0))
+    assert (done[sel] >= n_eval[sel]).all() and (done[sel] <= n_eval[sel] + spare).all()
+    assert (done[~sel] == 0).all()
+
+
+@pytest.mark.parametrize("radius", [0, 1, 3, 7])
+def test_ring_table_is_ring_order(radius):
+    """The table the wrapper passes to the kernel is ring_taps(R), the TPU
+    kernel's order."""
+    table = list(tk.ring_table(radius))
+    pairs = list(zip(table[0::2], table[1::2]))
+    assert pairs == tk.ring_taps(radius) == jpk._ring_taps(radius)
+    assert len(pairs) == (2 * radius + 1) ** 2
 
 
 def test_ring_order_and_ladder():
@@ -144,13 +182,19 @@ def test_fill_in(scene):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_ref(scene):
-    """On the card: the CUDA kernel against its plain version."""
+@pytest.mark.parametrize("k_cap", [10, 16])
+def test_cuda_kernel_matches_ref(scene, k_cap):
+    """On the card: the CUDA kernel against its plain version, for both tap
+    caps the kernel is built for (K = 10 within 128 registers, no spills)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card)")
     *_, attr9, _ = scene
+    if k_cap == 10:
+        at = tk.kernel_attributes("raycast_core", 10, PCFG.predict_window_multiplier)
+        assert at["registers"] <= 128 and at["local_bytes"] == 0 and at["blocks_per_sm"] >= 2
     for variant in sorted(VARIANTS):
-        cfg = port_cfg(dataclasses.replace(CFG, **VARIANTS[variant]))
+        cfg = port_cfg(dataclasses.replace(CFG, predict_max_neighbors=k_cap,
+                                           **VARIANTS[variant]))
         a = t(attr9).cuda()
         before = tk.LAUNCHES["raycast_core"]
         out = tk.raycast_core(a, PINTR, cfg)
