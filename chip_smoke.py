@@ -6,9 +6,10 @@ four hand-written CUDA kernels, checks the trajectory and each kernel
 against its plain PyTorch version, and prints:
   - the card's name and power limit (nvidia-smi);
   - each kernel source's build time, each kernel's ptxas registers and
-    spills, and for the two redesigned kernels the registers, spilled bytes
-    and resident warps per SM the runtime reports (the K = 10 ray cast must
-    stay within 128 registers, unspilled, at 16 warps);
+    spills, and for every kernel the registers, spilled bytes and resident
+    warps per SM the runtime reports (the K = 10 ray cast must stay within
+    128 registers, unspilled, at 16 warps; the bilateral and PCA kernels
+    unspilled);
   - the median ms per step, the host syncs of the last step and every
     kernel's launches on the main path;
   - each kernel (and each ray-cast refinement variant) against its plain
@@ -17,7 +18,8 @@ against its plain PyTorch version, and prints:
     call with the wrapper's host work in it (the card idle meanwhile)
     and the plain version's; the ray cast with two bounds, on the least work
     (the plain version's evaluations) and on the work the kernel does (its
-    batched ladder);
+    batched ladder); the bilateral and PCA kernels with two, on the least
+    work and on the per-tap counts of their first design;
   - a short ``use_pallas=True`` run (the Pallas bilateral denominator);
   - a per-phase breakdown of the step (each phase synchronised), the
     device ops and busy time per step and each kernel's device time per
@@ -84,14 +86,33 @@ FP32_INSTR_PER_S = 67e12 / 2
 MUFU_PER_S = 132 * 16 * 1.98e9
 # (float32, MUFU) instructions per tap or per pixel, counted from the CUDA
 # sources: a fused multiply-add is one float32 instruction; an approximate
-# square root or reciprocal one MUFU instruction; an IEEE
+# square root, reciprocal, exp2, sine or cosine one MUFU instruction; an IEEE
 # division is a MUFU reciprocal and about 6 float32 instructions around it,
 # a sqrtf a MUFU reciprocal square root and about 5, an expf a MUFU exp2
 # and about 4, an atan2f about 25 and a reciprocal, a sinf / cosf pair
 # about 40 and none
 DIV, SQRT, EXP = np.array([6, 1]), np.array([5, 1]), np.array([4, 1])
 ATAN2, SINCOS = np.array([25, 1]), np.array([40, 0])
+# float32 instructions of one exponential taken on the FMA pipe instead of
+# the MUFU (Cody-Waite split: round, subtract, a degree-5 polynomial, the
+# exponent's shift and add, a clamp)
+EXP_ON_FMA = 11
 OPS = {
+    # the least work, which bounds the bilateral and PCA kernels: per
+    # weighted bilateral tap sub, square, fma, fma into num, add into den
+    # and one exponential (on either pipe: see _balanced); per PCA input
+    # pixel the z > depth_min test, per tested tap (centre valid) sub and
+    # compare, per accepted tap 2 sub, the count, 3 adds and 6 fma, per
+    # valid pixel the eigen-solve of the current source
+    # (one reciprocal of the count, 2 approximate roots, atan2f, a MUFU
+    # sine and cosine, an approximate reciprocal square root)
+    "bilateral_tap_least": np.array([5, 0]),
+    "pca_stage_least": np.array([1, 0]),
+    "pca_test_least": np.array([2, 0]),
+    "pca_accept_least": np.array([12, 0]),
+    "pca_pixel_least": np.array([120, 6]) + ATAN2,
+    # the same kernels' first design (one pixel per thread, IEEE expf and
+    # divisions), as its sources counted them: its bound then
     "bilateral_tap": np.array([6, 0]) + EXP,         # test, sub, mul, fma, fma, add
     "pca_test": np.array([3, 0]),                    # two compares, sub
     "pca_accept": np.array([12, 0]),                 # 3 sub, 3 add, 6 fma
@@ -157,6 +178,8 @@ def phase_build() -> dict:
     cfg = BENCH_CFG
     attrs = {f"raycast_core K={k}": kernels.kernel_attributes(
                  "raycast_core", k, cfg.predict_window_multiplier) for k in (10, 16)}
+    attrs["bilateral_filter"] = kernels.kernel_attributes("bilateral_filter")
+    attrs["normal_pca"] = kernels.kernel_attributes("normal_pca")
     attrs["curvature_gradient"] = kernels.kernel_attributes(
         "curvature_gradient", cfg.curv_window)
     for name, a in attrs.items():
@@ -167,6 +190,9 @@ def phase_build() -> dict:
     if (a["registers"] > RAYCAST_MAX_REGISTERS or a["local_bytes"] > 0
             or a["blocks_per_sm"] < RAYCAST_MIN_BLOCKS):
         raise RuntimeError(f"the K = 10 ray cast compiled outside its launch bounds: {a}")
+    for name in ("bilateral_filter", "normal_pca"):
+        if attrs[name]["local_bytes"] > 0:
+            raise RuntimeError(f"the {name} kernel spills: {attrs[name]}")
     return attrs
 
 
@@ -278,6 +304,18 @@ def _bound(n_bytes: float, n_ops) -> tuple[float, str]:
     t_bytes = n_bytes / MEM_BYTES_PER_S
     t_ops = max(n_ops[0] / FP32_INSTR_PER_S, n_ops[1] / MUFU_PER_S)
     return 1e3 * float(max(t_bytes, t_ops)), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _balanced(n_ops, n_exp: float) -> np.ndarray:
+    """(float32, MUFU) instructions of ``n_ops`` plus ``n_exp``
+    exponentials, the share f of them taken on the FMA pipe (EXP_ON_FMA
+    each) chosen so that both pipes finish together: max(float32 time, MUFU
+    time) is least over every f in [0, 1] where the two are equal."""
+    a, m = float(n_ops[0]), float(n_ops[1])
+    f = (((m + n_exp) / MUFU_PER_S - a / FP32_INSTR_PER_S)
+         / (n_exp * (EXP_ON_FMA / FP32_INSTR_PER_S + 1 / MUFU_PER_S)))
+    f = min(max(f, 0.0), 1.0)
+    return np.array([a + f * n_exp * EXP_ON_FMA, m + (1 - f) * n_exp])
 
 
 def phase_raycast_vs_plain(state):
@@ -412,10 +450,44 @@ def _curv_rule(name, pre, cfg):
     return err
 
 
+def border_case(depth: torch.Tensor, seed: int) -> torch.Tensor:
+    """``depth`` with 10 % of its pixels zeroed (seeded), its 3 leftmost
+    columns stepped 0.25 m back, its last 2 rows zeroed and a 4x5 hole in
+    its top-right corner: depth edges and holes at the image border, so a
+    tiled kernel's border blocks meet them.  The CPU tests build the same
+    case in numpy (``_border_case`` of tests/test_torch_kernels_preprocess.py):
+    a change here goes there too."""
+    gen = torch.Generator(device=depth.device).manual_seed(seed)
+    holes = torch.rand(depth.shape, generator=gen, device=depth.device) < 0.1
+    d = torch.where(holes, 0.0, depth)
+    d[:, :3] += 0.25
+    d[-2:, :] = 0.0
+    d[:4, -5:] = 0.0
+    return d.contiguous()
+
+
+def _bilateral_rule(label, depth, cfg):
+    """Both denominators within 1e-5 m of their plain versions; returns the
+    larger error."""
+    err = 0.0
+    for pallas_form in (False, True):
+        out = preprocess.bilateral_filter(depth, cfg, pallas_form=pallas_form)
+        ref = preprocess.bilateral_filter_ref(depth, cfg, pallas_form=pallas_form)
+        e = (out - ref).abs().max().item()
+        form = "pallas" if pallas_form else "shader"
+        print(f"bilateral_filter [{form} form, {label}]: max abs err {e:.3e} m")
+        if not e <= 1e-5:
+            raise RuntimeError(f"bilateral_filter ({form} form, {label}) disagrees: {e}")
+        err = max(err, e)
+    return err
+
+
 def phase_preprocess_vs_plain(frames):
-    """Each preprocessing kernel against its plain version on frame 0 at
-    640x480 and on a copy with 10 % of its pixels zeroed (seeded), with
-    the inputs the main path gives it; both bilateral denominators."""
+    """Each preprocessing kernel against its plain version, with the inputs
+    the main path gives it: on frame 0 at 640x480 and on a copy with 10 %
+    of its pixels zeroed (seeded); the bilateral and PCA kernels also on
+    ``border_case`` of frame 0 and of a 61x47 crop of it (no multiple of
+    their tiles).  Both bilateral denominators throughout."""
     cfg = BENCH_CFG
     depth0 = frames[0].depth.contiguous()
     gen = torch.Generator(device=depth0.device).manual_seed(0)
@@ -424,15 +496,8 @@ def phase_preprocess_vs_plain(frames):
     px = depth0.numel()
     errs = defaultdict(float)
     for label, depth in inputs.items():
-        for pallas_form in (False, True):
-            out = preprocess.bilateral_filter(depth, cfg, pallas_form=pallas_form)
-            ref = preprocess.bilateral_filter_ref(depth, cfg, pallas_form=pallas_form)
-            err = (out - ref).abs().max().item()
-            form = "pallas" if pallas_form else "shader"
-            print(f"bilateral_filter [{form} form, {label}]: max abs err {err:.3e} m")
-            if not err <= 1e-5:
-                raise RuntimeError(f"bilateral_filter ({form} form) disagrees: {err}")
-            errs["bilateral_filter"] = max(errs["bilateral_filter"], err)
+        errs["bilateral_filter"] = max(errs["bilateral_filter"],
+                                       _bilateral_rule(label, depth, cfg))
         gap = (preprocess.bilateral_filter_ref(depth, cfg)
                - preprocess.bilateral_filter_ref(depth, cfg, pallas_form=True)).abs().max().item()
         print(f"bilateral_filter [{label}]: shader vs pallas form max gap {gap:.3e} m")
@@ -444,6 +509,17 @@ def phase_preprocess_vs_plain(frames):
         pre = preprocess.vertex_normal_radius(depth, depth_f, TUM1, cfg)
         errs["curvature_gradient"] = max(errs["curvature_gradient"], _curv_rule(
             f"curvature_gradient [{label}]", pre, cfg))
+    h, w = depth0.shape
+    edges = {"frame 0, border case": border_case(depth0, 1),
+             "61x47 crop, border case": border_case(
+                 depth0[h // 2 - 23:h // 2 + 24, w // 2 - 30:w // 2 + 31], 2)}
+    for label, depth in edges.items():
+        errs["bilateral_filter"] = max(errs["bilateral_filter"],
+                                       _bilateral_rule(label, depth, cfg))
+        v_f = camera.unproject(preprocess.bilateral_filter(depth, cfg), TUM1).contiguous()
+        errs["normal_pca"] = max(errs["normal_pca"], _pca_rule(
+            f"normal_pca [{label}]", preprocess.normal_pca(v_f, cfg),
+            preprocess.normal_pca_ref(v_f, cfg)))
 
     # the denominators differ where an invalid neighbour's weight counts:
     # at near range (2 % of the depths, depth_min 0)
@@ -455,15 +531,18 @@ def phase_preprocess_vs_plain(frames):
           f"{gap:.3e} m")
     if not gap > 1e-3:
         raise RuntimeError("the bilateral forms do not differ at near range")
+    for label, depth in edges.items():
+        errs["bilateral_filter"] = max(errs["bilateral_filter"], _bilateral_rule(
+            f"near range, {label}", 0.02 * depth, near_cfg))
 
-    # times on frame 0 (main-path inputs) and the bound of each
+    # times on frame 0 (main-path inputs) and the bounds of each
     depth = depth0
     depth_f = preprocess.bilateral_filter(depth, cfg)
     v_f = camera.unproject(depth_f, TUM1)
     pre = preprocess.vertex_normal_radius(depth, depth_f, TUM1, cfg)
     res = {}
     # the work each needs on these inputs, from its plain version's counts
-    taps = preprocess.bilateral_filter_ref(depth, cfg, stats=True)[1]
+    taps = float(preprocess.bilateral_filter_ref(depth, cfg, stats=True)[1].sum())
     res["bilateral_filter"] = dict(
         ms=_median_ms(lambda: preprocess.bilateral_filter(depth, cfg), primed=True),
         call_ms=_median_ms(lambda: preprocess.bilateral_filter(depth, cfg)),
@@ -472,17 +551,20 @@ def phase_preprocess_vs_plain(frames):
                                   primed=True),
         pallas_form_plain_ms=_median_ms(
             lambda: preprocess.bilateral_filter_ref(depth, cfg, True)),
-        bound=_bound(2 * px * 4, float(taps.sum()) * OPS["bilateral_tap"]))
+        bound=_bound(2 * px * 4, _balanced(taps * OPS["bilateral_tap_least"], taps)),
+        bound_first=_bound(2 * px * 4, taps * OPS["bilateral_tap"]))
     normals, accepted = preprocess.normal_pca_ref(v_f, cfg, stats=True)
     centre = v_f[..., 2] > cfg.depth_min
-    n_ops = (float(centre.sum()) * 49 * OPS["pca_test"]
-             + float(accepted[centre].sum()) * OPS["pca_accept"]
-             + float((normals != 0).any(-1).sum()) * OPS["pca_pixel"])
+    tested, accepted = float(centre.sum()) * 49, float(accepted[centre].sum())
+    valid = float((normals != 0).any(-1).sum())
     res["normal_pca"] = dict(
         ms=_median_ms(lambda: preprocess.normal_pca(v_f, cfg), primed=True),
         call_ms=_median_ms(lambda: preprocess.normal_pca(v_f, cfg)),
         plain_ms=_median_ms(lambda: preprocess.normal_pca_ref(v_f, cfg)),
-        bound=_bound(2 * px * 12, n_ops))
+        bound=_bound(2 * px * 12, px * OPS["pca_stage_least"] + tested * OPS["pca_test_least"]
+                     + accepted * OPS["pca_accept_least"] + valid * OPS["pca_pixel_least"]),
+        bound_first=_bound(2 * px * 12, tested * OPS["pca_test"] + accepted * OPS["pca_accept"]
+                         + valid * OPS["pca_pixel"]))
     sums_in = (pre.vertex_filtered, pre.normal, pre.radius, cfg)
     sums, _, inside = preprocess.curvature_sums_ref(*sums_in, stats=True)
     n_ops = (px * (OPS["curv_stage"] + (2 * cfg.curv_window + 1) ** 2 * OPS["curv_test"]
@@ -499,11 +581,16 @@ def phase_preprocess_vs_plain(frames):
     for name, r in res.items():
         r["max_abs_err"] = errs[name]
         r["bound_ms"], r["bound_by"] = r.pop("bound")
-        extra = ", ".join(f"{k} {v:.3f}" for k, v in r.items()
-                          if k.endswith("ms") and k not in ("ms", "plain_ms", "bound_ms"))
+        if "bound_first" in r:
+            r["bound_first_ms"], r["bound_first_by"] = r.pop("bound_first")
+        extra = ", ".join(f"{k} {v:.3f}" for k, v in r.items() if k.endswith("ms")
+                          and k not in ("ms", "plain_ms", "bound_ms", "bound_first_ms"))
+        first = (f", {r['bound_first_ms'] * 1e3:.2f} us ({r['bound_first_by']}) on the "
+                 "first design's counts" if "bound_first_ms" in r else "")
         print(f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms"
               f"{', ' + extra if extra else ''}, bound {r['bound_ms'] * 1e3:.2f} us "
-              f"({r['bound_by']}) (median of 20, CUDA events)")
+              f"({r['bound_by']}){' on the least work' if first else ''}{first} "
+              f"(median of 20, CUDA events)")
     return res
 
 

@@ -1,6 +1,7 @@
 // Preprocessing stencils for Hopper (sm_90a): the bilateral depth filter,
-// PCA normals and the HRBF curvature pass.  One thread per output pixel, one
-// 32x8 block per tile, and one shared-memory halo tile per block.
+// PCA normals and the HRBF curvature pass.  Each block stages one halo tile
+// in shared memory; the bilateral and PCA threads each own a column of
+// several output pixels, the curvature threads one pixel.
 //
 // Replaces three TPU kernels of hrbffusion3d_tpu/ops/pallas_kernels.py:
 //   bilateral_filter   / _bilateral_kernel  -> bilateral_kernel
@@ -14,29 +15,23 @@
 // What bounds them on this card: arithmetic, not bytes.  Each reads a few
 // floats per pixel and writes 1, 3 or 14 (under 20 MB per call at 640x480),
 // while each pixel does
-//   bilateral: 169 taps with one expf each (the MUFU unit's exp2 plus a few
-//              FP32 ops): 51.9 M exponentials per frame;
-//   pca:       49 taps of ~20 FP32 ops (test, subtract, 9 multiply-adds);
+//   bilateral: 169 taps of one exponential each: the MUFU unit, 16 lanes
+//              per SM per clock against 128 for float32, is the limit;
+//   pca:       49 taps of a test and, where it passes, 12 float32 ops,
+//              then a 3x3 eigen-solve;
 //   curvature: 49 taps of ~10 FP32 ops (mask, v, d2), and ~65 more plus a
 //              square root and a reciprocal where the tap is inside its
 //              support, then ~100 and ~30 divisions and roots per pixel.
-// What the design does about it: every tap reads the block's halo tile in
-// shared memory (staged once from device memory, zero outside the image),
-// so device memory is read about once; accumulators live in registers; the
-// PCA eigen-solve (which the Pallas kernel left to XLA because Mosaic cannot
-// lower atan2) runs in the same thread.  The curvature kernel's halo tile
-// holds each pixel's centre-independent terms (the mask's |n| and z part,
-// T^2, 1/T^2, 60/T^4), so a tap does one square root and one reciprocal
-// (each one MUFU instruction) instead of six IEEE divisions and an IEEE
-// square root, and the thread that holds a pixel's sums computes its
-// curvatures, normal and radius and writes every output field: one launch
-// per frame, where the same epilogue as separate torch ops costs ~40
-// launches and ten times the kernel's time; the configured window (R = 3)
-// is compiled with its tap loops unrolled.  Elsewhere no fast-math: expf,
-// sqrtf, atan2f and true division keep the results within float rounding of
-// the plain versions (the compiler may contract products and sums into fused
-// multiply-adds, which the plain versions' separate torch ops do not).  No
-// library kernel is called.
+// What the designs do about it is written above each kernel.  Common to
+// all: every tap reads the block's halo tile in shared memory (staged once
+// from device memory), so device memory is read about once; accumulators
+// live in registers; the window's tap loops are unrolled at compile time.
+// Where a kernel takes an approximate (one MUFU instruction) root,
+// reciprocal, exponential or sine, its note says so and why the result
+// stays within the tolerance that chip_smoke.py holds it to; the build
+// line has no fast-math switch (the compiler may still contract products
+// and sums into fused multiply-adds, which the plain versions' separate
+// torch ops do not).  No library kernel is called.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,14 +42,17 @@ constexpr int kTileX = 32;
 constexpr int kTileY = 8;
 constexpr int kThreads = kTileX * kTileY;
 
+// Output rows per thread of the bilateral and PCA kernels, so a block's
+// tile is 32 x 8*ROWS pixels.  2 rows beat 4 on the H100 (PERF.md): 600
+// tiles of 32x16 spread over 132 SMs more evenly than 300 of 32x32.
 constexpr int kBilateralR = 6;   // depth_bilateral.frag window radius
-constexpr int kBilateralD = 2 * kBilateralR + 1;
+constexpr int kBilateralRows = 2;
 constexpr int kPcaR = 3;         // depth_vertex_normal_radius.frag winMultiply
+constexpr int kPcaRows = 2;
 constexpr int kMaxCurvR = 7;     // cfg.curv_window cap (28 KB of halo tile)
 
 // one MUFU instruction each (relative error below 2^-22), where IEEE
-// rounding costs ~8: for the curvature terms, whose sums are held to 1e-5
-// of their magnitude
+// rounding costs ~8
 __device__ __forceinline__ float sqrt_approx(float x) {
   float r;
   asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
@@ -67,73 +65,144 @@ __device__ __forceinline__ float rcp_approx(float x) {
   return r;
 }
 
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// 2^x; -inf and arguments below -126 give 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
 __device__ __forceinline__ bool in_image(int x, int y, int w, int h) {
   return x >= 0 && x < w && y >= 0 && y < h;
+}
+
+dim3 grid_for(int h, int w, int tile_y) {
+  return dim3((w + kTileX - 1) / kTileX, (h + tile_y - 1) / tile_y);
 }
 
 // ---------------------------------------------------------------------------
 // bilateral filter
 // ---------------------------------------------------------------------------
 
-// Depths outside (depth_min, depth_cutoff] are zeroed first.  The spatial
-// term (dy^2 + dx^2) * ss of the 169 taps comes from a shared table; the
-// weight is expf(-(spatial + (d - nb)^2 * sc)).  Denominator:
+// depth_bilateral.frag's constants, rounded to float32 as the plain version
+// rounds them: 0.5 / sigma^2 with sigma_space 4.5 px and sigma_color 30 mm
+constexpr double kLog2e = 1.4426950408889634;
+constexpr float kSpaceHalfInv = 0.024691358f;   // px^-2
+constexpr float kColorHalfInv = 555.556f;       // m^-2 (0.000555556 * 1e6)
+// the exponent of each weight in base 2: -(space2 * ss + c^2 * sc) log2(e)
+constexpr float kColorExp2 = static_cast<float>(-kColorHalfInv * kLog2e);
+
+__device__ constexpr float space_exp2(int dy, int dx) {
+  return static_cast<float>(-(dy * dy + dx * dx) * static_cast<double>(kSpaceHalfInv) * kLog2e);
+}
+
+// A tap that must not count, staged in place of its depth: its c = d - nb
+// is ~1e10, so c^2 * kColorExp2 is ~-8e22 and its weight exactly 0.
+constexpr float kAbsent = -1e10f;
+
+// Depths outside (depth_min, depth_cutoff] are zeroed first; each tap of the
+// 13x13 window weighs its neighbour by exp(-(spatial + (d - nb)^2 * sc)).
+// Denominator:
 //   shader form (pallas_form = 0): every in-image neighbour, valid or not;
 //   Pallas form (pallas_form = 1): neighbours with depth > 0 only.
+// Design, against the MUFU limit (PERF.md section 6):
+//   - sigma_space and sigma_color are compile-time constants with log2(e)
+//     folded in, so each unrolled tap's spatial term is an immediate and
+//     its weight is one ex2.approx of one fused multiply-add: with the
+//     subtract, the square and the two sums, 5 float32 instructions and 1
+//     MUFU per tap, the least a design that takes its exponentials from
+//     the MUFU needs.  ex2.approx's relative error (~2^-22) moves an
+//     output by under 1e-7 m; its flush of weights below 2^-126 to 0 moves
+//     none beyond float rounding, since the centre tap's weight is exactly
+//     1 (den >= 1 wherever d > 0);
+//   - both denominators and the image border are settled once per staged
+//     pixel, not per tap: a neighbour that must not count (outside the
+//     image; in the Pallas form also depth 0) is staged as kAbsent, whose
+//     weight is exactly 0.  Every block, at the border or not, then runs
+//     the same tap loop with no test and no select in it;
+//   - each thread owns kBilateralRows vertically stacked output pixels and
+//     walks their union window row by row: each neighbour is read from
+//     shared memory once into a register and used for every output that
+//     needs it (14 rows x 13 loads for 2 x 169 taps at 2 rows);
+//   - a thread none of whose pixels has a valid depth skips the taps.
 __global__ void __launch_bounds__(kThreads)
 bilateral_kernel(const float* __restrict__ depth, float* __restrict__ out,
                  int h, int w, float depth_min, float depth_cutoff,
-                 int pallas_form, float ss, float sc) {
+                 int pallas_form) {
   constexpr int R = kBilateralR;
+  constexpr int D = 2 * R + 1;
+  constexpr int ROWS = kBilateralRows;
   constexpr int TW = kTileX + 2 * R;
-  constexpr int TH = kTileY + 2 * R;
+  constexpr int TH = kTileY * ROWS + 2 * R;
   __shared__ float tile[TH * TW];
-  __shared__ float space[kBilateralD * kBilateralD];
   const int x0 = blockIdx.x * kTileX - R;
-  const int y0 = blockIdx.y * kTileY - R;
+  const int y0 = blockIdx.y * kTileY * ROWS - R;
   const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const float invalid = pallas_form ? kAbsent : 0.f;
 
-  for (int i = tid; i < TH * TW; i += kThreads) {
+  // all of a thread's loads are issued before the first is used, so the
+  // block waits for device memory once, not once per staged pixel
+  constexpr int S = (TH * TW + kThreads - 1) / kThreads;
+  float v[S];
+  bool in[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int i = tid + k * kThreads;
     const int gx = x0 + i % TW;
     const int gy = y0 + i / TW;
-    float v = 0.f;
-    if (in_image(gx, gy, w, h)) {
-      v = depth[static_cast<int64_t>(gy) * w + gx];
-      v = (v > depth_min && v <= depth_cutoff) ? v : 0.f;
-    }
-    tile[i] = v;
+    in[k] = i < TH * TW && in_image(gx, gy, w, h);
+    v[k] = in[k] ? depth[static_cast<int64_t>(gy) * w + gx] : 0.f;
   }
-  for (int i = tid; i < kBilateralD * kBilateralD; i += kThreads) {
-    const int dy = i / kBilateralD - R;
-    const int dx = i % kBilateralD - R;
-    space[i] = static_cast<float>(dy * dy + dx * dx) * ss;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < TH * TW)
+      tile[i] = !in[k] ? kAbsent : (v[k] > depth_min && v[k] <= depth_cutoff) ? v[k] : invalid;
   }
   __syncthreads();
 
   const int x = blockIdx.x * kTileX + threadIdx.x;
-  const int y = blockIdx.y * kTileY + threadIdx.y;
+  const int y = blockIdx.y * kTileY * ROWS + threadIdx.y * ROWS;
   if (x >= w || y >= h) return;
-  const float d = tile[(threadIdx.y + R) * TW + threadIdx.x + R];
-  float num = 0.f, den = 0.f;
+  // the top-left corner of this thread's union window
+  const float* win = tile + threadIdx.y * ROWS * TW + threadIdx.x;
+  float d[ROWS], num[ROWS], den[ROWS];
+  bool any = false;
 #pragma unroll
-  for (int dy = -R; dy <= R; ++dy) {
-    const bool row_in = y + dy >= 0 && y + dy < h;
-    const float* row = tile + (threadIdx.y + R + dy) * TW + threadIdx.x + R;
+  for (int k = 0; k < ROWS; ++k) {
+    d[k] = win[(k + R) * TW + R];
+    num[k] = 0.f;
+    den[k] = 0.f;
+    any |= d[k] > 0.f;
+  }
+  if (any) {
 #pragma unroll
-    for (int dx = -R; dx <= R; ++dx) {
-      const float nb = row[dx];
-      const bool keep = pallas_form ? nb > 0.f
-                                    : (row_in && x + dx >= 0 && x + dx < w);
-      if (keep) {
-        const float c = d - nb;
-        const float wgt =
-            expf(-(space[(dy + R) * kBilateralD + dx + R] + c * c * sc));
-        num += nb * wgt;
-        den += wgt;
+    for (int r = 0; r < ROWS + 2 * R; ++r) {
+#pragma unroll
+      for (int dx = 0; dx < D; ++dx) {
+        const float nb = win[r * TW + dx];
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k) {
+          const int dy = r - k;   // fixed at compile time
+          if (dy < 0 || dy >= D) continue;
+          const float c = d[k] - nb;
+          const float wgt = exp2_approx(fmaf(c * c, kColorExp2, space_exp2(dy - R, dx - R)));
+          num[k] = fmaf(nb, wgt, num[k]);
+          den[k] += wgt;
+        }
       }
     }
   }
-  out[static_cast<int64_t>(y) * w + x] = d > 0.f ? num / fmaxf(den, 1e-12f) : 0.f;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    if (y + k < h) out[static_cast<int64_t>(y + k) * w + x] = d[k] > 0.f ? num[k] / den[k] : 0.f;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -142,9 +211,14 @@ bilateral_kernel(const float* __restrict__ depth, float* __restrict__ out,
 
 // Eigenvector of the smallest eigenvalue of the symmetric 3x3 matrix
 // [a00 a01 a02; a01 a11 a12; a02 a12 a22]: Smith's trigonometric roots and
-// the cross-product null space (preprocess._smallest_eigvec_3x3).
-__device__ void smallest_eigvec(float a00, float a01, float a02, float a11,
-                                float a12, float a22, float* n) {
+// the cross-product null space (preprocess._smallest_eigvec_3x3), unit
+// length.  theta = atan2(.) / 3 lies in [0, pi/3], inside the range where
+// the MUFU sine and cosine are accurate to 2^-21 absolute, so __sincosf
+// takes them; the two square roots and the final normalisation are one
+// MUFU instruction each.  atan2f stays IEEE: no MUFU instruction computes
+// it, and it is one call per pixel against 49 taps.
+__device__ __forceinline__ void smallest_eigvec(float a00, float a01, float a02, float a11,
+                                                float a12, float a22, float* n) {
   const float c0 = a00 * a11 * a22 + 2.f * a01 * a02 * a12 - a00 * a12 * a12 -
                    a11 * a02 * a02 - a22 * a01 * a01;
   const float c1 = a00 * a11 - a01 * a01 + a00 * a22 - a02 * a02 + a11 * a22 -
@@ -155,10 +229,11 @@ __device__ void smallest_eigvec(float a00, float a01, float a02, float a11,
   const float ao3 = fminf((c1 - c2 * c2o3) * inv3, 0.f);
   const float half_b = 0.5f * (c0 + c2o3 * (2.f * c2o3 * c2o3 - c1));
   const float q = fminf(half_b * half_b + ao3 * ao3 * ao3, 0.f);
-  const float rho = sqrtf(-ao3);
-  const float theta = atan2f(sqrtf(-q), half_b) * inv3;
+  const float rho = sqrt_approx(-ao3);
+  const float theta = atan2f(sqrt_approx(-q), half_b) * inv3;
   const float sqrt3 = 1.7320508075688772f;
-  const float ct = cosf(theta), st = sinf(theta);
+  float st, ct;
+  __sincosf(theta, &st, &ct);
   float lam = c2o3 - rho * (ct + sqrt3 * st);
   lam = fminf(lam, c2o3 - rho * (ct - sqrt3 * st));
   lam = fminf(lam, c2o3 + 2.f * rho * ct);
@@ -173,80 +248,137 @@ __device__ void smallest_eigvec(float a00, float a01, float a02, float a11,
   const float l1 = v1x * v1x + v1y * v1y + v1z * v1z;
   const float l2 = v2x * v2x + v2y * v2y + v2z * v2z;
   const float l3 = v3x * v3x + v3y * v3y + v3z * v3z;
-  float vx, vy, vz;
-  if (l1 >= l2 && l1 >= l3) {
-    vx = v1x; vy = v1y; vz = v1z;
-  } else if (l2 >= l3) {
-    vx = v2x; vy = v2y; vz = v2z;
-  } else {
-    vx = v3x; vy = v3y; vz = v3z;
-  }
-  const float len = fmaxf(sqrtf(vx * vx + vy * vy + vz * vz), 1e-20f);
-  n[0] = vx / len;
-  n[1] = vy / len;
-  n[2] = vz / len;
+  const bool p1 = l1 >= l2 && l1 >= l3, p2 = l2 >= l3;
+  const float vx = p1 ? v1x : p2 ? v2x : v3x;
+  const float vy = p1 ? v1y : p2 ? v2y : v3y;
+  const float vz = p1 ? v1z : p2 ? v2z : v3z;
+  const float len2 = p1 ? l1 : p2 ? l2 : l3;
+  // 1 / max(|v|, 1e-20) as the plain version clamps it, where |v|^2 is a
+  // normal float (the MUFU flushes smaller ones to 0)
+  const float inv = rsqrt_approx(fmaxf(len2, 1.17549435e-38f));
+  n[0] = vx * inv;
+  n[1] = vy * inv;
+  n[2] = vz * inv;
 }
 
 // 7x7 window of the filtered vertex map: neighbours with z > depth_min and
 // |dz| < 0.05 add (1, q, q q^T) with q = p_nb - p_centre (centre-relative:
 // raw coordinates would lose ~6 digits in the float32 moment subtraction);
 // >= 8 of them and z > depth_min give the normal, flipped to n_z >= 0.
+// Design, against the float32 work of the taps:
+//   - the halo tile is three planes (x, y, z), and z is staged as NaN where
+//     it fails z > depth_min, so a tap's whole test is |z - pz| < 0.05
+//     (false for NaN); a centre that fails it accepts no tap and is 0;
+//   - the mask selects q and the count's 1 (no branch, so a warp does not
+//     split at depth edges); a tap is one subtract and compare, two more
+//     subtracts, the selects, four adds and six multiply-adds;
+//   - each thread owns kPcaRows vertically stacked output pixels and walks
+//     their union window row by row, loading each tap's (x, y, z) from
+//     shared memory once for every output that needs it;
+//   - the epilogue multiplies by one reciprocal of the count where the
+//     plain version divides nine times, and solves the eigenvector with
+//     the MUFU forms above.
 __global__ void __launch_bounds__(kThreads)
 pca_kernel(const float* __restrict__ vertex, float* __restrict__ normal,
            int h, int w, float depth_min) {
   constexpr int R = kPcaR;
+  constexpr int D = 2 * R + 1;
+  constexpr int ROWS = kPcaRows;
   constexpr int TW = kTileX + 2 * R;
-  constexpr int TH = kTileY + 2 * R;
-  __shared__ float tile[TH * TW * 3];
+  constexpr int TH = kTileY * ROWS + 2 * R;
+  constexpr int NP = TW * TH;
+  __shared__ float tile[3 * NP];
+  float* s_x = tile;
+  float* s_y = tile + NP;
+  float* s_z = tile + 2 * NP;   // z where z > depth_min, else NaN
   const int x0 = blockIdx.x * kTileX - R;
-  const int y0 = blockIdx.y * kTileY - R;
+  const int y0 = blockIdx.y * kTileY * ROWS - R;
   const int tid = threadIdx.y * kTileX + threadIdx.x;
 
-  for (int i = tid; i < TH * TW * 3; i += kThreads) {
-    const int xy = i / 3;
-    const int gx = x0 + xy % TW;
-    const int gy = y0 + xy / TW;
-    tile[i] = in_image(gx, gy, w, h)
-                  ? vertex[(static_cast<int64_t>(gy) * w + gx) * 3 + i % 3]
-                  : 0.f;
+  // all loads first, as in the bilateral kernel
+  constexpr int S = (NP + kThreads - 1) / kThreads;
+  float v[S][3];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int i = tid + k * kThreads;
+    const int gx = x0 + i % TW;
+    const int gy = y0 + i / TW;
+    const bool in = i < NP && in_image(gx, gy, w, h);
+    const float* p = vertex + (static_cast<int64_t>(gy) * w + gx) * 3;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v[k][c] = in ? p[c] : 0.f;   // the plain version's zero padding
+  }
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < NP) {
+      s_x[i] = v[k][0];
+      s_y[i] = v[k][1];
+      s_z[i] = v[k][2] > depth_min ? v[k][2] : __int_as_float(0x7fc00000);
+    }
   }
   __syncthreads();
 
   const int x = blockIdx.x * kTileX + threadIdx.x;
-  const int y = blockIdx.y * kTileY + threadIdx.y;
+  const int y = blockIdx.y * kTileY * ROWS + threadIdx.y * ROWS;
   if (x >= w || y >= h) return;
-  const float* cen = tile + ((threadIdx.y + R) * TW + threadIdx.x + R) * 3;
-  const float px = cen[0], py = cen[1], pz = cen[2];
-  int cnt = 0;
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  float m00 = 0.f, m01 = 0.f, m02 = 0.f, m11 = 0.f, m12 = 0.f, m22 = 0.f;
+  const int win = threadIdx.y * ROWS * TW + threadIdx.x;   // union window corner
+  float px[ROWS], py[ROWS], pz[ROWS], cnt[ROWS], s0[ROWS], s1[ROWS], s2[ROWS];
+  float m00[ROWS], m01[ROWS], m02[ROWS], m11[ROWS], m12[ROWS], m22[ROWS];
 #pragma unroll
-  for (int dy = -R; dy <= R; ++dy) {
+  for (int k = 0; k < ROWS; ++k) {
+    const int c = win + (k + R) * TW + R;
+    px[k] = s_x[c];
+    py[k] = s_y[c];
+    pz[k] = s_z[c];
+    cnt[k] = s0[k] = s1[k] = s2[k] = 0.f;
+    m00[k] = m01[k] = m02[k] = m11[k] = m12[k] = m22[k] = 0.f;
+  }
 #pragma unroll
-    for (int dx = -R; dx <= R; ++dx) {
-      const float* nb = cen + (dy * TW + dx) * 3;
-      const float zn = nb[2];
-      if (zn > depth_min && fabsf(zn - pz) < 0.05f) {
-        const float q0 = nb[0] - px, q1 = nb[1] - py, q2 = zn - pz;
-        ++cnt;
-        s0 += q0; s1 += q1; s2 += q2;
-        m00 += q0 * q0; m01 += q0 * q1; m02 += q0 * q2;
-        m11 += q1 * q1; m12 += q1 * q2; m22 += q2 * q2;
+  for (int r = 0; r < ROWS + 2 * R; ++r) {
+#pragma unroll
+    for (int dx = 0; dx < D; ++dx) {
+      const int j = win + r * TW + dx;
+      const float nx = s_x[j], ny = s_y[j], nz = s_z[j];
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        const int dy = r - k;   // fixed at compile time
+        if (dy < 0 || dy >= D) continue;
+        const float dz = nz - pz[k];
+        const bool ok = fabsf(dz) < 0.05f;
+        const float q0 = ok ? nx - px[k] : 0.f;
+        const float q1 = ok ? ny - py[k] : 0.f;
+        const float q2 = ok ? dz : 0.f;
+        cnt[k] += ok ? 1.f : 0.f;
+        s0[k] += q0;
+        s1[k] += q1;
+        s2[k] += q2;
+        m00[k] = fmaf(q0, q0, m00[k]);
+        m01[k] = fmaf(q0, q1, m01[k]);
+        m02[k] = fmaf(q0, q2, m02[k]);
+        m11[k] = fmaf(q1, q1, m11[k]);
+        m12[k] = fmaf(q1, q2, m12[k]);
+        m22[k] = fmaf(q2, q2, m22[k]);
       }
     }
   }
-  const float denom = static_cast<float>(cnt > 1 ? cnt : 1);
-  const float mx = s0 / denom, my = s1 / denom, mz = s2 / denom;
-  float n[3];
-  smallest_eigvec(m00 / denom - mx * mx, m01 / denom - mx * my,
-                  m02 / denom - mx * mz, m11 / denom - my * my,
-                  m12 / denom - my * mz, m22 / denom - mz * mz, n);
-  const float flip = n[2] < 0.f ? -1.f : 1.f;
-  const bool ok = cnt >= 8 && pz > depth_min;
-  float* o = normal + (static_cast<int64_t>(y) * w + x) * 3;
-  o[0] = ok ? n[0] * flip : 0.f;
-  o[1] = ok ? n[1] * flip : 0.f;
-  o[2] = ok ? n[2] * flip : 0.f;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    if (y + k >= h) break;
+    const float inv = rcp_approx(fmaxf(cnt[k], 1.f));
+    const float mx = s0[k] * inv, my = s1[k] * inv, mz = s2[k] * inv;
+    float n[3];
+    smallest_eigvec(m00[k] * inv - mx * mx, m01[k] * inv - mx * my,
+                    m02[k] * inv - mx * mz, m11[k] * inv - my * my,
+                    m12[k] * inv - my * mz, m22[k] * inv - mz * mz, n);
+    // cnt >= 8 implies pz passed z > depth_min (a NaN centre accepts none)
+    const bool ok = cnt[k] >= 8.f;
+    const float flip = n[2] < 0.f ? -1.f : 1.f;
+    float* o = normal + (static_cast<int64_t>(y + k) * w + x) * 3;
+    o[0] = ok ? n[0] * flip : 0.f;
+    o[1] = ok ? n[1] * flip : 0.f;
+    o[2] = ok ? n[2] * flip : 0.f;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -461,10 +593,6 @@ curvature_kernel(const float* __restrict__ vertex, const float* __restrict__ nor
   valid[pix] = ok ? 1 : 0;
 }
 
-dim3 grid_for(int h, int w) {
-  return dim3((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
-}
-
 // the curvature kernel's instance for ``window`` (the configured 3
 // unrolled)
 using CurvatureKernel = void (*)(const float*, const float*, const float*, float*,
@@ -492,12 +620,9 @@ extern "C" int bilateral_filter_launch(const float* depth, float* out, int h,
                                        float depth_cutoff, int pallas_form,
                                        void* stream) {
   if (h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  // the plain version's constants, rounded to float32 as it rounds them
-  const float ss = static_cast<float>(0.024691358);          // 0.5 / 4.5^2 px^-2
-  const float sc = static_cast<float>(0.000555556 * 1e6);    // 0.5 / 0.03^2 m^-2
-  bilateral_kernel<<<grid_for(h, w), dim3(kTileX, kTileY), 0,
+  bilateral_kernel<<<grid_for(h, w, kTileY * kBilateralRows), dim3(kTileX, kTileY), 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      depth, out, h, w, depth_min, depth_cutoff, pallas_form ? 1 : 0, ss, sc);
+      depth, out, h, w, depth_min, depth_cutoff, pallas_form ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -505,7 +630,7 @@ extern "C" int bilateral_filter_launch(const float* depth, float* out, int h,
 extern "C" int normal_pca_launch(const float* vertex, float* normal, int h,
                                  int w, float depth_min, void* stream) {
   if (h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  pca_kernel<<<grid_for(h, w), dim3(kTileX, kTileY), 0,
+  pca_kernel<<<grid_for(h, w, kTileY * kPcaRows), dim3(kTileX, kTileY), 0,
                static_cast<cudaStream_t>(stream)>>>(vertex, normal, h, w,
                                                     depth_min);
   return static_cast<int>(cudaGetLastError());
@@ -523,23 +648,42 @@ extern "C" int curvature_gradient_launch(const float* vertex, const float* norma
                                          void* stream) {
   if (h <= 0 || w <= 0 || window < 0 || window > kMaxCurvR)
     return static_cast<int>(cudaErrorInvalidValue);
-  curvature_for(window)<<<grid_for(h, w), dim3(kTileX, kTileY), curvature_smem(window),
+  curvature_for(window)<<<grid_for(h, w, kTileY), dim3(kTileX, kTileY), curvature_smem(window),
                           static_cast<cudaStream_t>(stream)>>>(
       vertex, normal, radius, fields, valid, sums, h, w, window, depth_min,
       rad_scale, rad_mult);
   return static_cast<int>(cudaGetLastError());
 }
 
-// What the curvature kernel compiled to at window radius ``window``:
-// out[0] registers per thread, out[1] local (spilled) bytes per thread,
-// out[2] resident blocks of 256 threads per SM.  Returns a cudaError_t.
-extern "C" int curvature_gradient_attributes(int window, int* out) {
-  if (window < 0 || window > kMaxCurvR) return static_cast<int>(cudaErrorInvalidValue);
+namespace {
+
+// registers, spilled bytes and resident 256-thread blocks per SM of
+// ``kernel`` (launched with ``smem`` bytes of dynamic shared memory) into
+// out[0..2]; returns a cudaError_t
+template <typename Kernel>
+int attributes(Kernel kernel, size_t smem, int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, curvature_for(window));
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], curvature_for(window), kThreads, curvature_smem(window)));
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, kThreads, smem));
+}
+
+}  // namespace
+
+// What each kernel compiled to (the curvature kernel's at window radius
+// ``window``): out[0] registers per thread, out[1] local (spilled) bytes
+// per thread, out[2] resident blocks of 256 threads per SM.  Each returns
+// a cudaError_t.
+extern "C" int bilateral_filter_attributes(int* out) {
+  return attributes(bilateral_kernel, 0, out);
+}
+
+extern "C" int normal_pca_attributes(int* out) { return attributes(pca_kernel, 0, out); }
+
+extern "C" int curvature_gradient_attributes(int window, int* out) {
+  if (window < 0 || window > kMaxCurvR) return static_cast<int>(cudaErrorInvalidValue);
+  return attributes(curvature_for(window), curvature_smem(window), out);
 }

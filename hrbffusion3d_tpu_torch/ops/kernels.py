@@ -62,6 +62,8 @@ _ENTRIES = {
 # its integer arguments before the output pointer)
 _ATTRIBUTES = {
     "raycast_core": ("raycast.cu", "raycast_core_attributes", 2),
+    "bilateral_filter": ("preprocess.cu", "bilateral_filter_attributes", 0),
+    "normal_pca": ("preprocess.cu", "normal_pca_attributes", 0),
     "curvature_gradient": ("preprocess.cu", "curvature_gradient_attributes", 1),
 }
 # ladder taps (and k-section points) the ray-cast kernel evaluates per pass
@@ -209,8 +211,9 @@ def build() -> dict[str, ctypes._CFuncPtr]:
 def kernel_attributes(name: str, *args: int) -> dict[str, int]:
     """What kernel ``name`` compiled to on the current card, for its
     integer arguments (ray cast: tap cap K and window radius; curvature:
-    window radius): registers per thread, local (spilled) bytes per thread
-    and resident blocks of 256 threads per SM.  Launches nothing."""
+    window radius; bilateral and PCA: none): registers per thread, local
+    (spilled) bytes per thread and resident blocks of 256 threads per SM.
+    Launches nothing."""
     build()
     out = (ctypes.c_int * 3)()
     rc = _ATTR_FNS[name](*args, ctypes.cast(out, ctypes.c_void_p))

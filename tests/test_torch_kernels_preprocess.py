@@ -1,6 +1,8 @@
 """The port's three preprocessing stencil kernels (``csrc/preprocess.cu``)
 through their plain versions on the CPU, against the TPU kernels they
-replace (``hrbffusion3d_tpu/ops/pallas_kernels.py``), at 64x48.
+replace (``hrbffusion3d_tpu/ops/pallas_kernels.py``), at 64x48 and at 61x47
+(no multiple of the bilateral and PCA kernels' tiles), with holes and a
+depth step at the image border.
 
 The JAX side runs the bilateral and PCA Pallas kernels' own code with
 numpy standing in for ``jax.numpy`` (``_pallas``): each kernel body runs
@@ -24,16 +26,21 @@ Tolerances are the JAX suite's (tests/test_pallas_kernels.py):
     agree to float rounding (an invalid neighbour's weight is below
     exp(-50)), so a near-range copy (depths scaled to 2 %, depth_min 0)
     shows the argument is wired;
-  - PCA normals: valid on > 90 % in both, dot > 0.999 on 99 % (the Pallas
-    kernel sums raw coordinates, the port centre-relative ones).
+  - PCA normals: valid on > 90 % in both (> 70 % on the border case, whose
+    holes and step leave fewer valid), dot > 0.999 on 99 % (the Pallas
+    kernel sums raw coordinates, the port centre-relative ones).  The
+    Pallas wrapper's eigen-solve, which it takes from ``preprocess``, runs
+    in numpy too: eager JAX would compile it op by op for each new shape.
 Each wrapper takes the plain version for a CPU tensor and moves no launch
 count; the plain versions' work counts (``stats=True``, which the chip
 smoke run's bounds read) are held to counts made here.  The ``cuda``-marked
 tests hold each kernel against its plain version on the card and skip here:
-the curvature sums within 1e-5 of their terms' summed magnitude (count
-exact), k1/k2 and the principal directions where |g_z| >= 0.1 |g| (at most
-1 % of the valid pixels left out), gradient_mag and radius_opt where both
-are valid, the k = 1000 sentinel where not."""
+the bilateral kernel on every frame here in both forms, the PCA kernel on
+the room frame and the 61x47 border case, each kernel unspilled; the
+curvature sums within 1e-5 of their terms' summed magnitude (count exact),
+k1/k2 and the principal directions where |g_z| >= 0.1 |g| (at most 1 % of
+the valid pixels left out), gradient_mag and radius_opt where both are
+valid, the k = 1000 sentinel where not."""
 
 import dataclasses
 from unittest import mock
@@ -47,6 +54,7 @@ from torch_parity_utils import CFG, INTR, PINTR, n, port_cfg, t
 from hrbffusion3d_tpu.core import camera as jcam
 from hrbffusion3d_tpu.ops import pallas_kernels as pk
 from hrbffusion3d_tpu.ops import preprocess as jpre
+from hrbffusion3d_tpu_torch.core import camera as tcam
 from hrbffusion3d_tpu_torch.eval import synth
 from hrbffusion3d_tpu_torch.ops import kernels
 from hrbffusion3d_tpu_torch.ops import preprocess as tpre
@@ -57,8 +65,23 @@ NEAR_CFG = dataclasses.replace(CFG, depth_min=0.0)
 _DEPTH = n(synth.render_frame(synth.default_room("cpu"), np.eye(4, dtype=np.float32),
                               PINTR)[0])
 _HOLES = np.random.default_rng(7).uniform(size=_DEPTH.shape) < 0.1
+
+
+def _border_case(depth, seed):
+    """``depth`` with 10 % of its pixels zeroed (seeded), its 3 leftmost
+    columns stepped 0.25 m back, its last 2 rows zeroed and a 4x5 hole in
+    its top-right corner: chip_smoke.border_case in numpy (the card's case
+    draws its holes from torch's generator), kept equal to it by hand."""
+    d = np.where(np.random.default_rng(seed).uniform(size=depth.shape) < 0.1, 0.0, depth)
+    d[:, :3] += 0.25
+    d[-2:, :] = 0.0
+    d[:4, -5:] = 0.0
+    return d.astype(np.float32)
+
+
 DEPTHS = {"room": (_DEPTH * ~_HOLES, CFG),
-          "near": (0.02 * _DEPTH * ~_HOLES, NEAR_CFG)}
+          "near": (0.02 * _DEPTH * ~_HOLES, NEAR_CFG),
+          "border61x47": (_border_case(_DEPTH[:47, :61], 2), CFG)}
 
 
 def _grid_pallas_call(kernel, *, grid, in_specs, out_specs, out_shape, **_):
@@ -88,7 +111,8 @@ class _Value(np.ndarray):
 
 
 class _NumpyAsJnp:
-    """numpy in place of ``jax.numpy`` in the pallas_kernels module."""
+    """numpy in place of ``jax.numpy`` in the pallas_kernels module and in
+    the eigen-solve it takes from ``preprocess``."""
 
     def __getattr__(self, name):
         return getattr(np, name)
@@ -97,11 +121,18 @@ class _NumpyAsJnp:
     def zeros(shape, dtype=np.float32):
         return np.zeros(shape, dtype).view(_Value)
 
+    @staticmethod
+    def sqrt(x):
+        # a Python float stays one (jnp keeps float32 arrays float32 against
+        # it; numpy would widen them against a numpy float64)
+        return np.sqrt(x) if isinstance(x, np.ndarray) else float(np.sqrt(x))
+
 
 def _pallas(fn, *args):
     """A pallas_kernels wrapper and its kernel body, in float32 numpy."""
+    as_np = _NumpyAsJnp()
     with mock.patch.object(pk.pl, "pallas_call", _grid_pallas_call), \
-            mock.patch.object(pk, "jnp", _NumpyAsJnp()):
+            mock.patch.object(pk, "jnp", as_np), mock.patch.object(jpre, "jnp", as_np):
         return fn(*args)
 
 
@@ -144,12 +175,22 @@ def test_bilateral_plain_matches_jax(form, scale):
         assert gap < 1e-5, gap
 
 
-def test_normal_pca_plain_matches_pallas():
-    v = _vertex(_DEPTH)
+# the vertex maps the PCA kernels take: the room frame as it is, and the
+# border case at 61x47 filtered (its holes and step leave ~75 % valid); the
+# port unprojects it (test_torch_core.py holds its camera to JAX's)
+PCA_INPUTS = {"room": (lambda: _vertex(_DEPTH), 0.9),
+              "border61x47": (lambda: n(tcam.unproject(tpre.bilateral_filter_ref(
+                  t(DEPTHS["border61x47"][0]), PCFG), PINTR)), 0.7)}
+
+
+@pytest.mark.parametrize("frame", sorted(PCA_INPUTS))
+def test_normal_pca_plain_matches_pallas(frame):
+    make, min_valid = PCA_INPUTS[frame]
+    v = make()
     r = n(_pallas(pk.normal_pca, v, CFG))
     o = n(tpre.normal_pca_ref(t(v), PCFG))
     both = (np.linalg.norm(r, axis=-1) > 0.5) & (np.linalg.norm(o, axis=-1) > 0.5)
-    assert both.mean() > 0.9
+    assert both.mean() > min_valid
     assert (np.sum(r[both] * o[both], axis=-1) > 0.999).mean() > 0.99
 
 
@@ -253,11 +294,21 @@ def test_cuda_kernel_matches_plain(name):
     ref = plain()
     if name == "bilateral_filter":
         np.testing.assert_allclose(n(out), n(ref), atol=1e-5)
+        # both denominators on every frame, the 61x47 border case among them
+        for scale, (depth, cfg) in DEPTHS.items():
+            d, pcfg = t(depth).cuda(), port_cfg(cfg)
+            for form in (False, True):
+                np.testing.assert_allclose(
+                    n(tpre.bilateral_filter(d, pcfg, pallas_form=form)),
+                    n(tpre.bilateral_filter_ref(d, pcfg, pallas_form=form)), atol=1e-5,
+                    err_msg=f"{scale}, pallas_form={form}")
     elif name == "normal_pca":
-        o, r = n(out), n(ref)
-        vo, vr = np.linalg.norm(o, axis=-1) > 0.5, np.linalg.norm(r, axis=-1) > 0.5
-        assert (vo == vr).mean() >= 0.999
-        assert (np.sum(o[vo & vr] * r[vo & vr], axis=-1) > 0.9999).mean() >= 0.99
+        v = t(PCA_INPUTS["border61x47"][0]()).cuda()
+        pairs = [(out, ref), (tpre.normal_pca(v, PCFG), tpre.normal_pca_ref(v, PCFG))]
+        for o, r in ((n(a), n(b)) for a, b in pairs):
+            vo, vr = np.linalg.norm(o, axis=-1) > 0.5, np.linalg.norm(r, axis=-1) > 0.5
+            assert (vo == vr).mean() >= 0.999
+            assert (np.sum(o[vo & vr] * r[vo & vr], axis=-1) > 0.9999).mean() >= 0.99
     else:
         pre = tpre.VertexNormalRadius(*(x.cuda() for x in _port_pre()))
         args = (pre.vertex_filtered, pre.normal, pre.radius, PCFG)
@@ -281,5 +332,6 @@ def test_cuda_kernel_matches_plain(name):
         for res in (out, ref):
             inv = ~n(res.valid)
             assert (n(res.k1)[inv] == 1000.0).all() and (n(res.k2)[inv] == 1000.0).all()
-        at = kernels.kernel_attributes("curvature_gradient", PCFG.curv_window)
-        assert at["local_bytes"] == 0 and at["blocks_per_sm"] >= 2
+    at = kernels.kernel_attributes(name, *([PCFG.curv_window] if name == "curvature_gradient"
+                                           else []))
+    assert at["local_bytes"] == 0 and at["blocks_per_sm"] >= 2
