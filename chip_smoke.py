@@ -3,7 +3,8 @@
 Drives the port's dense SLAM step — ``bootstrap`` then 15 ``step``s on
 synthetic 640x480 RGB-D frames under the bench configuration — through its
 four hand-written CUDA kernels, checks the trajectory and each kernel
-against its plain PyTorch version, and prints:
+against its plain PyTorch version, drives the sparse keyframe backend
+(which has no hand-written kernel), and prints:
   - the card's name and power limit (nvidia-smi);
   - each kernel source's build time, each kernel's ptxas registers and
     spills, and for every kernel the registers, spilled bytes and resident
@@ -24,6 +25,13 @@ against its plain PyTorch version, and prints:
   - a per-phase breakdown of the step (each phase synchronised), the
     device ops and busy time per step and each kernel's device time per
     launch on the step (torch.profiler);
+  - the sparse keyframe backend at FullSLAM's production settings
+    (``phase_backend``): six 640x480 keyframes inserted with a local BA
+    after each, per keyframe the keypoints, landmarks, BA sizes, ms and
+    host syncs of both calls, the profiler's device ops and busy time of
+    the last one, and its checks against the CPU (detection, local BA, a
+    128-camera PCG BA, the pose graph, quantisation; the solvers twice on
+    the card, bit for bit), a JSON line ``{"backend": {...}}``;
   - a JSON line ``{"kernels": [...]}``: per kernel its launches on the main
     path, max abs error against the plain version, both times and the
     bound (the least time the card could take for the same work);
@@ -37,6 +45,7 @@ before printing any result.  Run from the repository root:
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import subprocess
@@ -47,12 +56,13 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from hrbffusion3d_tpu_torch.backend import ba, features, keyframes, posegraph, vocab
 from hrbffusion3d_tpu_torch.config import TUM1, SLAMConfig
 from hrbffusion3d_tpu_torch.core import camera, lie
 from hrbffusion3d_tpu_torch.eval import synth
 from hrbffusion3d_tpu_torch.eval.ate import ate_rmse
 from hrbffusion3d_tpu_torch.map import surfel_map as sm
-from hrbffusion3d_tpu_torch.ops import kernels, preprocess, raycast
+from hrbffusion3d_tpu_torch.ops import kernels, preprocess, pyramid, raycast
 from hrbffusion3d_tpu_torch.pipeline import slam
 from hrbffusion3d_tpu_torch.tracking import odometry
 
@@ -147,6 +157,26 @@ CURV_SUMS_RTOL = 1e-5
 # where |g_z| >= this share of |g|; at most 1 % of the valid pixels may fall
 # below it
 CURV_COND_FLOOR = 0.1
+# the sparse backend at FullSLAM's production settings (full_slam.py:90-91):
+# a keyframe every keyframe_period = 10 frames of orbit_trajectory(60), local
+# BA after each, the last keyframe's pose drifted
+BACKEND_ARGS = dict(n_features=1024, fast_threshold=12.0, local_window=5,
+                    ba_pad_min=(16384, 8192, 32))
+BACKEND_N_FRAMES = 60
+BACKEND_KF_FRAMES = (1, 11, 21, 31, 41, 51)
+# tests/test_keyframes.py drifts se3_exp(TEST_DRIFT) at fx = 103 and asserts
+# an error over 0.05 m before local BA and under 0.55 of it after.  Here the
+# drift and the 0.05 m scale by 103 / TUM1.fx, so that the drift moves the
+# keyframe's landmarks by as many pixels as there: at full size the unscaled
+# drift (~15 px) puts every landmark outside the 4 px projection gate of
+# insert_keyframe, the keyframe shares none and no BA can move it
+TEST_DRIFT = np.array([0.06, -0.05, 0.04, 0.01, -0.015, 0.012], np.float32)
+DRIFT_SCALE = 103.0 / TUM1.fx
+BACKEND_DRIFT = TEST_DRIFT * DRIFT_SCALE
+DRIFT_MIN, DRIFT_KEEP = 0.05 * DRIFT_SCALE, 0.55
+# card against CPU: keypoints at the same pixel of their level, descriptor
+# bits, solver poses (norm of se3_log of the difference) and chi2 (relative)
+KP_AGREE, BITS_AGREE, POSE_TOL, CHI2_RTOL = 0.99, 0.995, 1e-4, 1e-4
 
 
 def phase_card() -> str:
@@ -658,6 +688,12 @@ def _phase_timers(totals):
             setattr(mod, attr, fn)
 
 
+def _dev_time(e) -> float:
+    """A profiler event's own device time, µs."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
 def phase_breakdown(poses, frames, n_steps=6):
     """Per-phase ms of a step (median over steps 2-6 after a bootstrap),
     each phase synchronised; then a profiler's device time and kernel
@@ -685,11 +721,7 @@ def phase_breakdown(poses, frames, n_steps=6):
             state = slam.step(state, f, TUM1, cfg)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-
-    def dev_time(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
-    dev_us = sum(dev_time(e) for e in events)
+    dev_us = sum(_dev_time(e) for e in events)
     n_ops = sum(e.count for e in events)
     print(f"breakdown: profiler over 2 steps: {n_ops / 2:.0f} device ops per step, "
           f"device busy {dev_us / 2e3:.2f} ms per step")
@@ -697,10 +729,263 @@ def phase_breakdown(poses, frames, n_steps=6):
     for kname, symbol in KERNEL_SYMBOLS.items():
         hits = [e for e in events if symbol in e.key]
         count = sum(e.count for e in hits)
-        per_launch[kname] = sum(dev_time(e) for e in hits) / max(count, 1) / 1e3
+        per_launch[kname] = sum(_dev_time(e) for e in hits) / max(count, 1) / 1e3
         print(f"breakdown: profiler {kname}: {count} launches in 2 steps, "
               f"{per_launch[kname] * 1e3:.2f} us of device time per launch")
     return per_launch
+
+
+def _to(prob, device):
+    return type(prob)(*(x.to(device) for x in prob))
+
+
+def _pose_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest norm of se3_log(a_i^-1 b_i) over a batch of poses (float64)."""
+    a, b = a.cpu().double(), b.cpu().double()
+    return float(torch.linalg.norm(lie.se3_log(torch.linalg.inv(a) @ b), dim=-1).max())
+
+
+def _ba_sizes(prob) -> dict:
+    """Real and padded sizes of a padded BA problem (padding edges are the
+    ones with zero weight on entry)."""
+    real = prob.edge_valid.cpu().numpy() > 0
+    return dict(edges=int(real.sum()), lms=len(np.unique(prob.lm_idx.cpu().numpy()[real])),
+                cams=len(np.unique(prob.cam_idx.cpu().numpy()[real])),
+                padded=[prob.obs.shape[0], prob.points.shape[0], prob.cams.shape[0]])
+
+
+def _card_vs_cpu(label, solve, inputs_cpu, dev, poses_of):
+    """``solve`` on the CPU and twice on the card; the card's two results
+    must be bit-identical and its poses within POSE_TOL of the CPU's.
+    Returns (CPU result, card result, pose gap)."""
+    ref = solve(inputs_cpu)
+    inputs = _to(inputs_cpu, dev)
+    first, second = solve(inputs), solve(inputs)
+    # (problem or graph, chi2): every tensor of both
+    if not all(torch.equal(u, v) for u, v in zip([*first[0], first[1]], [*second[0], second[1]])):
+        raise RuntimeError(f"{label}: two runs on the card differ")
+    gap = _pose_gap(poses_of(first), poses_of(ref))
+    if not gap < POSE_TOL:
+        raise RuntimeError(f"{label}: card poses {gap:.3g} from the CPU's (limit {POSE_TOL})")
+    return ref, first, gap
+
+
+def _synthetic_ba(n_cams=128, n_lms=60, noise=0.002, perturb=0.05, seed=0):
+    """tests/test_ba.py::_make_problem at 128 cameras, on the CPU: every
+    camera sees every landmark, the first two fixed; the arc's step is
+    5/127 of the 6-camera problem's so that it spans the same poses."""
+    rng = np.random.default_rng(seed)
+    step = torch.tensor([0.1, 0.02, 0.0, 0.0, 0.05, 0.0]) * 5.0 / (n_cams - 1)
+    gt_cams = lie.se3_exp(torch.arange(n_cams, dtype=torch.float32)[:, None] * step)
+    pts = torch.from_numpy(rng.uniform([-1.5, -1.0, 1.5], [1.5, 1.0, 3.5],
+                                       (n_lms, 3)).astype(np.float32))
+    cam_idx = torch.arange(n_cams).repeat_interleave(n_lms)
+    lm_idx = torch.arange(n_lms).repeat(n_cams)
+    T = gt_cams[cam_idx]
+    obs = torch.einsum("eij,ej->ei", T[:, :3, :3], pts[lm_idx]) + T[:, :3, 3]
+    obs = obs + torch.from_numpy((noise * rng.standard_normal(obs.shape)).astype(np.float32))
+    fixed = torch.zeros(n_cams, dtype=torch.bool)
+    fixed[:2] = True
+    dx = torch.from_numpy((perturb * rng.standard_normal((n_cams, 6))).astype(np.float32))
+    dx[fixed] = 0.0
+    return ba.BAProblem(
+        cams=lie.se3_exp(dx) @ gt_cams,
+        points=pts + torch.from_numpy((perturb * rng.standard_normal((n_lms, 3))
+                                       ).astype(np.float32)),
+        obs=obs, cam_idx=cam_idx, lm_idx=lm_idx, info=ba.depth_information(obs, 500.0, 500.0),
+        edge_valid=torch.ones(obs.shape[0]), fixed=fixed)
+
+
+def _keypoint_agreement(kp_card, kp_cpu) -> tuple[float, float]:
+    """Shares of the CPU's valid keypoints at the same pixel of their level
+    on the card, and of descriptor bits equal on those keypoints."""
+    v = kp_cpu.valid.numpy()
+    scale = 1.5 ** kp_cpu.level.numpy()[:, None]
+    same_px = (np.round(kp_card.xy.cpu().numpy() / scale)
+               == np.round(kp_cpu.xy.numpy() / scale)).all(-1)
+    bits = (np.unpackbits(features.desc_to_numpy(kp_card.desc).view(np.uint8), axis=-1)
+            == np.unpackbits(features.desc_to_numpy(kp_cpu.desc).view(np.uint8), axis=-1))
+    return float(same_px[v].mean()), float(bits[v].mean())
+
+
+def _profile_call(label: str, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall ms, device ops,
+    device busy ms and the three device ops that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(_dev_time(e) for e in events) / 1e3
+    top = sorted(events, key=_dev_time, reverse=True)[:3]
+    out = dict(wall_ms=wall, device_ops=sum(e.count for e in events), device_busy_ms=busy,
+               top=[[e.key[:60], e.count, _dev_time(e) / 1e3] for e in top])
+    print(f"backend: profiler {label}: {out['device_ops']} device ops, device busy "
+          f"{busy:.2f} ms of {wall:.1f} ms (profiled); most device time: "
+          + "; ".join(f"{k} x{c} {ms:.2f} ms" for k, c, ms in out["top"]))
+    return out
+
+
+def phase_backend(dev) -> dict:
+    """The sparse backend at FullSLAM's production settings: six keyframes
+    of 640x480 frames inserted into a ``SparseBackend`` on the card, local
+    BA after each (the last keyframe's pose drifted), each call timed with
+    the card synchronised around it and its host syncs counted.  Then held
+    to the port on the CPU: detection, the last local BA's padded problem,
+    a 128-camera PCG BA, the pose graph of the six keyframes with a loop
+    edge and the vocabulary tree's quantisation; the solvers also twice on
+    the card, bit for bit.  The caller's TF32 is on for the whole phase:
+    the solvers pin full float32 themselves.  No hand-written kernel runs
+    on this path.  The last keyframe's insert and local BA run once more,
+    on a copy of the backend, under the profiler."""
+    t_phase = time.perf_counter()
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        scene = synth.default_room(dev)
+        gt = synth.orbit_trajectory(BACKEND_N_FRAMES)
+        drift = lie.se3_exp(torch.from_numpy(BACKEND_DRIFT)).numpy()
+        be = keyframes.SparseBackend(TUM1, BENCH_CFG, device=dev, **BACKEND_ARGS)
+        captured = {}
+        optimize = ba.optimize
+
+        def capture(prob, **kw):
+            captured["prob"], captured["solver"] = prob, kw["solver"]
+            return optimize(prob, **kw)
+
+        rows, before, frame = [], None, None
+        ba.optimize = capture
+        try:
+            for k, t in enumerate(BACKEND_KF_FRAMES):
+                last = k == len(BACKEND_KF_FRAMES) - 1
+                depth, rgb = synth.render_frame(scene, gt[t - 1], TUM1)
+                frame = (pyramid.rgb_to_intensity(rgb), depth)
+                est = (drift @ gt[t - 1]).astype(np.float32) if last else gt[t - 1]
+                if last:
+                    replay = copy.deepcopy(be)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, ins_syncs = _count_syncs(lambda: be.insert_keyframe(*frame, est, time=t))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if last:
+                    before = float(np.linalg.norm(be.keyframes[-1].pose[:3, 3] - gt[t - 1][:3, 3]))
+                captured.clear()
+                deltas, ba_syncs = _count_syncs(be.local_ba)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                kf = be.keyframes[-1]
+                row = dict(kf=k, frame=t, valid_keypoints=int(kf.kp_valid.sum()),
+                           landmarks=len(be.landmarks),
+                           shared=sum(len(o) >= 2 for o in be.lm_obs.values()),
+                           insert_ms=1e3 * (t1 - t0), insert_syncs=ins_syncs,
+                           local_ba_ms=1e3 * (t2 - t1), local_ba_syncs=ba_syncs,
+                           ba=_ba_sizes(captured["prob"]) if deltas is not None else None)
+                rows.append(row)
+                b = row["ba"]
+                print(f"backend kf {k} (frame {t}): {row['valid_keypoints']} valid keypoints, "
+                      f"{row['landmarks']} landmarks ({row['shared']} shared), BA "
+                      + (f"{b['edges']} edges / {b['lms']} landmarks / {b['cams']} cameras "
+                         f"(padded {' / '.join(map(str, b['padded']))})" if b else "none")
+                      + f"; insert_keyframe {row['insert_ms']:.1f} ms ({ins_syncs} host syncs), "
+                        f"local_ba {row['local_ba_ms']:.1f} ms ({ba_syncs} host syncs)")
+        finally:
+            ba.optimize = optimize
+        t = BACKEND_KF_FRAMES[-1]
+        profiled = {"insert_keyframe": _profile_call(
+                        f"insert_keyframe (frame {t})",
+                        lambda: replay.insert_keyframe(*frame, est, time=t)),
+                    "local_ba": _profile_call(f"local_ba (frame {t})", replay.local_ba)}
+        after = float(np.linalg.norm(be.keyframes[-1].pose[:3, 3] - gt[t - 1][:3, 3]))
+        print(f"backend: drifted keyframe position error {before * 1e3:.2f} mm before local BA, "
+              f"{after * 1e3:.2f} mm after")
+        if not (before > DRIFT_MIN and after < DRIFT_KEEP * before):
+            raise RuntimeError(f"local BA did not correct the drift: {before} -> {after} "
+                               f"(needs > {DRIFT_MIN} before and < {DRIFT_KEEP} of it after)")
+
+        # detection: the last keyframe's frame on the card and on the CPU
+        n_per_level = BACKEND_ARGS["n_features"] // 4
+        thr = BACKEND_ARGS["fast_threshold"]
+        kp_card = features.detect_and_describe(frame[0], n_per_level=n_per_level, threshold=thr)
+        kp_cpu = features.detect_and_describe(frame[0].cpu(), n_per_level=n_per_level,
+                                              threshold=thr)
+        kp_agree, bit_agree = _keypoint_agreement(kp_card, kp_cpu)
+        print(f"backend: detection card vs CPU: {kp_agree:.5f} of {int(kp_cpu.valid.sum())} valid "
+              f"keypoints at the same pixel (>= {KP_AGREE}), {bit_agree:.6f} of their "
+              f"descriptor bits equal (>= {BITS_AGREE})")
+        if not (kp_agree >= KP_AGREE and bit_agree >= BITS_AGREE):
+            raise RuntimeError("detection on the card disagrees with the CPU")
+
+        # the last local BA's padded problem
+        prob, solver = captured["prob"], captured["solver"]
+        n_real = int((prob.edge_valid > 0).sum())
+
+        def local(p):
+            return ba.optimize(p, solver=solver,
+                               plans=ba.build_plans(_to(p, "cpu"), solver, n_real=n_real,
+                                                    device=p.cams.device))
+        (ref, chi_ref), (out, chi), gap = _card_vs_cpu(
+            "local BA", local, _to(prob, "cpu"), dev, lambda r: r[0].cams)
+        chi_rel = abs(float(chi) - float(chi_ref)) / abs(float(chi_ref))
+        print(f"backend: last local BA ({solver}, padded {list(prob.obs.shape[:1])} edges) card "
+              f"vs CPU: poses within {gap:.3g}, chi2 {float(chi):.6g} vs {float(chi_ref):.6g} "
+              f"(relative {chi_rel:.3g}); two card runs bit-identical")
+        if not chi_rel < CHI2_RTOL:
+            raise RuntimeError(f"local BA chi2 on the card {chi_rel} from the CPU's")
+
+        # a 128-camera PCG BA
+        syn = _synthetic_ba()
+        t0 = time.perf_counter()
+        (ref, chi_ref), (out, chi), gap = _card_vs_cpu(
+            "128-camera cg BA", lambda p: ba.optimize(p, solver="cg"), syn, dev,
+            lambda r: r[0].cams)
+        chi_rel = abs(float(chi) - float(chi_ref)) / abs(float(chi_ref))
+        print(f"backend: 128-camera cg BA ({syn.obs.shape[0]} edges) card vs CPU: poses within "
+              f"{gap:.3g}, chi2 relative {chi_rel:.3g}; two card runs bit-identical "
+              f"({time.perf_counter() - t0:.1f} s for the three solves)")
+        if not chi_rel < CHI2_RTOL:
+            raise RuntimeError(f"128-camera BA chi2 on the card {chi_rel} from the CPU's")
+
+        # the pose graph of the six keyframes: odometry edges from the
+        # current poses, one loop edge 5 -> 0 measured from the ground truth
+        K = len(be.keyframes)
+        P = np.stack([kf.pose for kf in be.keyframes]).astype(np.float32)
+        G = np.stack([gt[t - 1] for t in BACKEND_KF_FRAMES]).astype(np.float32)
+        ei, ej = list(range(K - 1)) + [K - 1], list(range(1, K)) + [0]
+        meas = np.stack([np.linalg.inv(P[i]) @ P[j] for i, j in zip(ei[:-1], ej[:-1])]
+                        + [np.linalg.inv(G[K - 1]) @ G[0]]).astype(np.float32)
+        fixed = torch.zeros(K, dtype=torch.bool)
+        fixed[0] = True
+        graph = posegraph.PoseGraph(
+            poses=torch.from_numpy(P), edge_i=torch.tensor(ei), edge_j=torch.tensor(ej),
+            meas=torch.from_numpy(meas), info=torch.eye(6).expand(len(ei), 6, 6).contiguous(),
+            edge_valid=torch.ones(len(ei)), fixed=fixed)
+        _, (g_out, _), gap = _card_vs_cpu("pose graph", lambda g: posegraph.optimize(g), graph,
+                                          dev, lambda r: r[0].poses)
+        print(f"backend: pose graph of {K} keyframes + 1 loop edge card vs CPU: poses within "
+              f"{gap:.3g}; two card runs bit-identical")
+
+        # the vocabulary tree over the keyframes' descriptors
+        train = np.concatenate([kf.desc[kf.kp_valid] for kf in be.keyframes])
+        tree = vocab.VocabularyTree.train(train, device=dev)
+        tree_cpu = vocab.VocabularyTree([c.cpu().numpy() for c in tree.centroids],
+                                        tree.idf.cpu().numpy(), tree.k, tree.depth, device="cpu")
+        for kf in be.keyframes:
+            w_card = tree.quantize(features.desc_from_numpy(kf.desc, dev)).cpu()
+            w_cpu = tree_cpu.quantize(features.desc_from_numpy(kf.desc, "cpu"))
+            if not torch.equal(w_card, w_cpu):
+                raise RuntimeError(f"vocabulary quantisation of keyframe {kf.kf_id} differs")
+        print(f"backend: vocabulary tree ({tree.n_words} words, trained on {train.shape[0]} "
+              f"descriptors) quantises all {K} keyframes equally on card and CPU")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    secs = time.perf_counter() - t_phase
+    print(f"backend: phase {secs:.1f} s")
+    return dict(keyframes=rows, profiled=profiled, drift_mm=[before * 1e3, after * 1e3],
+                seconds=secs)
 
 
 def main() -> None:
@@ -713,6 +998,8 @@ def main() -> None:
     pre = phase_preprocess_vs_plain(frames)
     phase_use_pallas(poses, frames)
     profiled = phase_breakdown(poses, frames)
+    backend = phase_backend(dev)
+    print(json.dumps({"backend": backend}))
 
     rows = []
     for kname in kernels.LAUNCHES:

@@ -1,19 +1,23 @@
-"""PyTorch + CUDA port of the HRBF-Fusion dense SLAM step.
+"""PyTorch + CUDA port of HRBF-Fusion: the dense SLAM step and the sparse
+keyframe backend.
 
 A second package beside ``hrbffusion3d_tpu`` (the JAX reference, which it
 is held against by the ``tests/test_torch_*.py`` parity tests).  The layout
 mirrors the JAX package module for module (``core/``, ``ops/``, ``map/``,
-``tracking/``, ``pipeline/``, ``eval/``) and keeps its public layouts:
-(H, W, C) images and the packed (N, 24) surfel rows.
+``tracking/``, ``pipeline/``, ``eval/``, ``backend/``) and keeps its
+public layouts: (H, W, C) images, the packed (N, 24) surfel rows, and
+256-bit descriptors as eight 32-bit words (``int64`` on the device,
+``uint32`` in numpy).
 
 Conventions:
   - plain functions on tensors and ``NamedTuple`` results with the JAX
     package's field names;
   - the device comes from the input tensors; a function with no input
     tensor (``eval.synth.default_room``, ``core.camera.pixel_grid``,
-    ``ops.patches.window_offsets``) makes its tensors on the CUDA card
-    unless its ``device`` argument names another (the CPU tests pass
-    ``"cpu"``), and raises when there is no card;
+    ``ops.patches.window_offsets``, ``backend.keyframes.SparseBackend``)
+    makes its tensors on the CUDA card unless its ``device`` argument
+    names another (the CPU tests pass ``"cpu"``), and raises when there
+    is no card;
   - nothing on this path needs a gradient, so there is no
     ``torch.autograd.Function``; nothing is random (the synthetic frames
     are exact), so there is no ``torch.Generator``;
@@ -25,5 +29,6 @@ Conventions:
     tensor gets the kernel or an error.
 
 The package imports ``torch`` and never ``jax``, nor any module of the JAX
-package: it keeps its own copies of ``config`` and ``eval.ate``.
+package: it keeps its own copies of ``config``, ``eval.ate``, the BRIEF
+pattern and the backend's numpy code.
 """

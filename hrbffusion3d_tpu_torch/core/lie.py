@@ -53,6 +53,42 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     return v * scale[..., None]
 
 
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) exponential: xi = (...,6) as [v | w] (translation first) ->
+    (...,4,4)."""
+    v, w = xi[..., :3], xi[..., 3:]
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < 1e-8
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (1.0 - a) / theta2)
+    W = hat(w)
+    W2 = W @ W
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
+    R = eye + a[..., None, None] * W + b[..., None, None] * W2
+    V = eye + b[..., None, None] * W + c[..., None, None] * W2
+    return rt_to_mat(R, (V @ v[..., None])[..., 0])
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """(...,4,4) -> (...,6) as [v | w]."""
+    w = so3_log(T[..., :3, :3])
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < 1e-8
+    half = 0.5 * theta
+    # V^-1 = I - W/2 + (1/theta^2)(1 - a/(2b)) W^2
+    coef = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - (theta * torch.cos(half)) / (2.0 * torch.sin(half) + _EPS)) / (theta2 + _EPS))
+    W = hat(w)
+    W2 = W @ W
+    eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(W.shape)
+    Vinv = eye - 0.5 * W + coef[..., None, None] * W2
+    return torch.cat([(Vinv @ T[..., :3, 3, None])[..., 0], w], dim=-1)
+
+
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(...,3,3),(...,3) -> (...,4,4)."""
     bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)

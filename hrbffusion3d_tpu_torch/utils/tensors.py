@@ -8,10 +8,17 @@ asynchronously, so the step keeps the device queue full and never waits.
 ``device_or_card`` is the default of every function that makes tensors
 without an input tensor to take the device from: the card, unless the
 caller names another device (the CPU tests pass ``"cpu"``).
+
+``full_float32`` pins float32 matmuls to full precision for a block (the
+solvers' Hessians lose millimetres in TF32), and ``host`` brings an index
+array to numpy for the host-side plan builds.
 """
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 
 
@@ -27,3 +34,20 @@ def device_or_card(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def full_float32():
+    """float32 matmuls and einsums in full float32 (no TF32) inside the
+    block, whatever the caller set; the caller's setting comes back after."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def host(x) -> np.ndarray:
+    """A tensor (copied from its device) or array-like as numpy."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
