@@ -4,7 +4,8 @@ Drives the port's dense SLAM step — ``bootstrap`` then 15 ``step``s on
 synthetic 640x480 RGB-D frames under the bench configuration — through its
 four hand-written CUDA kernels, checks the trajectory and each kernel
 against its plain PyTorch version, drives the sparse keyframe backend
-(which has no hand-written kernel), and prints:
+(which has no hand-written kernel) and the full system (``FullSLAM``),
+and prints:
   - the card's name and power limit (nvidia-smi);
   - each kernel source's build time, each kernel's ptxas registers and
     spills, and for every kernel the registers, spilled bytes and resident
@@ -32,9 +33,26 @@ against its plain PyTorch version, drives the sparse keyframe backend
     the last one, and its checks against the CPU (detection, local BA, a
     128-camera PCG BA, the pose graph, quantisation; the solvers twice on
     the card, bit for bit), a JSON line ``{"backend": {...}}``;
+  - the full system with TF32 on (``phase_full_system``): (a) the
+    replayed out-and-back of tests/test_full_slam_loop.py at 640x480,
+    with the test's drift and with it scaled to the test's pixels (a loop
+    must fire and cut the error below 0.7 of itself), the closing
+    ``correct()`` repeated bit for bit on the card and held to the CPU's
+    on every keyframe its global BA determines (each keyframe's
+    observations in it printed, and how far a 1e-7 nudge of the poses
+    moves each keyframe on the CPU); (b) bench.py's
+    full-system protocol, 121 frames async through ``process_batch``
+    (fps steady and all-in, worst chunk, ATE under 5 cm, loops,
+    ``archive_dropped``, active and archive counts, keyframes inserted of
+    due, the worker's stage seconds, host syncs per chunk) and 21 of its
+    frames through a synchronous ``process``, the next 10 as bare steps
+    and through ``process``, 10 more profiled; each
+    run with the kernels' launch counts reset before it and every kernel
+    launched; a JSON line ``{"full_system": {...}}``;
   - a JSON line ``{"kernels": [...]}``: per kernel its launches on the main
-    path, max abs error against the plain version, both times and the
-    bound (the least time the card could take for the same work);
+    path (the bilateral kernel's keyframe call site apart), max abs error
+    against the plain version, both times and the bound (the least time
+    the card could take for the same work);
   - last, ``{"ok": true, "device": {...}}``.
 Every phase raises on failure; without a CUDA device the script raises
 before printing any result.  Run from the repository root:
@@ -49,6 +67,7 @@ import copy
 import dataclasses
 import json
 import subprocess
+import threading
 import time
 import warnings
 from collections import defaultdict
@@ -56,14 +75,14 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from hrbffusion3d_tpu_torch.backend import ba, features, keyframes, posegraph, vocab
+from hrbffusion3d_tpu_torch.backend import ba, features, keyframes, loop, posegraph, vocab
 from hrbffusion3d_tpu_torch.config import TUM1, SLAMConfig
 from hrbffusion3d_tpu_torch.core import camera, lie
 from hrbffusion3d_tpu_torch.eval import synth
 from hrbffusion3d_tpu_torch.eval.ate import ate_rmse
 from hrbffusion3d_tpu_torch.map import surfel_map as sm
 from hrbffusion3d_tpu_torch.ops import kernels, preprocess, pyramid, raycast
-from hrbffusion3d_tpu_torch.pipeline import slam
+from hrbffusion3d_tpu_torch.pipeline import full_slam, slam
 from hrbffusion3d_tpu_torch.tracking import odometry
 
 N_FRAMES = 16
@@ -177,6 +196,26 @@ DRIFT_MIN, DRIFT_KEEP = 0.05 * DRIFT_SCALE, 0.55
 # card against CPU: keypoints at the same pixel of their level, descriptor
 # bits, solver poses (norm of se3_log of the difference) and chi2 (relative)
 KP_AGREE, BITS_AGREE, POSE_TOL, CHI2_RTOL = 0.99, 0.995, 1e-4, 1e-4
+# a keyframe's pose is determined by global BA from three observations (3-D
+# points in the camera, three residuals each, not on one line); with fewer
+# only the damping holds it and its pose follows rounding.  NUDGE: the size
+# of the seeded change of the keyframe poses that shows which ones do
+MIN_BA_OBS, NUDGE = 3, 1e-7
+# the full system, (a): tests/test_full_slam_loop.py::
+# test_loop_closure_fires_in_pipeline at 640x480 (a keyframe every 2 frames
+# of a replayed out-and-back whose last 4 frames drift by STEP_XI each;
+# the loop must cut the drifted trajectory's error below LOOP_KEEP of it)
+LOOP_CFG = dataclasses.replace(BENCH_CFG, keyframe_period=2)
+LOOP_BACKEND = dict(n_features=1024, fast_threshold=12.0, ba_pad_min=(16384, 8192, 32))
+LOOP_ARGS = dict(min_score=0.05, min_inliers=12, consistency=1)
+STEP_XI = np.array([0.11, -0.05, 0.045, 0.014, -0.017, 0.022], np.float32)
+LOOP_KEEP = 0.7
+# (b): bench.py's full-system protocol (bench.py:132-147) with async BA in
+# chunks of keyframe_period frames, cut from 281 frames to FULL_FRAMES; a
+# SYNC_FRAMES-frame synchronous run on the same frames beside it
+FULL_CFG = dataclasses.replace(BENCH_CFG, keyframe_period=10, use_global_ba=True,
+                               active_capacity=393216, archive_capacity=2097152)
+FULL_FRAMES, SYNC_FRAMES, FULL_ATE_MAX = 121, 21, 0.05
 
 
 def phase_card() -> str:
@@ -192,7 +231,7 @@ def phase_card() -> str:
     print(f"nvidia-smi: {smi}")
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
-    return name
+    return name, smi
 
 
 def phase_build() -> dict:
@@ -239,17 +278,39 @@ def phase_frames(dev):
     return poses, frames
 
 
-def _count_syncs(fn):
-    """Run ``fn`` under CUDA sync-debug mode; returns (its result, the
-    number of host synchronisations it made)."""
+@contextlib.contextmanager
+def _sync_counts():
+    """CUDA sync-debug mode over the block; yields the running counts
+    [host synchronisations made by the main thread, those made by other
+    threads: FullSLAM's keyframe worker]."""
+    counts = [0, 0]
+
+    def show(message, *args, **kwargs):
+        if "synchroniz" in str(message):
+            counts[threading.current_thread() is not threading.main_thread()] += 1
+
     torch.cuda.set_sync_debug_mode("warn")
     try:
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings():
             warnings.simplefilter("always")
-            out = fn()
+            warnings.showwarning = show
+            yield counts
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _count_syncs_by_thread(fn):
+    """(result of ``fn``, the host synchronisations made by the main thread
+    in it, those made by other threads meanwhile)."""
+    with _sync_counts() as counts:
+        out = fn()
+    return out, counts[0], counts[1]
+
+
+def _count_syncs(fn):
+    """(result of ``fn``, the host synchronisations it made)."""
+    out, main, other = _count_syncs_by_thread(fn)
+    return out, main + other
 
 
 def _check_run(name, state, est, poses):
@@ -739,10 +800,15 @@ def _to(prob, device):
     return type(prob)(*(x.to(device) for x in prob))
 
 
-def _pose_gap(a: torch.Tensor, b: torch.Tensor) -> float:
-    """Largest norm of se3_log(a_i^-1 b_i) over a batch of poses (float64)."""
+def _pose_gaps(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
+    """Norm of se3_log(a_i^-1 b_i) for each pose of a batch (float64)."""
     a, b = a.cpu().double(), b.cpu().double()
-    return float(torch.linalg.norm(lie.se3_log(torch.linalg.inv(a) @ b), dim=-1).max())
+    return torch.linalg.norm(lie.se3_log(torch.linalg.inv(a) @ b), dim=-1).numpy()
+
+
+def _pose_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest norm of se3_log(a_i^-1 b_i) over a batch of poses."""
+    return float(_pose_gaps(a, b).max())
 
 
 def _ba_sizes(prob) -> dict:
@@ -755,15 +821,23 @@ def _ba_sizes(prob) -> dict:
 
 
 def _card_vs_cpu(label, solve, inputs_cpu, dev, poses_of):
-    """``solve`` on the CPU and twice on the card; the card's two results
-    must be bit-identical and its poses within POSE_TOL of the CPU's.
-    Returns (CPU result, card result, pose gap)."""
+    """``solve`` on the CPU and three times on the card, the third with the
+    global TF32 flag off (the solvers take one path whatever it says); the
+    card's results must be bit-identical and its poses within POSE_TOL of
+    the CPU's.  Returns (CPU result, card result, pose gap)."""
     ref = solve(inputs_cpu)
     inputs = _to(inputs_cpu, dev)
     first, second = solve(inputs), solve(inputs)
-    # (problem or graph, chi2): every tensor of both
-    if not all(torch.equal(u, v) for u, v in zip([*first[0], first[1]], [*second[0], second[1]])):
-        raise RuntimeError(f"{label}: two runs on the card differ")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        third = solve(inputs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    # (problem or graph, chi2): every tensor of each
+    if not all(torch.equal(u, v) for other in (second, third)
+               for u, v in zip([*first[0], first[1]], [*other[0], other[1]])):
+        raise RuntimeError(f"{label}: runs on the card differ (the third with TF32 off)")
     gap = _pose_gap(poses_of(first), poses_of(ref))
     if not gap < POSE_TOL:
         raise RuntimeError(f"{label}: card poses {gap:.3g} from the CPU's (limit {POSE_TOL})")
@@ -808,7 +882,7 @@ def _keypoint_agreement(kp_card, kp_cpu) -> tuple[float, float]:
     return float(same_px[v].mean()), float(bits[v].mean())
 
 
-def _profile_call(label: str, fn) -> dict:
+def _profile_call(label: str, fn, phase: str = "backend") -> dict:
     """One call of ``fn`` under torch.profiler: its wall ms, device ops,
     device busy ms and the three device ops that take the most time."""
     from torch.profiler import ProfilerActivity, profile
@@ -823,7 +897,7 @@ def _profile_call(label: str, fn) -> dict:
     top = sorted(events, key=_dev_time, reverse=True)[:3]
     out = dict(wall_ms=wall, device_ops=sum(e.count for e in events), device_busy_ms=busy,
                top=[[e.key[:60], e.count, _dev_time(e) / 1e3] for e in top])
-    print(f"backend: profiler {label}: {out['device_ops']} device ops, device busy "
+    print(f"{phase}: profiler {label}: {out['device_ops']} device ops, device busy "
           f"{busy:.2f} ms of {wall:.1f} ms (profiled); most device time: "
           + "; ".join(f"{k} x{c} {ms:.2f} ms" for k, c, ms in out["top"]))
     return out
@@ -837,8 +911,9 @@ def phase_backend(dev) -> dict:
     to the port on the CPU: detection, the last local BA's padded problem,
     a 128-camera PCG BA, the pose graph of the six keyframes with a loop
     edge and the vocabulary tree's quantisation; the solvers also twice on
-    the card, bit for bit.  The caller's TF32 is on for the whole phase:
-    the solvers pin full float32 themselves.  No hand-written kernel runs
+    the card, bit for bit, and once more there with TF32 off.  The
+    caller's TF32 is on for the rest of the phase: the solvers pin full
+    float32 themselves.  No hand-written kernel runs
     on this path.  The last keyframe's insert and local BA run once more,
     on a copy of the backend, under the profiler."""
     t_phase = time.perf_counter()
@@ -932,7 +1007,7 @@ def phase_backend(dev) -> dict:
         chi_rel = abs(float(chi) - float(chi_ref)) / abs(float(chi_ref))
         print(f"backend: last local BA ({solver}, padded {list(prob.obs.shape[:1])} edges) card "
               f"vs CPU: poses within {gap:.3g}, chi2 {float(chi):.6g} vs {float(chi_ref):.6g} "
-              f"(relative {chi_rel:.3g}); two card runs bit-identical")
+              f"(relative {chi_rel:.3g}); three card runs bit-identical, one with TF32 off")
         if not chi_rel < CHI2_RTOL:
             raise RuntimeError(f"local BA chi2 on the card {chi_rel} from the CPU's")
 
@@ -944,8 +1019,8 @@ def phase_backend(dev) -> dict:
             lambda r: r[0].cams)
         chi_rel = abs(float(chi) - float(chi_ref)) / abs(float(chi_ref))
         print(f"backend: 128-camera cg BA ({syn.obs.shape[0]} edges) card vs CPU: poses within "
-              f"{gap:.3g}, chi2 relative {chi_rel:.3g}; two card runs bit-identical "
-              f"({time.perf_counter() - t0:.1f} s for the three solves)")
+              f"{gap:.3g}, chi2 relative {chi_rel:.3g}; three card runs bit-identical, one with TF32 "
+              f"off ({time.perf_counter() - t0:.1f} s for the four solves)")
         if not chi_rel < CHI2_RTOL:
             raise RuntimeError(f"128-camera BA chi2 on the card {chi_rel} from the CPU's")
 
@@ -966,7 +1041,7 @@ def phase_backend(dev) -> dict:
         _, (g_out, _), gap = _card_vs_cpu("pose graph", lambda g: posegraph.optimize(g), graph,
                                           dev, lambda r: r[0].poses)
         print(f"backend: pose graph of {K} keyframes + 1 loop edge card vs CPU: poses within "
-              f"{gap:.3g}; two card runs bit-identical")
+              f"{gap:.3g}; three card runs bit-identical, one with TF32 off")
 
         # the vocabulary tree over the keyframes' descriptors
         train = np.concatenate([kf.desc[kf.kp_valid] for kf in be.keyframes])
@@ -987,9 +1062,393 @@ def phase_backend(dev) -> dict:
     return dict(keyframes=rows, profiled=profiled, drift_mm=[before * 1e3, after * 1e3],
                 seconds=secs)
 
+@contextlib.contextmanager
+def _recorded(mod, attr, sink, label=None):
+    """Wrap ``mod.attr`` so that each call's wall ms (card synchronised
+    around it) and result are appended to ``sink``."""
+    fn = getattr(mod, attr)
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append(dict(ms=1e3 * (time.perf_counter() - t0), out=out, label=label))
+        return out
+
+    setattr(mod, attr, run)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def _keyframe_bilateral_launches(counter):
+    """Count the bilateral kernel's launches made by FullSLAM._kf_inputs
+    (the keyframe call site) apart from the step's."""
+    fn = full_slam.FullSLAM._kf_inputs
+
+    def run(self, frame):
+        before = kernels.LAUNCHES["bilateral_filter"]
+        out = fn(self, frame)
+        counter[0] += kernels.LAUNCHES["bilateral_filter"] - before
+        return out
+
+    full_slam.FullSLAM._kf_inputs = run
+    try:
+        yield
+    finally:
+        full_slam.FullSLAM._kf_inputs = fn
+
+
+def _driven(label, launches):
+    """Fail unless every kernel launched in the run whose counts these are."""
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise RuntimeError(f"{label}: kernels {idle} were not launched")
+
+
+def _out_and_back(n_out=6, step=0.12) -> np.ndarray:
+    """tests/test_full_slam_loop.py::_out_and_back."""
+    poses = []
+    for i in list(range(n_out)) + list(range(n_out - 2, -1, -1)):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = [step * i, 0.0, 0.0]
+        poses.append(T)
+    return np.stack(poses)
+
+
+def _closer_poses(lc) -> torch.Tensor:
+    return torch.from_numpy(np.stack([kf.pose for kf in lc.backend.keyframes]).astype(np.float32))
+
+
+def _replay_loop(dev, label: str, scale: float):
+    """FullSLAM.process in replay mode at 640x480 on the out-and-back of
+    tests/test_full_slam_loop.py, the return leg's drift steps scaled by
+    ``scale``.  Returns (results, the system, its closer's state just before
+    each correct(), each correct()'s result)."""
+    gt = _out_and_back()
+    step = lie.se3_exp(torch.from_numpy(STEP_XI * scale)).numpy()
+    D = np.eye(4, dtype=np.float32)
+    drifted = []
+    for k in range(gt.shape[0]):
+        if k >= gt.shape[0] - 4:
+            D = step @ D
+        drifted.append((D @ gt[k]).astype(np.float32))
+    drifted = np.stack(drifted)
+    scene = synth.default_room(dev)
+    frames = [slam.FrameInput(*synth.render_frame(scene, p, TUM1)) for p in gt]
+    sys_ = full_slam.FullSLAM(TUM1, LOOP_CFG, backend_kwargs=LOOP_BACKEND, loop_kwargs=LOOP_ARGS,
+                              init_pose=gt[0], device=dev)
+    lc = sys_.loop_closer
+    adds, corrects, closings = [], [], []
+    kf_launch = [0]
+    torch.cuda.synchronize()
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    with _recorded(lc, "add_keyframe", adds), _recorded(lc, "correct", corrects), \
+            _keyframe_bilateral_launches(kf_launch):
+        timed_correct = lc.correct
+
+        def correct(cand, run_global_ba=True):
+            # the closer's state just before the correction, outside its timing
+            closings.append(dict(cand=cand, before=copy.deepcopy(lc.__dict__)))
+            return timed_correct(cand, run_global_ba)
+
+        lc.correct = correct
+        for i, f in enumerate(frames):
+            sys_.process(f, timestamp=float(i), fixed_pose=drifted[i])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    _driven(f"full system (a) {label}", launches)
+    err_in = ate_rmse(drifted, gt, align=False)
+    est = sys_.poses()
+    err_out = ate_rmse(est, gt, align=False)
+    kf_gt = gt[[kf.frame_time - 1 for kf in sys_.backend.keyframes]]
+    kf_err = [float(np.linalg.norm(kf.pose[:3, 3] - g[:3, 3])) * 1e3
+              for kf, g in zip(sys_.backend.keyframes, kf_gt)]
+    out = dict(drift_scale=scale, frames=len(frames), size=[TUM1.width, TUM1.height],
+               seconds=wall, keyframes=len(sys_.backend.keyframes), loops=sys_.loop_closures,
+               ate_drifted_mm=err_in * 1e3, ate_corrected_mm=err_out * 1e3,
+               ratio=err_out / err_in, keyframe_err_mm=kf_err,
+               frame_err_mm=(np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1) * 1e3).tolist(),
+               add_keyframe_ms=[a["ms"] for a in adds], correct_ms=[c["ms"] for c in corrects],
+               launches=launches, keyframe_bilateral_launches=kf_launch[0])
+    print(f"full system (a) {label}: {len(frames)} replayed 640x480 frames in {wall:.1f} s, "
+          f"{out['keyframes']} keyframes, loops {sys_.loop_closures}; ATE drifted "
+          f"{err_in * 1e3:.2f} mm -> {err_out * 1e3:.2f} mm ({err_out / err_in:.3f} of it); "
+          f"keyframe errors mm {', '.join(f'{x:.1f}' for x in kf_err)}; add_keyframe ms "
+          f"{', '.join(f'{x:.1f}' for x in out['add_keyframe_ms'])}; correct ms "
+          f"{', '.join(f'{x:.1f}' for x in out['correct_ms'])}; launches {json.dumps(launches)} "
+          f"(+{kf_launch[0]} bilateral at keyframes)")
+    if not sys_.loop_closures:
+        raise RuntimeError(f"full system (a) {label}: no loop closure fired at 640x480")
+    return out, sys_, closings, corrects
+
+
+def _global_ba_obs(lc) -> np.ndarray:
+    """Each keyframe's observations in the closer's global BA: those of the
+    landmarks seen twice or more (LoopCloser._global_ba's selection)."""
+    counts = np.zeros(len(lc.backend.keyframes), np.int64)
+    for obs in lc.backend.lm_obs.values():
+        if len(obs) >= 2:
+            for kf_id, _ in obs:
+                counts[kf_id] += 1
+    return counts
+
+
+def _closing_again(dev, label, out, sys_, closings, corrects):
+    """The run's last correct() again, from copies of the closer taken just
+    before it: on the card (it must repeat the system's run bit for bit),
+    on the CPU, and on the CPU with the keyframe poses nudged by NUDGE.  The
+    card's keyframe poses must be within POSE_TOL of the CPU's on every
+    keyframe with at least MIN_BA_OBS observations in the global BA, and
+    its chi2 within CHI2_RTOL; the keyframes with fewer, and how far the
+    nudge moves each keyframe, are printed."""
+    last = closings[-1]
+    chis = []
+
+    def rerun(device, nudge=0.0):
+        other = object.__new__(loop.LoopCloser)
+        other.__dict__.update(copy.deepcopy(last["before"]))
+        other.backend.device = torch.device(device)
+        rng = np.random.default_rng(0)
+        for kf in other.backend.keyframes:
+            kf.pose = (kf.pose + nudge * rng.standard_normal((4, 4))
+                       * np.array([1, 1, 1, 0])[:, None]).astype(np.float32)
+        with _recorded(ba, "optimize", chis, label=str(device)):
+            deltas = loop.LoopCloser.correct(other, last["cand"])
+        return deltas, _closer_poses(other), _global_ba_obs(other)
+
+    card_deltas, card_poses, obs = rerun(dev)
+    _, cpu_poses, cpu_obs = rerun("cpu")
+    _, nudged_poses, _ = rerun("cpu", NUDGE)
+    if not (np.array_equal(card_deltas, corrects[-1]["out"])
+            and torch.equal(card_poses, _closer_poses(sys_.loop_closer))):
+        raise RuntimeError(f"full system (a) {label}: two runs of the closing correct() on the "
+                           f"card differ")
+    if not np.array_equal(obs, cpu_obs):
+        raise RuntimeError(f"full system (a) {label}: global BA observations differ: card {obs}, "
+                           f"CPU {cpu_obs}")
+    gaps = _pose_gaps(card_poses, cpu_poses)
+    moved = _pose_gaps(nudged_poses, cpu_poses)
+    held = obs >= MIN_BA_OBS
+    gap = float(gaps[held].max())
+    chi_card, chi_cpu = (float(c["out"][1]) for c in chis[:2])
+    chi_rel = abs(chi_card - chi_cpu) / abs(chi_cpu)
+    out.update(global_ba_obs=obs.tolist(), correct_card_vs_cpu_gaps=gaps.tolist(),
+               correct_card_vs_cpu_pose_gap=gap, nudge=NUDGE, nudge_moves=moved.tolist(),
+               global_ba_chi2=[chi_card, chi_cpu], global_ba_chi2_rel=chi_rel,
+               global_ba_ms={c["label"]: c["ms"] for c in chis[:2]})
+    print(f"full system (a) {label}: closing correct() card vs CPU: global BA observations per "
+          f"keyframe {obs.tolist()}; keyframe poses within {gap:.3g} on the {int(held.sum())} "
+          f"with >= {MIN_BA_OBS} (held), per keyframe {', '.join(f'{x:.3g}' for x in gaps)}; "
+          f"a {NUDGE:g} nudge of the poses moves them on the CPU by "
+          f"{', '.join(f'{x:.3g}' for x in moved)}; global BA chi2 {chi_card:.6g} vs "
+          f"{chi_cpu:.6g} (relative {chi_rel:.3g}); two card runs bit-identical; global BA ms "
+          f"card {chis[0]['ms']:.1f}, CPU {chis[1]['ms']:.1f}")
+    if not (gap < POSE_TOL and chi_rel < CHI2_RTOL):
+        raise RuntimeError(f"full system (a) {label}: correct() on the card {gap} / {chi_rel} "
+                           f"from the CPU's (limits {POSE_TOL} / {CHI2_RTOL})")
+
+
+def phase_full_system_loop(dev) -> dict:
+    """(a) The replayed out-and-back at 640x480, with the test's drift
+    (metres) and with it scaled by DRIFT_SCALE (the test's pixels): the
+    loop must fire and cut the drifted trajectory's error below LOOP_KEEP
+    of it (the test's margin; on the scaled drift over an error above the
+    test's 0.10 m scaled alike); each closing correct() re-run from a copy
+    on the card (bit-identical) and held to the CPU's (_closing_again).
+    On the test's drift the pose graph leaves the drifted keyframe ~130 mm
+    off, ~30 px at fx = 517 and outside SearchAndFuse's 4 px gate: few
+    loop-side landmarks merge into it and global BA may not determine its
+    pose, which then follows float rounding, in the JAX package as in the
+    port; the held card-vs-CPU check leaves such a keyframe out and the
+    print shows its observations and its nudge."""
+    test, *run = _replay_loop(dev, "test drift", 1.0)
+    _closing_again(dev, "test drift", test, *run)
+    scaled, *run = _replay_loop(dev, "drift x 103 / fx", DRIFT_SCALE)
+    _closing_again(dev, "drift x 103 / fx", scaled, *run)
+    if not test["ratio"] < LOOP_KEEP:
+        raise RuntimeError(f"full system (a): the loop cut the test drift's error from "
+                           f"{test['ate_drifted_mm']} to {test['ate_corrected_mm']} mm, "
+                           f"not below {LOOP_KEEP} of it")
+    if not (scaled["ate_drifted_mm"] > 100.0 * DRIFT_SCALE and scaled["ratio"] < LOOP_KEEP):
+        raise RuntimeError(f"full system (a): the loop cut the scaled drift's error from "
+                           f"{scaled['ate_drifted_mm']} to {scaled['ate_corrected_mm']} mm, "
+                           f"not below {LOOP_KEEP} of it")
+    return dict(test_drift=test, pixel_drift=scaled)
+
+
+def _kinect_frame(scene, pose, i, dev):
+    d, c = synth.render_frame_kinect(scene, pose, TUM1,
+                                     torch.Generator(dev).manual_seed(1000 + i), 1.0)
+    return d, c
+
+
+def phase_full_system_tracked(dev) -> dict:
+    """(b) bench.py's full-system protocol, FULL_FRAMES frames: complex_room
+    on panorama_trajectory at 1.8 deg/frame through the Kinect model (noise
+    drawn from a generator seeded per frame), FullSLAM with async BA,
+    frame 0 by process, then process_batch in chunks of keyframe_period;
+    rendering is outside the timed calls.  Host syncs: the main thread's
+    per chunk, the worker's over the whole run.  fps as bench.py:182-185
+    computes it.  Then SYNC_FRAMES of the same frames through a synchronous
+    FullSLAM.process, ms and host syncs per frame; the next
+    keyframe_period frames as bare slam.step calls from its state and
+    then through its process() (what FullSLAM adds to a step on the same
+    frames and map); the keyframe_period after them under the profiler."""
+    n, k = FULL_FRAMES, FULL_CFG.keyframe_period
+    scene = synth.complex_room(dev)
+    gt = synth.panorama_trajectory(n, n_turns=1.8 * (n - 1) / 360.0)
+    sys_ = full_slam.FullSLAM(TUM1, FULL_CFG, init_pose=gt[0], async_ba=True, device=dev)
+    kf_launch = [0]
+    chunk_walls, chunk_syncs = [], []
+    torch.cuda.synchronize()
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    with _keyframe_bilateral_launches(kf_launch), _sync_counts() as syncs:
+        d0, c0 = _kinect_frame(scene, gt[0], 0, dev)
+        t0 = time.perf_counter()
+        sys_.process(slam.FrameInput(d0, c0), timestamp=0.0)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        i = 1
+        while i < n:
+            m = min(k, n - i)
+            ds, cs = zip(*(_kinect_frame(scene, gt[i + j], i + j, dev) for j in range(m)))
+            batch = slam.FrameInput(torch.stack(ds), torch.stack(cs))
+            torch.cuda.synchronize()
+            main_before = syncs[0]
+            t0 = time.perf_counter()
+            sys_.process_batch(batch, timestamps=[float(i + j) for j in range(m)])
+            chunk_walls.append(time.perf_counter() - t0)
+            chunk_syncs.append(syncs[0] - main_before)
+            i += m
+        t0 = time.perf_counter()
+        sys_.join_backend()
+        join_s = time.perf_counter() - t0
+        # every keyframe the worker took, from the first frame's on
+        worker_syncs = syncs[1]
+    sys_.close()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    _driven("full system (b)", launches)
+    chunk_times = [w / min(k, n - 1 - j * k) for j, w in enumerate(chunk_walls)]
+    floor = min(chunk_times)
+    steady = [t for t in chunk_times[1:] if t < 3 * floor] or chunk_times
+    fps = 1.0 / float(np.median(steady))
+    fps_allin = (n - 1) / sum(chunk_walls)
+    est = sys_.poses()
+    ate = ate_rmse(est, gt[:len(est)], align=False)
+    out = dict(
+        frames=n, size=[TUM1.width, TUM1.height], async_ba=True, fps=fps, fps_allin=fps_allin,
+        max_chunk_s=max(chunk_walls), chunk_s=chunk_walls, first_frame_ms=first_ms,
+        join_backend_s=join_s, ate_mm=ate * 1e3, loops=sys_.loop_closures,
+        archive_dropped=sys_.archive_dropped, active_count=int(sys_.state.map.count),
+        archive_count=sys_._archive_count, map_capacity=sys_.cfg.map_capacity,
+        keyframes_inserted=len(sys_.backend.keyframes), keyframes_due=1 + (n - 1) // k,
+        async_corrections=sys_.async_corrections, inflight=sys_._inflight,
+        stage_s=sys_.stage_s, host_syncs_per_chunk=chunk_syncs,
+        worker_host_syncs=worker_syncs, launches=launches,
+        keyframe_bilateral_launches=kf_launch[0])
+    print(f"full system (b): {n} Kinect-noisy 640x480 frames of bench.py's protocol, async: "
+          f"{fps:.2f} fps steady, {fps_allin:.2f} fps all-in, worst chunk "
+          f"{max(chunk_walls):.2f} s, join_backend {join_s:.2f} s; ATE {ate * 1e3:.2f} mm; "
+          f"loops {sys_.loop_closures}; archive_dropped {sys_.archive_dropped}; active "
+          f"{out['active_count']} / archive {out['archive_count']} surfels; keyframes "
+          f"{out['keyframes_inserted']} of {out['keyframes_due']} due; host syncs per chunk "
+          f"(main thread) {chunk_syncs}, worker {worker_syncs} over the run; stage_s "
+          + json.dumps({key: round(v, 3) for key, v in sys_.stage_s.items()})
+          + f"; launches {json.dumps(launches)} (+{kf_launch[0]} bilateral at keyframes)")
+    if not (np.isfinite(est).all() and ate < FULL_ATE_MAX):
+        raise RuntimeError(f"full system (b): ATE {ate} (limit {FULL_ATE_MAX})")
+    if sys_._inflight != 0:
+        raise RuntimeError(f"full system (b): join_backend left {sys_._inflight} in flight")
+
+    # the same first SYNC_FRAMES frames, synchronous process()
+    sync = full_slam.FullSLAM(TUM1, FULL_CFG, init_pose=gt[0], device=dev)
+    ms, syncs = [], []
+    for i in range(SYNC_FRAMES):
+        frame = slam.FrameInput(*_kinect_frame(scene, gt[i], i, dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, main_s, _ = _count_syncs_by_thread(lambda: sync.process(frame, timestamp=float(i)))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        syncs.append(main_s)
+    kf_frames = [kf.frame_time - 1 for kf in sync.backend.keyframes]
+    plain = [x for j, x in enumerate(ms) if j not in kf_frames]
+    out["sync"] = dict(frames=SYNC_FRAMES, ms_per_frame=float(np.mean(ms[1:])),
+                       ms_per_plain_frame=float(np.median(plain)),
+                       ms_keyframes=[ms[j] for j in kf_frames if j > 0],
+                       host_syncs_per_frame=syncs,
+                       ate_mm=ate_rmse(sync.poses(), gt[:SYNC_FRAMES], align=False) * 1e3)
+    # the next keyframe_period frames (the last a keyframe): first as bare
+    # slam.step calls from a snapshot of the synchronous system's state
+    # (the same frames and map, no FullSLAM around them), then through its
+    # process(); then the keyframe_period after them under the profiler
+    nxt = [slam.FrameInput(*_kinect_frame(scene, gt[i], i, dev))
+           for i in range(SYNC_FRAMES, SYNC_FRAMES + 2 * k)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, 1e3 * (time.perf_counter() - t0)
+
+    state, bare = sync.state, []
+    for f in nxt[:k - 1]:
+        state, step_ms = timed(lambda: slam.step(state, f, TUM1, sync.cfg))
+        bare.append(step_ms)
+    del state
+    again = [timed(lambda: sync.process(f, timestamp=float(SYNC_FRAMES + j)))[1]
+             for j, f in enumerate(nxt[:k])]
+    out["sync"].update(bare_step_ms=bare, process_same_frames_ms=again)
+
+    def frames_after():
+        for j, f in enumerate(nxt[k:]):
+            sync.process(f, timestamp=float(SYNC_FRAMES + k + j))
+
+    out["sync"]["profiled"] = _profile_call(
+        f"sync process() of frames {SYNC_FRAMES + k}-{SYNC_FRAMES + 2 * k - 1}", frames_after,
+        "full system (b)")
+    print(f"full system (b): frames {SYNC_FRAMES}-{SYNC_FRAMES + k - 2}: bare slam.step median "
+          f"{np.median(bare):.1f} ms, the same frames through sync process() median "
+          f"{np.median(again[:-1]):.1f} ms (keyframe frame {SYNC_FRAMES + k - 1}: "
+          f"{again[-1]:.1f} ms)")
+    async_ms = 1e3 * float(np.mean(chunk_times[:(SYNC_FRAMES - 1) // k]))
+    out["async_ms_per_frame_first_chunks"] = async_ms
+    print(f"full system (b): sync process() over frames 1-{SYNC_FRAMES - 1}: "
+          f"{out['sync']['ms_per_frame']:.1f} ms per frame (median {out['sync']['ms_per_plain_frame']:.1f} "
+          f"without a keyframe; keyframe frames ms {', '.join(f'{x:.0f}' for x in out['sync']['ms_keyframes'])}); "
+          f"async process_batch over the same frames {async_ms:.1f} ms per frame; host syncs "
+          f"per sync frame {syncs}")
+    return out
+
+
+def phase_full_system(dev) -> dict:
+    """The full system with TF32 on (the solvers pin full float32 on
+    whichever thread they run)."""
+    t_phase = time.perf_counter()
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = dict(replay_loop=phase_full_system_loop(dev),
+                   tracked=phase_full_system_tracked(dev))
+        if not torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("the full system changed the caller's TF32 setting")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"full system: phase {out['seconds']:.1f} s")
+    return out
+
 
 def main() -> None:
-    name = phase_card()
+    name, smi = phase_card()
     dev = torch.device("cuda", 0)
     attrs = phase_build()
     poses, frames = phase_frames(dev)
@@ -1000,6 +1459,9 @@ def main() -> None:
     profiled = phase_breakdown(poses, frames)
     backend = phase_backend(dev)
     print(json.dumps({"backend": backend}))
+    full = phase_full_system(dev)
+    full["device"] = smi
+    print(json.dumps({"full_system": full}, default=float))
 
     rows = []
     for kname in kernels.LAUNCHES:
@@ -1012,6 +1474,8 @@ def main() -> None:
                "bound_by": r["bound_by"], "library_ms": None,
                "profiled_ms": profiled[kname]}
         row.update({k: v for k, v in r.items() if k not in row})
+        if kname == "bilateral_filter":
+            row["keyframe_launches"] = full["tracked"]["keyframe_bilateral_launches"]
         if kname == "raycast_core":
             row["variants"] = ray
             row["attributes"] = {k: attrs[f"raycast_core K={k}"] for k in (10, 16)}

@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of HRBF-Fusion: the dense SLAM step and the sparse
-keyframe backend.
+"""PyTorch + CUDA port of HRBF-Fusion: the dense SLAM step, the sparse
+keyframe backend with loop closing, and the full system that joins them
+(``pipeline.full_slam.FullSLAM``).
 
 A second package beside ``hrbffusion3d_tpu`` (the JAX reference, which it
 is held against by the ``tests/test_torch_*.py`` parity tests).  The layout
@@ -14,13 +15,14 @@ Conventions:
     package's field names;
   - the device comes from the input tensors; a function with no input
     tensor (``eval.synth.default_room``, ``core.camera.pixel_grid``,
-    ``ops.patches.window_offsets``, ``backend.keyframes.SparseBackend``)
+    ``ops.patches.window_offsets``, ``backend.keyframes.SparseBackend``,
+    ``pipeline.full_slam.FullSLAM``)
     makes its tensors on the CUDA card unless its ``device`` argument
     names another (the CPU tests pass ``"cpu"``), and raises when there
     is no card;
   - nothing on this path needs a gradient, so there is no
-    ``torch.autograd.Function``; nothing is random (the synthetic frames
-    are exact), so there is no ``torch.Generator``;
+    ``torch.autograd.Function``; the one random draw, the Kinect sensor
+    noise of ``eval.synth``, takes an explicit ``torch.Generator``;
   - four hand-written kernels, CUDA C++ for sm_90a: the ray cast
     (``ops/kernels.raycast_core``, ``csrc/raycast.cu``) and the bilateral
     filter, PCA normals and curvature sums (``ops/preprocess``,
@@ -29,6 +31,6 @@ Conventions:
     tensor gets the kernel or an error.
 
 The package imports ``torch`` and never ``jax``, nor any module of the JAX
-package: it keeps its own copies of ``config``, ``eval.ate``, the BRIEF
-pattern and the backend's numpy code.
+package: it keeps its own copies of ``config``, ``eval.ate``,
+``io.traj``, the BRIEF pattern and the backend's numpy code.
 """

@@ -22,7 +22,9 @@ float32 rounding:
     have run leaves its iterates unchanged (a mask on the device), so the
     iterates are JAX's with no sync per iteration;
   - ``optimize`` runs its contractions in full float32 whatever the caller
-    set (``full_float32``), as the JAX module pins its matmul precision.
+    set, on whichever thread it runs (``full_float32``: never through the
+    TF32 path, and without touching the process-global flag), as the JAX
+    module pins its matmul precision.
 
 Problem encoding (static shapes):
   cams:      (C,4,4) Tcw (world->camera, ORB-SLAM convention)
@@ -43,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import lie
-from ..utils.tensors import device_or_card, full_float32, host
+from ..utils.tensors import device_or_card, einsum, full_float32, host, matmul
 from . import reduce_plan as rp
 
 HUBER_DELTA2 = 7.815  # Optimizer.cc: thHuberRGBD^2 (chi2 95%, 3 DoF)
@@ -111,7 +113,7 @@ def _residuals(prob: BAProblem):
     increment exp([v,w]) Tcw: de/dv = -I, de/dw = hat(p); J_lm = -Rcw."""
     T = prob.cams[prob.cam_idx]
     X = prob.points[prob.lm_idx]
-    p = torch.einsum("eij,ej->ei", T[:, :3, :3], X) + T[:, :3, 3]
+    p = einsum("eij,ej->ei", T[:, :3, :3], X) + T[:, :3, 3]
     e = prob.obs - p
     eye = torch.eye(3, dtype=e.dtype, device=e.device).expand(e.shape[0], 3, 3)
     J_cam = torch.cat([-eye, lie.hat(p)], dim=-1)    # (E,3,6)
@@ -120,7 +122,7 @@ def _residuals(prob: BAProblem):
 
 
 def _robust_weight(e: torch.Tensor, info: torch.Tensor, robust: bool):
-    chi2 = torch.einsum("ei,eij,ej->e", e, info, e)
+    chi2 = einsum("ei,eij,ej->e", e, info, e)
     if not robust:
         return torch.ones_like(chi2), chi2
     # Huber: w = 1 for chi2 <= d2 else delta/sqrt(chi2)
@@ -143,11 +145,11 @@ def _edge_blocks(prob: BAProblem, robust: bool, damping: float, plans: rp.SchurP
     w = w * prob.edge_valid
     Iw = prob.info * w[:, None, None]
 
-    Hcc_e = torch.einsum("eai,eab,ebj->eij", J_cam, Iw, J_cam)   # (E,6,6)
-    Hll_e = torch.einsum("eai,eab,ebj->eij", J_lm, Iw, J_lm)     # (E,3,3)
-    W_e = torch.einsum("eai,eab,ebj->eij", J_cam, Iw, J_lm)      # (E,6,3)
-    bc_e = -torch.einsum("eai,eab,eb->ei", J_cam, Iw, e)         # (E,6) gradient
-    bl_e = -torch.einsum("eai,eab,eb->ei", J_lm, Iw, e)          # (E,3)
+    Hcc_e = einsum("eai,eab,ebj->eij", J_cam, Iw, J_cam)   # (E,6,6)
+    Hll_e = einsum("eai,eab,ebj->eij", J_lm, Iw, J_lm)     # (E,3,3)
+    W_e = einsum("eai,eab,ebj->eij", J_cam, Iw, J_lm)      # (E,6,3)
+    bc_e = -einsum("eai,eab,eb->ei", J_cam, Iw, e)         # (E,6) gradient
+    bl_e = -einsum("eai,eab,eb->ei", J_lm, Iw, e)          # (E,3)
 
     Hcc = rp.apply_plan(plans.cam, Hcc_e, C)
     bc = rp.apply_plan(plans.cam, bc_e, C)
@@ -157,10 +159,10 @@ def _edge_blocks(prob: BAProblem, robust: bool, damping: float, plans: rp.SchurP
     # landmark block inverses (batched 3x3)
     eye3 = _eye(3, Hll)
     Hll_inv = torch.linalg.inv_ex(Hll + damping * eye3 + 1e-12 * eye3).inverse
-    Y_e = torch.einsum("eij,ejk->eik", W_e, Hll_inv[prob.lm_idx])  # (E,6,3)
+    Y_e = einsum("eij,ejk->eik", W_e, Hll_inv[prob.lm_idx])  # (E,6,3)
 
     # reduced gradient: rhs_a = bc_a - sum_{e: cam=a} Y_e bl[lm_e]
-    ybl = torch.einsum("eik,ek->ei", Y_e, bl[prob.lm_idx])
+    ybl = einsum("eik,ek->ei", Y_e, bl[prob.lm_idx])
     rhs = bc - rp.apply_plan(plans.cam, ybl, C)
     total_chi2 = torch.sum(chi2 * prob.edge_valid)
     return W_e, Y_e, Hcc, Hll_inv, bl, rhs, total_chi2
@@ -197,23 +199,23 @@ def _solve_cg(prob: BAProblem, W_e, Y_e, Hcc, rhs, damping, cg_iters, cg_tol=1e-
 
     # block-Jacobi preconditioner: the diagonal blocks of S (exact when each
     # camera observes a landmark at most once)
-    D = Hcc + rp.apply_plan(plans.cam, -torch.einsum("eik,ejk->eij", Y_e, W_e), C)
+    D = Hcc + rp.apply_plan(plans.cam, -einsum("eik,ejk->eij", Y_e, W_e), C)
     D = D + damping * eye6
     D = torch.where(free[:, :, None], D, eye6)
     Dinv = torch.linalg.inv_ex(D + 1e-10 * eye6).inverse
 
     def matvec(x):  # x (C,6)
         xm = torch.where(free, x, 0.0)
-        t = torch.einsum("eki,ek->ei", W_e, xm[prob.cam_idx])   # W^T x, (E,3)
+        t = einsum("eki,ek->ei", W_e, xm[prob.cam_idx])   # W^T x, (E,3)
         s = rp.apply_plan(plans.lm, t, L)
-        v = rp.apply_plan(plans.cam, torch.einsum("eik,ek->ei", Y_e, s[prob.lm_idx]), C)
-        out = torch.einsum("cij,cj->ci", Hcc, xm) - v + damping * xm
+        v = rp.apply_plan(plans.cam, einsum("eik,ek->ei", Y_e, s[prob.lm_idx]), C)
+        out = einsum("cij,cj->ci", Hcc, xm) - v + damping * xm
         return torch.where(free, out, 0.0)
 
     b = torch.where(free, rhs, 0.0)
     x = torch.zeros_like(b)
     r = b  # x0 = 0
-    z = torch.einsum("cij,cj->ci", Dinv, r)
+    z = einsum("cij,cj->ci", Dinv, r)
     p = z
     rz = torch.sum(r * z)
     stop2 = cg_tol * cg_tol * torch.sum(b * b)
@@ -225,7 +227,7 @@ def _solve_cg(prob: BAProblem, W_e, Y_e, Hcc, rhs, damping, cg_iters, cg_tol=1e-
         alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-30)
         x_n = x + alpha * p
         r_n = r - alpha * Ap
-        z_n = torch.einsum("cij,cj->ci", Dinv, r_n)
+        z_n = einsum("cij,cj->ci", Dinv, r_n)
         rz_n = torch.sum(r_n * z_n)
         beta = rz_n / torch.clamp(rz, min=1e-30)
         p_n = z_n + beta * p
@@ -249,12 +251,12 @@ def _gn_iteration(prob: BAProblem, robust: bool, damping: float = 1e-6,
 
     # landmark back-substitution: dX_j = Hll_j^-1 (bl_j - W^T dxc)
     L = prob.points.shape[0]
-    wtdx_e = torch.einsum("eki,ek->ei", W_e, dx_cam[prob.cam_idx])
+    wtdx_e = einsum("eki,ek->ei", W_e, dx_cam[prob.cam_idx])
     WtDx = rp.apply_plan(plans.lm, wtdx_e, L)
-    dx_lm = torch.einsum("lij,lj->li", Hll_inv, bl - WtDx)
+    dx_lm = einsum("lij,lj->li", Hll_inv, bl - WtDx)
     dx_lm = torch.where(torch.isfinite(dx_lm), dx_lm, 0.0)
 
-    new_cams = lie.se3_exp(dx_cam) @ prob.cams
+    new_cams = matmul(lie.se3_exp(dx_cam), prob.cams)
     return prob._replace(cams=new_cams, points=prob.points + dx_lm), total_chi2
 
 
@@ -348,7 +350,7 @@ def optimize(prob: BAProblem, iters_robust: int = 5, iters_final: int = 10,
                                       plans=plans)
         # outlier demotion
         e, _, _, p = _residuals(prob)
-        chi2 = torch.einsum("ei,eij,ej->e", e, prob.info, e)
+        chi2 = einsum("ei,eij,ej->e", e, prob.info, e)
         good = (chi2 <= chi2_outlier) & (p[:, 2] > 0)
         prob = prob._replace(edge_valid=prob.edge_valid * good)
         for _ in range(iters_final):

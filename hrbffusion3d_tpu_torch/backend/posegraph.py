@@ -17,7 +17,7 @@ preconditioner and the PCG matvec) is a planned segment sum
 (``reduce_plan``) over ``edge_i`` / ``edge_j``, built once per
 ``optimize`` call on the host: no colliding scatter-add, so two runs on
 the card give the same bits.  Contractions run in full float32
-(``full_float32``).
+(``full_float32``) on whichever thread calls ``optimize``.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..core import lie
-from ..utils.tensors import full_float32, host
+from ..utils.tensors import einsum, full_float32, host, matmul
 from . import reduce_plan as rp
 
 # above this keyframe count the dense (6K,6K) assembly+solve switches to
@@ -66,7 +66,7 @@ def build_graph_plans(g: PoseGraph) -> GraphPlans:
 def adjoint(T: torch.Tensor) -> torch.Tensor:
     """SE(3) adjoint for the [v|w] tangent ordering: (...,6,6)."""
     R = T[..., :3, :3]
-    top = torch.cat([R, lie.hat(T[..., :3, 3]) @ R], dim=-1)
+    top = torch.cat([R, matmul(lie.hat(T[..., :3, 3]), R)], dim=-1)
     bot = torch.cat([torch.zeros_like(R), R], dim=-1)
     return torch.cat([top, bot], dim=-2)
 
@@ -77,8 +77,8 @@ def _inv(A: torch.Tensor) -> torch.Tensor:
 
 def _linearize(g: PoseGraph):
     """Per-edge residuals and Jacobians: e (E,6), Ji/Jj (E,6,6), Iw (E,6,6)."""
-    rel = _inv(g.poses[g.edge_i]) @ g.poses[g.edge_j]
-    e = lie.se3_log(_inv(g.meas) @ rel)                             # (E,6)
+    rel = matmul(_inv(g.poses[g.edge_i]), g.poses[g.edge_j])
+    e = lie.se3_log(matmul(_inv(g.meas), rel))                      # (E,6)
     Jj = torch.eye(6, dtype=e.dtype, device=e.device).expand(e.shape[0], 6, 6)  # ~ Jr^-1(e)
     Ji = -adjoint(_inv(rel))                                         # de/dxi_i
     Iw = g.info * g.edge_valid[:, None, None]
@@ -92,11 +92,11 @@ def _node_sum(plans: GraphPlans, a_i: torch.Tensor, a_j: torch.Tensor, K: int):
 
 def _solve_dense(g: PoseGraph, e, Ji, Jj, Iw, damping: float, plans: GraphPlans):
     K = g.poses.shape[0]
-    Hii = torch.einsum("eai,eab,ebj->eij", Ji, Iw, Ji)
-    Hjj = torch.einsum("eai,eab,ebj->eij", Jj, Iw, Jj)
-    Hij = torch.einsum("eai,eab,ebj->eij", Ji, Iw, Jj)
-    bi = -torch.einsum("eai,eab,eb->ei", Ji, Iw, e)
-    bj = -torch.einsum("eai,eab,eb->ei", Jj, Iw, e)
+    Hii = einsum("eai,eab,ebj->eij", Ji, Iw, Ji)
+    Hjj = einsum("eai,eab,ebj->eij", Jj, Iw, Jj)
+    Hij = einsum("eai,eab,ebj->eij", Ji, Iw, Jj)
+    bi = -einsum("eai,eab,eb->ei", Ji, Iw, e)
+    bj = -einsum("eai,eab,eb->ei", Jj, Iw, e)
 
     H = rp.apply_plan(plans.cell, torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]),
                       K * K).reshape(K, K, 6, 6)
@@ -121,23 +121,23 @@ def _solve_pcg(g: PoseGraph, e, Ji, Jj, Iw, damping: float, cg_iters: int,
     eye6 = torch.eye(6, dtype=e.dtype, device=e.device)
     gauge = damping + torch.where(g.fixed, 1e12, 0.0).to(e.dtype)   # (K,)
 
-    b = _node_sum(plans, -torch.einsum("eai,eab,eb->ei", Ji, Iw, e),
-                  -torch.einsum("eai,eab,eb->ei", Jj, Iw, e), K)
-    Dk = _node_sum(plans, torch.einsum("eai,eab,ebj->eij", Ji, Iw, Ji),
-                   torch.einsum("eai,eab,ebj->eij", Jj, Iw, Jj), K)
+    b = _node_sum(plans, -einsum("eai,eab,eb->ei", Ji, Iw, e),
+                  -einsum("eai,eab,eb->ei", Jj, Iw, e), K)
+    Dk = _node_sum(plans, einsum("eai,eab,ebj->eij", Ji, Iw, Ji),
+                   einsum("eai,eab,ebj->eij", Jj, Iw, Jj), K)
     Minv = _inv(Dk + gauge[:, None, None] * eye6 + 1e-8 * eye6)     # (K,6,6)
 
     def matvec(x):                                                   # x (K,6)
-        u = (torch.einsum("eij,ej->ei", Ji, x[g.edge_i])
-             + torch.einsum("eij,ej->ei", Jj, x[g.edge_j]))
-        v = torch.einsum("eij,ej->ei", Iw, u)
-        y = _node_sum(plans, torch.einsum("eji,ej->ei", Ji, v),
-                      torch.einsum("eji,ej->ei", Jj, v), K)
+        u = (einsum("eij,ej->ei", Ji, x[g.edge_i])
+             + einsum("eij,ej->ei", Jj, x[g.edge_j]))
+        v = einsum("eij,ej->ei", Iw, u)
+        y = _node_sum(plans, einsum("eji,ej->ei", Ji, v),
+                      einsum("eji,ej->ei", Jj, v), K)
         return y + gauge[:, None] * x
 
     x = torch.zeros((K, 6), dtype=e.dtype, device=e.device)
     r = b
-    z = torch.einsum("kij,kj->ki", Minv, r)
+    z = einsum("kij,kj->ki", Minv, r)
     p = z
     for _ in range(cg_iters):
         Ap = matvec(p)
@@ -145,7 +145,7 @@ def _solve_pcg(g: PoseGraph, e, Ji, Jj, Iw, damping: float, cg_iters: int,
         alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-30)
         x = x + alpha * p
         r2 = r - alpha * Ap
-        z2 = torch.einsum("kij,kj->ki", Minv, r2)
+        z2 = einsum("kij,kj->ki", Minv, r2)
         beta = torch.sum(r2 * z2) / torch.clamp(rz, min=1e-30)
         r, z, p = r2, z2, z2 + beta * p
     return x
@@ -160,8 +160,8 @@ def _iteration(g: PoseGraph, damping: float, use_cg: bool, cg_iters: int,
         dx = _solve_dense(g, e, Ji, Jj, Iw, damping, plans)
     dx = torch.where(torch.isfinite(dx), dx, 0.0)
     dx = torch.where(g.fixed[:, None], 0.0, dx)
-    chi2 = torch.sum(torch.einsum("ei,eij,ej->e", e, Iw, e))
-    return g._replace(poses=g.poses @ lie.se3_exp(dx)), chi2
+    chi2 = torch.sum(einsum("ei,eij,ej->e", e, Iw, e))
+    return g._replace(poses=matmul(g.poses, lie.se3_exp(dx))), chi2
 
 
 def optimize(g: PoseGraph, iterations: int = 20, damping: float = 1e-6,

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.tensors import const, device_or_card
+from ..utils.tensors import const, device_or_card, matmul
 
 # in-degree ladder: bucket D values (power-of-2 keeps gather padding < 2x)
 LADDER = (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384,
@@ -147,7 +147,8 @@ def apply_cell_plan(cell: CellPlan, Y_e: torch.Tensor, W_e: torch.Tensor,
     for pe, pf, rows in cell.tables:
         Yg = Yz[pe].reshape(pe.shape[0], -1, 6, 3).permute(0, 2, 1, 3)   # (Tb,6,D,3)
         Wg = Wz[pf].reshape(pf.shape[0], -1, 6, 3).permute(0, 2, 1, 3)
-        S[rows] = Yg.reshape(pe.shape[0], 6, -1) @ Wg.reshape(pf.shape[0], 6, -1).transpose(1, 2)
+        S[rows] = matmul(Yg.reshape(pe.shape[0], 6, -1),
+                         Wg.reshape(pf.shape[0], 6, -1).transpose(1, 2))
     return S[:n_cams * n_cams].reshape(n_cams, n_cams, 6, 6)
 
 

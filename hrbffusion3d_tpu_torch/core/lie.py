@@ -1,12 +1,16 @@
 """SO(3)/SE(3) helpers on torch tensors (port of ``hrbffusion3d_tpu/core/lie.py``).
 
 Poses are (R, t) pairs or 4x4 homogeneous matrices; a pose maps camera-frame
-points to the world frame, ``x_w = R @ x_c + t``.
+points to the world frame, ``x_w = R @ x_c + t``.  Products go through
+``utils.tensors.matmul``, so that they are full float32 inside the solvers'
+``full_float32`` blocks.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils.tensors import matmul
 
 _EPS = 1e-8
 
@@ -31,7 +35,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
     W = hat(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
     return eye + a[..., None, None] * W + b[..., None, None] * W2
 
@@ -64,11 +68,11 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
     c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (1.0 - a) / theta2)
     W = hat(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
     R = eye + a[..., None, None] * W + b[..., None, None] * W2
     V = eye + b[..., None, None] * W + c[..., None, None] * W2
-    return rt_to_mat(R, (V @ v[..., None])[..., 0])
+    return rt_to_mat(R, matmul(V, v[..., None])[..., 0])
 
 
 def se3_log(T: torch.Tensor) -> torch.Tensor:
@@ -83,10 +87,10 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
         small, 1.0 / 12.0 + theta2 / 720.0,
         (1.0 - (theta * torch.cos(half)) / (2.0 * torch.sin(half) + _EPS)) / (theta2 + _EPS))
     W = hat(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(W.shape)
     Vinv = eye - 0.5 * W + coef[..., None, None] * W2
-    return torch.cat([(Vinv @ T[..., :3, 3, None])[..., 0], w], dim=-1)
+    return torch.cat([matmul(Vinv, T[..., :3, 3, None])[..., 0], w], dim=-1)
 
 
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -103,7 +107,7 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     Rt = R.transpose(-1, -2)
-    return rt_to_mat(Rt, -(Rt @ t[..., None])[..., 0])
+    return rt_to_mat(Rt, -matmul(Rt, t[..., None])[..., 0])
 
 
 def orthonormalise(R: torch.Tensor, iters: int = 8) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""Global surfel map on torch tensors: the per-frame half of
-``hrbffusion3d_tpu/map/surfel_map.py`` (init, render, fuse, clean).
+"""Global surfel map on torch tensors (port of
+``hrbffusion3d_tpu/map/surfel_map.py``): the per-frame half (init, render,
+fuse, clean) and the keyframe-boundary half (the active-window <-> archive
+exchange, the per-submap corrections, the activity-channel refresh).
 
 Packed (N, 24) f32 surfel rows, same channel map as the JAX package:
   0:3   pos (world)      3     conf
@@ -10,9 +12,9 @@ Packed (N, 24) f32 surfel rows, same channel map as the JAX package:
   18:21 curv_dir2        21    k2
   22    valid (0/1)      23    act (0/1 submap-activity flag)
 
-Determinism: the two many-to-one writes (the index-map z-buffer and fuse's
-winner table) are integer scatter-mins (``scatter_reduce_(..., "amin")``),
-which give the same answer in any order.  Every other write goes to unique
+Determinism: the many-to-one writes (the index-map z-buffer and fuse's
+winner table) are scatter-mins (``scatter_reduce_(..., "amin")``), which
+give the same answer in any order.  Every other write goes to unique
 indices.  Functions return new tensors and never modify their inputs.
 
 The live ``count`` stays on the device as a 0-d int32 tensor; appends write
@@ -196,13 +198,12 @@ def render_index(m: SurfelMap, pose_inv: torch.Tensor, intr: CameraIntrinsics,
                  active: torch.Tensor | None = None,
                  conf_threshold: float | None = None) -> torch.Tensor:
     """Z-buffered point render into an (H, W) int32 surfel-index grid
-    (-1 = empty): one scatter-min of the packed key (11-bit quantised z in
-    the high bits, 20-bit surfel id in the low bits)."""
+    (-1 = empty).  Up to 2**20 rows: one scatter-min of the packed key
+    (11-bit quantised z in the high bits, 20-bit surfel id in the low
+    bits).  Above: the exact float z-buffer, a scatter-min of z, then one
+    of the ids of the rows at their pixel's minimum."""
     h, w = intr.height, intr.width
     n = m.data.shape[0]
-    if n > (1 << 20):
-        raise NotImplementedError("render_index packs 20-bit surfel ids; "
-                                  "capacities above 2**20 are not ported")
     dev = m.data.device
     local = _to_camera(m.pos, pose_inv)
     z = local[:, 2]
@@ -214,14 +215,24 @@ def render_index(m: SurfelMap, pose_inv: torch.Tensor, intr: CameraIntrinsics,
         ok &= active
     if conf_threshold is not None:
         ok &= m.conf >= conf_threshold
-    pix = torch.where(ok, v * w + u, h * w)   # overflow bucket
-    zq = torch.clamp(z * (2047.0 / 3.5), 0, 2047).to(torch.int32)
+    pix = torch.where(ok, v * w + u, h * w).long()   # overflow bucket
     ids = torch.arange(n, dtype=torch.int32, device=dev)
-    key = torch.where(ok, (zq << 20) | ids, _INT_MAX)
-    buf = torch.full((h * w + 1,), _INT_MAX, dtype=torch.int32, device=dev)
-    buf.scatter_reduce_(0, pix.long(), key, "amin", include_self=True)
-    out = buf[:h * w]
-    return torch.where(out == _INT_MAX, -1, out & ((1 << 20) - 1)).reshape(h, w)
+    if n <= (1 << 20):
+        zq = torch.clamp(z * (2047.0 / 3.5), 0, 2047).to(torch.int32)
+        key = torch.where(ok, (zq << 20) | ids, _INT_MAX)
+        buf = torch.full((h * w + 1,), _INT_MAX, dtype=torch.int32, device=dev)
+        buf.scatter_reduce_(0, pix, key, "amin", include_self=True)
+        out = buf[:h * w]
+        return torch.where(out == _INT_MAX, -1, out & ((1 << 20) - 1)).reshape(h, w)
+    big = 1e30
+    zbuf = torch.full((h * w + 1,), big, dtype=torch.float32, device=dev)
+    zbuf.scatter_reduce_(0, pix, torch.where(ok, z, big), "amin", include_self=True)
+    is_winner = ok & (z <= zbuf[pix])
+    idxbuf = torch.full((h * w + 1,), _INT_MAX, dtype=torch.int32, device=dev)
+    idxbuf.scatter_reduce_(0, pix, torch.where(is_winner, ids, _INT_MAX), "amin",
+                           include_self=True)
+    out = idxbuf[:h * w]
+    return torch.where(out == _INT_MAX, -1, out).reshape(h, w)
 
 
 # rendered attribute image channels (render_attr_image)
@@ -474,3 +485,133 @@ def pixel_keep_mask(attr_ext: torch.Tensor, cfg: SLAMConfig, time: int) -> torch
     unstable = (((float(time) - attr_ext[..., A_STAMP]) > cfg.unstable_time_limit)
                 & (attr_ext[..., A_CONF] < cfg.confidence_threshold))
     return (attr_ext[..., A_VALID] > 0.5) & ~curv_bad & ~unstable
+
+
+# --------------------------------------------------------------------------- #
+# keyframe boundary: active window <-> archive, corrections, activity channel
+# --------------------------------------------------------------------------- #
+
+def _submap_of(data: torch.Tensor, n_submaps: int) -> torch.Tensor:
+    """Each row's submap index, clipped into the mask's range."""
+    return torch.clamp(data[:, SUBMAP].to(torch.int64), 0, n_submaps - 1)
+
+
+def _stable_prefix(mask: torch.Tensor) -> torch.Tensor:
+    """Permutation moving the rows where ``mask`` holds to the front, each
+    side in its original order (a stable argsort of ~mask)."""
+    return torch.argsort((~mask).to(torch.uint8), stable=True)
+
+
+def _place(buf: torch.Tensor, start: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """``buf`` with ``block`` written at the device-side row ``start``."""
+    rows = start.to(torch.int64) + torch.arange(block.shape[0], device=buf.device)
+    return buf.index_copy(0, rows, block)
+
+
+def exchange_active(act: SurfelMap, arch: SurfelMap, submap_active: torch.Tensor,
+                    time: int, cfg: SLAMConfig):
+    """Active-window <-> archive surfel exchange at a keyframe boundary.
+
+    Rows of the active map whose submap left the covisible set move to the
+    archive, archived rows whose submap re-entered it move back; the
+    curvature and timeout kill rules (copy_unstable.vert:143-164) apply to
+    both at exchange time.  Both maps are rebuilt by stable argsort +
+    gather compactions: new active = [stay | enter], new archive =
+    [keep | leave].  Enter rows that do not fit the active map and rows
+    past the archive's capacity are dropped and counted, as in the JAX
+    package.
+
+    Returns (active', archive', stats) with stats = int32 [n_active,
+    n_archive, n_dropped] on the device, read once by the host."""
+    Ca, nch = act.data.shape
+    Cr = arch.data.shape[0]
+    ns = submap_active.shape[0]
+    dev = act.data.device
+    t = cfg.curv_valid_threshold
+
+    def junk(rows):
+        k1, k2 = rows[:, K1], rows[:, K2]
+        curv_bad = (k1 < -t) | (k1 > t) | (k2 < -t) | (k2 > t)
+        unstable = (((float(time) - rows[:, STAMP]) > cfg.unstable_time_limit)
+                    & (rows[:, CONF] < cfg.confidence_threshold))
+        return curv_bad | unstable
+
+    va = act.data[:, VALID] > 0
+    on_a = va & submap_active[_submap_of(act.data, ns)]
+    leave = va & ~on_a & ~junk(act.data)
+    vr = arch.data[:, VALID] > 0
+    enter = vr & submap_active[_submap_of(arch.data, ns)] & ~junk(arch.data)
+    keep_r = vr & ~enter
+
+    # new active = [stay-compacted | enter-compacted]
+    stay = act.data[_stable_prefix(on_a)]
+    n_stay = on_a.sum(dtype=torch.int32)
+    enter_blk = arch.data[_stable_prefix(enter)[:Ca]]
+    n_enter_all = enter.sum(dtype=torch.int32)
+    n_enter = torch.minimum(torch.clamp(n_enter_all, max=Ca), Ca - n_stay)
+    buf = torch.zeros((2 * Ca, nch), dtype=act.data.dtype, device=dev)
+    buf[:Ca] = stay
+    act_data = _place(buf, n_stay, enter_blk)[:Ca]
+    n_act = n_stay + n_enter
+    act_valid = torch.arange(Ca, dtype=torch.int32, device=dev) < n_act
+    act_data[:, VALID] = act_valid.to(torch.float32)
+    act_data[:, ACT] = (submap_active[_submap_of(act_data, ns)] & act_valid).to(torch.float32)
+
+    # new archive = [keep-compacted | leave-compacted]
+    keep_blk = arch.data[_stable_prefix(keep_r)]
+    n_keep = keep_r.sum(dtype=torch.int32)
+    leave_blk = act.data[_stable_prefix(leave)[:Ca]]
+    n_leave = leave.sum(dtype=torch.int32)
+    buf2 = torch.zeros((Cr + Ca, nch), dtype=arch.data.dtype, device=dev)
+    buf2[:Cr] = keep_blk
+    arch_data = _place(buf2, n_keep, leave_blk)[:Cr]
+    n_arch = torch.clamp(n_keep + n_leave, max=Cr)
+    arch_data[:, VALID] = (torch.arange(Cr, dtype=torch.int32, device=dev)
+                           < n_arch).to(torch.float32)
+
+    dropped = (n_enter_all - n_enter) + (n_keep + n_leave - n_arch)
+    stats = torch.stack([n_act, n_arch, dropped]).to(torch.int32)
+    return (SurfelMap(data=act_data, count=n_act.to(torch.int32)),
+            SurfelMap(data=arch_data, count=n_arch.to(torch.int32)), stats)
+
+
+def _apply_deltas_rows(rows: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """(B,24) map rows x (S,12) row-major [R|t] table -> corrected rows
+    (valid rows only; the rotation as column arithmetic)."""
+    d = flat[_submap_of(rows, flat.shape[0])]                 # (B, 12)
+    keep = (rows[:, VALID] > 0.5)[:, None]
+
+    def rot(v, with_t):
+        out = []
+        for i in range(3):
+            r = d[:, 4 * i] * v[:, 0] + d[:, 4 * i + 1] * v[:, 1] + d[:, 4 * i + 2] * v[:, 2]
+            out.append(r + d[:, 4 * i + 3] if with_t else r)
+        return torch.stack(out, dim=-1)
+
+    out = rows.clone()
+    out[:, POS] = torch.where(keep, rot(rows[:, POS], True), rows[:, POS])
+    for ch in (NORMAL, CURV_DIR1, CURV_DIR2):
+        out[:, ch] = torch.where(keep, rot(rows[:, ch], False), rows[:, ch])
+    return out
+
+
+def apply_submap_deltas(m: SurfelMap, deltas: torch.Tensor) -> SurfelMap:
+    """Post-BA dense map correction (update_delta_trans.vert:43-88): each
+    valid surfel takes the rigid transform of its submap, ``deltas``
+    (S, 4, 4) = pose_new @ pose_old^-1 per keyframe."""
+    flat = deltas[:, :3, :].reshape(-1, 12)
+    return SurfelMap(data=_apply_deltas_rows(m.data, flat), count=m.count)
+
+
+def active_from_submaps(m: SurfelMap, submap_active: torch.Tensor) -> torch.Tensor:
+    """Per-surfel activity mask from the active-keyframe set
+    (KeyFrameIDMap, GlobalModel.cpp:586-598)."""
+    return m.valid & submap_active[_submap_of(m.data, submap_active.shape[0])]
+
+
+def refresh_active_channel(m: SurfelMap, submap_active: torch.Tensor) -> SurfelMap:
+    """Rewrite the cached per-surfel activity flag (ACT channel) from the
+    active-keyframe set; called when the covisible set changes."""
+    data = m.data.clone()
+    data[:, ACT] = submap_active[_submap_of(m.data, submap_active.shape[0])].to(torch.float32)
+    return SurfelMap(data=data, count=m.count)

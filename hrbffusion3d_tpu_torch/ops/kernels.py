@@ -368,8 +368,14 @@ def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfi
         proj = torch.abs(pos[..., 0] * ray[:, 0:1] + pos[..., 1] * ray[:, 1:2]
                          + pos[..., 2] * ray[:, 2:3])
         t0 = torch.where(sel, proj, 1e6).amin(dim=1)
+        # the field sums over the (at most K) selected taps only: compact
+        # them, in ring order, to the front (unselected taps add nothing)
+        order = torch.argsort((~sel).to(torch.uint8), dim=1, stable=True)[:, :min(K, ok.shape[1])]
+        sel = torch.gather(sel, 1, order)
+        pos = torch.gather(pos, 1, order[..., None].expand(-1, -1, 3))
+        nrm = torch.gather(nrm, 1, order[..., None].expand(-1, -1, 3))
         c = 10.0 * nrm
-        T2 = nb[..., 7] * nb[..., 7]
+        T2 = torch.gather(nb[..., 7], 1, order) ** 2
         iT2 = 1.0 / torch.clamp(T2, min=1e-12)
 
         def field(ts):
@@ -459,7 +465,8 @@ def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfi
         best = d2n.amin(dim=1, keepdim=True)
         # first (ring-order) tap holding the minimum; 0 when none beats the
         # 1e12 start
-        first_min = torch.argmax((d2n == best).to(torch.int32), dim=1)
+        first_min = torch.gather(order, 1, torch.argmax((d2n == best).to(torch.int32), dim=1,
+                                                        keepdim=True))[:, 0]
         nearest = torch.where(best[:, 0] < 1e12, first_min, 0).to(torch.int32)
         outs.append((p_surf, grad, nearest, found, n_sel, n_eval, n_visit))
 

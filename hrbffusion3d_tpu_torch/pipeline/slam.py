@@ -170,6 +170,48 @@ def step_many(state: SLAMState, frames, intr: CameraIntrinsics, cfg: SLAMConfig)
     return state, ts
 
 
+def _frames_of(frames):
+    """The frames of a stacked FrameInput (leading frame axis), or of an
+    iterable of FrameInput."""
+    if isinstance(frames, FrameInput) and frames.depth.dim() == 3:
+        return [FrameInput(d, c) for d, c in zip(frames.depth, frames.rgb)]
+    return list(frames)
+
+
+def step_many_traj(state: SLAMState, frames, intr: CameraIntrinsics, cfg: SLAMConfig):
+    """Step over a stacked FrameInput (or an iterable of them).  Returns
+    (final state, (N,4,4) camera-to-world poses on the device)."""
+    poses = []
+    for f in _frames_of(frames):
+        state = step(state, f, intr, cfg)
+        poses.append(lie.rt_to_mat(state.R, state.t))
+    return state, torch.stack(poses)
+
+
+def step_chunk(state: SLAMState, frames, intr: CameraIntrinsics, cfg: SLAMConfig):
+    """``step_many_traj`` plus everything the host loop needs in ONE packed
+    device vector, read back once per chunk:
+      packed = [poses.ravel() (k*16), map.count, last_icp_error,
+                last_icp_count, dense_frac]
+    Returns (final state, packed (k*16+4,) float32)."""
+    state, poses = step_many_traj(state, frames, intr, cfg)
+    aux = torch.stack([state.map.count.to(torch.float32), state.last_icp_error,
+                       state.last_icp_count, state.dense_frac])
+    return state, torch.cat([poses.reshape(-1), aux])
+
+
+def step_many_replay(state: SLAMState, frames, poses, intr: CameraIntrinsics,
+                     cfg: SLAMConfig):
+    """Trajectory replay over a stacked FrameInput: tracking is skipped and
+    the (N,4,4) camera-to-world ``poses`` are used as they are
+    (globalInputLoadTrajectory).  Returns (final state, (N,3) translations)."""
+    ts = []
+    for f, p in zip(_frames_of(frames), poses):
+        state = step(state, f, intr, cfg, fixed_pose=p)
+        ts.append(state.t)
+    return state, torch.stack(ts)
+
+
 def ensure_capacity(state: SLAMState, cfg: SLAMConfig, threshold: float = 0.75,
                     count: int | None = None):
     """Double the map's backing array while the live count exceeds

@@ -246,17 +246,115 @@ def test_posegraph_pcg_and_dense_solves():
     np.testing.assert_allclose(n(ct)[free], n(cj)[free], atol=1e-4)
 
 
-def test_full_float32_restores_the_callers_setting():
-    from hrbffusion3d_tpu_torch.utils.tensors import full_float32
+class _CardOperand:
+    """Stands in for a float32 CUDA tensor in ``tensors._exact_needed``."""
+    is_cuda = True
+    dtype = torch.float32
 
+
+def test_full_float32_restores_the_callers_setting():
+    """Inside the block a float32 CUDA contraction takes the exact path
+    (``tensors._exact_needed``, the switch ``einsum`` / ``matmul`` use),
+    whatever the process-global TF32 flag says, and the flag stays what
+    the caller set, during the block and after it; outside the block, and
+    for a CPU operand, the normal path."""
+    from hrbffusion3d_tpu_torch.utils import tensors
+
+    card, cpu = _CardOperand(), torch.zeros(2)
     saved = torch.backends.cuda.matmul.allow_tf32
     try:
-        torch.backends.cuda.matmul.allow_tf32 = True
-        with full_float32():
-            assert not torch.backends.cuda.matmul.allow_tf32
-        assert torch.backends.cuda.matmul.allow_tf32
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            assert not tensors._exact_needed(card)
+            with tensors.full_float32():
+                with tensors.full_float32():
+                    assert tensors._exact_needed(card)
+                assert tensors._exact_needed(card) and not tensors._exact_needed(cpu)
+                assert torch.backends.cuda.matmul.allow_tf32 == flag
+            assert not tensors._exact_needed(card)
+            assert torch.backends.cuda.matmul.allow_tf32 == flag
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_full_float32_is_per_thread():
+    """A solve on a worker thread takes the exact path inside
+    ``full_float32`` while the main thread, outside it, holds the global
+    TF32 flag on and turns it off mid-solve: the main thread's contractions
+    keep the normal path and its flag is never written (FullSLAM's async
+    worker)."""
+    import threading
+
+    from hrbffusion3d_tpu_torch.utils import tensors
+
+    card = _CardOperand()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    inside, flipped, seen = threading.Event(), threading.Event(), {}
+
+    def worker():
+        with tensors.full_float32():
+            seen["worker_before_flip"] = tensors._exact_needed(card)
+            inside.set()
+            flipped.wait(30)
+            seen["worker_after_flip"] = tensors._exact_needed(card)
+        seen["worker_after"] = tensors._exact_needed(card)
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        th = threading.Thread(target=worker)
+        th.start()
+        assert inside.wait(30)
+        seen["main"] = tensors._exact_needed(card)
+        seen["flag"] = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        flipped.set()
+        th.join(30)
+        assert seen == {"worker_before_flip": True, "worker_after_flip": True, "main": False,
+                        "flag": True, "worker_after": False}
+        assert not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_exact_contraction_path(problem, monkeypatch):
+    """The card's path inside ``full_float32`` (broadcast products and
+    sums, no matmul), forced here on the CPU by taking float32 CPU operands
+    for card ones: every einsum of the solvers equals ``torch.einsum``, the
+    solvers reach the exact path only inside their ``full_float32``, and
+    ``ba.optimize`` / ``posegraph.optimize`` through it give the normal
+    path's result within float32 rounding (poses 1e-5)."""
+    import re
+
+    from hrbffusion3d_tpu_torch.utils import tensors
+
+    g = torch.Generator().manual_seed(0)
+    size = dict(a=3, b=3, c=5, e=7, i=6, j=6, k=3, l=4)
+    src = open(tba.__file__).read() + open(tpg.__file__).read()
+    for eq in sorted(set(re.findall(r'einsum\("([^"]+)"', src))):
+        ops = [torch.randn([size[c] for c in sub], generator=g)
+               for sub in eq.split("->")[0].split(",")]
+        np.testing.assert_allclose(n(tensors.exact_einsum(eq, *ops)), n(torch.einsum(eq, *ops)),
+                                   rtol=1e-5, atol=1e-5, err_msg=eq)
+    _, tp = problem
+    ref, _ = tba.optimize(tp, solver="dense")
+    gref, _ = tpg.optimize(_chain_problem(0)[1], iterations=25)
+    monkeypatch.setattr(tensors, "_float32_on_card", lambda x: x.dtype == torch.float32)
+    exact_calls = [0]
+    exact_einsum = tensors.exact_einsum
+
+    def counted(*args):
+        exact_calls[0] += 1
+        return exact_einsum(*args)
+
+    monkeypatch.setattr(tensors, "exact_einsum", counted)
+    tensors.einsum("ij,j->i", torch.ones(2, 2), torch.ones(2))
+    assert exact_calls[0] == 0
+    out, _ = tba.optimize(tp, solver="dense")
+    gout, _ = tpg.optimize(_chain_problem(0)[1], iterations=25)
+    assert exact_calls[0] > 0
+    assert _pose_err(n(out.cams), n(ref.cams)) < 1e-5
+    np.testing.assert_allclose(n(out.points), n(ref.points), atol=1e-5)
+    assert _pose_err(n(gout.poses), n(gref.poses)) < 1e-5
 
 
 @pytest.mark.cuda

@@ -181,7 +181,9 @@ def test_principal_curvatures(case):
 
 def test_synth_matches_jax():
     """The port's renderer, which feeds the other parity files, against the
-    JAX package's on the same orbit."""
+    JAX package's on the same orbit; then the full-system protocol's parts:
+    ``complex_room`` and its quads, ``panorama_trajectory``,
+    ``loopy_trajectory`` and the Kinect model on the same noise draws."""
     poses, frames = jax_frames(2, angle_per_frame=0.004)
     poses_t, frames_t = port_frames(2, angle_per_frame=0.004)
     np.testing.assert_array_equal(poses_t, poses)
@@ -191,6 +193,48 @@ def test_synth_matches_jax():
         # the cell-hash texture multiplies sin() rounding (1 ulp ~ 6e-8) by
         # 0.35 * 43758: ~1e-3 on the hashed cells
         np.testing.assert_allclose(ct, cj, atol=3e-3)
+
+    # the full-system protocol's scene, trajectories and sensor model
+    import jax
+
+    from hrbffusion3d_tpu.eval import synth as jsynth
+
+    for name, args in (("panorama_trajectory", (9,)), ("loopy_trajectory", (9,))):
+        np.testing.assert_array_equal(getattr(tsynth, name)(*args), getattr(jsynth, name)(*args))
+    pano = jsynth.panorama_trajectory(9, n_turns=1.8 * 8 / 360.0)
+    np.testing.assert_array_equal(tsynth.panorama_trajectory(9, n_turns=1.8 * 8 / 360.0), pano)
+    scene_j, scene_t = jsynth.complex_room(), tsynth.complex_room("cpu")
+    for a, b in zip(scene_t, scene_j):
+        np.testing.assert_array_equal(n(a), n(b))
+    # quads in view: the desk slab and the box faces.  JAX eagerly, as
+    # jax_frames renders: jitted, its fused float32 rounding moves floor
+    # hits (y = 1.5, a cell edge of the texture hash) across cells
+    with jax.disable_jit():
+        dj, cj, nj = (np.asarray(a) for a in jsynth.render_frame_full(
+            scene_j, jnp.asarray(pano[0]), INTR))
+    dt, ct, nt = (n(a) for a in tsynth.render_frame_full(scene_t, pano[0], PINTR))
+    no_quads = n(tsynth.render_frame_full(scene_t._replace(quads=None), pano[0], PINTR)[0])
+    assert (np.abs(no_quads - dj) > 1e-3).mean() > 0.05
+    np.testing.assert_allclose(dt, dj, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ct, cj, atol=3e-3)
+    np.testing.assert_allclose(nt, nj, atol=1e-5)
+    # Kinect noise on shared draws, split from the key as kinect_depth does
+    key = jax.random.PRNGKey(1000)
+    k1, k2 = jax.random.split(key)
+    draws = (np.asarray(jax.random.normal(k1, dj.shape, jnp.float32)),
+             np.asarray(jax.random.uniform(k2, dj.shape)))
+    with jax.disable_jit():
+        kj, _ = jsynth.render_frame_kinect(scene_j, jnp.asarray(pano[0]), INTR, key, 1.0)
+    kt, _ = tsynth.render_frame_kinect(scene_t, pano[0], PINTR, noise=tuple(map(t, draws)))
+    kj, kt = np.asarray(kj), n(kt)
+    assert 0.05 < (kj == 0).mean() < 0.9 and (kj != dj).mean() > 0.5
+    # equal but for a flip of the millimetre rounding or of a dropout gate
+    # by float32 rounding
+    assert (kt == kj).mean() > 0.999
+    both = (kt > 0) & (kj > 0)
+    np.testing.assert_allclose(kt[both], kj[both], atol=1.001e-3)
+    gen = torch.Generator().manual_seed(1000)
+    assert tsynth.render_frame_kinect(scene_t, pano[0], PINTR, gen)[0].shape == dj.shape
 
 
 @pytest.mark.parametrize("name", ["default", "small_test", "TUM1"])

@@ -1,10 +1,11 @@
 """The port runs where there is no JAX and stands alone from the JAX
 package: importing the package, every one of its submodules (the sparse
-backend's included) and ``chip_smoke``'s imports leaves ``jax`` and every
-``hrbffusion3d_tpu`` module out of ``sys.modules``, and succeeds with both
-blocked.  The port's copies of the JAX package's numpy-only code (the
-BRIEF pattern, the reduction-plan builders, ``patch_information``) equal
-their originals.
+backend's and the full system's included) and ``chip_smoke``'s imports
+leaves ``jax`` and every ``hrbffusion3d_tpu`` module out of ``sys.modules``,
+and succeeds with both blocked.  The port's copies of the JAX package's
+numpy-only code (the BRIEF pattern, the reduction-plan construction,
+``patch_information``, ``io/traj.py``, the loop closer's Horn alignment)
+equal their originals.
 
 The import probe runs in a fresh interpreter, because ``tests/conftest.py``
 imports jax into the test process itself."""
@@ -44,12 +45,16 @@ def test_port_imports_without_jax_or_the_jax_package():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, leaked = out.stdout.strip().split(" ", 1)
-    # core, ops, map, tracking, pipeline, eval, utils, backend and their modules
-    assert int(n_modules) >= 29, out.stdout
+    # core, ops, map, tracking, pipeline, eval, utils, backend, io and their
+    # modules, the full system's (backend.loop, pipeline.full_slam, io.traj,
+    # io.ply) included
+    assert int(n_modules) >= 38, out.stdout
     assert leaked == "[]", leaked
-    for name in ("brief_pattern", "features", "reduce_plan", "ba", "keyframes", "bow",
-                 "vocab", "posegraph"):
-        assert (ROOT / "hrbffusion3d_tpu_torch" / "backend" / f"{name}.py").exists(), name
+    for name in ("backend/brief_pattern", "backend/features", "backend/reduce_plan",
+                 "backend/ba", "backend/keyframes", "backend/bow", "backend/vocab",
+                 "backend/posegraph", "backend/loop", "pipeline/full_slam", "io/traj",
+                 "io/ply"):
+        assert (ROOT / "hrbffusion3d_tpu_torch" / f"{name}.py").exists(), name
 
 
 def test_numpy_copies_equal_their_originals():
@@ -87,3 +92,37 @@ def test_numpy_copies_equal_their_originals():
     np.testing.assert_array_equal(
         tkf.patch_information(depth, xy, intrinsics_from_fields(intr.__dict__)),
         jkf.patch_information(depth, xy, intr))
+
+
+def test_traj_and_horn_copies_equal_their_originals(tmp_path):
+    """``io/traj.py`` is a verbatim copy below its docstring, and
+    ``horn_se3`` / ``robust_se3_3d3d`` are copied function for function;
+    both give the same numbers."""
+    import inspect
+
+    from hrbffusion3d_tpu.backend import loop as jloop
+    from hrbffusion3d_tpu.io import traj as jtraj
+    from hrbffusion3d_tpu_torch.backend import loop as tloop
+    from hrbffusion3d_tpu_torch.io import traj as ttraj
+
+    def body(mod):
+        src = inspect.getsource(mod)
+        return src[src.index('"""', 3) + 3:]
+
+    assert body(ttraj) == body(jtraj)
+    for name in ("horn_se3", "robust_se3_3d3d"):
+        assert inspect.getsource(getattr(tloop, name)) == inspect.getsource(getattr(jloop, name))
+    rng = np.random.default_rng(2)
+    p = rng.normal(size=(40, 3))
+    R = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    R[:, 0] *= np.linalg.det(R)                      # a rotation
+    q = p @ R.T + 0.3
+    q[:5] += 0.5                                     # outliers
+    fit_t, fit_j = tloop.robust_se3_3d3d(p, q), jloop.robust_se3_3d3d(p, q)
+    assert fit_t[1] == fit_j[1] == 35
+    np.testing.assert_array_equal(fit_t[0], fit_j[0])
+    poses = np.tile(np.eye(4), (3, 1, 1))
+    poses[:, :3, 3] = rng.normal(size=(3, 3))
+    ttraj.save_tum(str(tmp_path / "t.txt"), [0.0, 1.0, 2.0], poses)
+    jtraj.save_tum(str(tmp_path / "j.txt"), [0.0, 1.0, 2.0], poses)
+    assert (tmp_path / "t.txt").read_text() == (tmp_path / "j.txt").read_text()

@@ -1,7 +1,8 @@
 """The port's host-side frame loop (``ensure_capacity``, ``run_sequence``,
-``step_many``) at 64x48: capacity growth against the JAX package's, and the
-loops against plain ``bootstrap`` + ``step`` calls (exact: the same calls
-in the same order)."""
+``step_many`` and FullSLAM's batched entry points ``step_many_traj``,
+``step_chunk``, ``step_many_replay``) at 64x48: capacity growth against
+the JAX package's, and the loops against plain ``bootstrap`` + ``step``
+calls (exact: the same calls in the same order)."""
 
 import dataclasses
 
@@ -12,6 +13,7 @@ from torch_parity_utils import CFG, PCFG, PINTR, n, port_frames, t
 
 from hrbffusion3d_tpu.map import surfel_map as jsm
 from hrbffusion3d_tpu.pipeline import slam as jslam
+from hrbffusion3d_tpu_torch.core import lie as tlie
 from hrbffusion3d_tpu_torch.map import surfel_map as tsm
 from hrbffusion3d_tpu_torch.pipeline import slam as tslam
 
@@ -57,3 +59,32 @@ def test_step_many_and_run_sequence_match_steps():
     for a in (s_many, s_seq):
         np.testing.assert_array_equal(n(a.map.data), n(s.map.data))
         assert a.time == s.time == len(FRAMES)
+
+
+def test_batched_entry_points_match_steps():
+    """step_many_traj, step_chunk (its packed vector) and step_many_replay
+    over a stacked FrameInput against plain step calls (exact)."""
+    frames = _frames()
+    batch = tslam.FrameInput(t(np.stack([d for d, _ in FRAMES[1:]])),
+                             t(np.stack([c for _, c in FRAMES[1:]])))
+    s0 = tslam.bootstrap(frames[0], PINTR, PCFG, init_pose=POSES[0])
+    s, s_rep, poses, ts_rep = s0, s0, [], []
+    for i, f in enumerate(frames[1:]):
+        s = tslam.step(s, f, PINTR, PCFG)
+        poses.append(n(tlie.rt_to_mat(s.R, s.t)))
+        s_rep = tslam.step(s_rep, f, PINTR, PCFG, fixed_pose=POSES[i + 1])
+        ts_rep.append(n(s_rep.t))
+    s_traj, p_traj = tslam.step_many_traj(s0, batch, PINTR, PCFG)
+    np.testing.assert_array_equal(n(p_traj), np.stack(poses))
+    s_chunk, packed = tslam.step_chunk(s0, batch, PINTR, PCFG)
+    k = len(poses)
+    packed = n(packed)
+    assert packed.shape == (k * 16 + 4,)
+    np.testing.assert_array_equal(packed[:k * 16].reshape(k, 4, 4), np.stack(poses))
+    np.testing.assert_array_equal(packed[k * 16:], [float(n(s.map.count)), n(s.last_icp_error),
+                                                    n(s.last_icp_count), n(s.dense_frac)])
+    s_r, t_r = tslam.step_many_replay(s0, batch, POSES[1:], PINTR, PCFG)
+    np.testing.assert_array_equal(n(t_r), np.stack(ts_rep))
+    for a, b in ((s_traj, s), (s_chunk, s), (s_r, s_rep)):
+        np.testing.assert_array_equal(n(a.map.data), n(b.map.data))
+        assert a.time == b.time == len(FRAMES)

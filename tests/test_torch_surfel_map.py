@@ -132,3 +132,107 @@ def test_grow_and_empty():
     jg = jsm.grow(jsm.empty_map(8), 16)
     np.testing.assert_array_equal(n(g.data), n(jg.data))
     assert int(g.count) == 0 and g.count.dtype == torch.int32
+
+
+# --------------------------------------------------------------------------- #
+# keyframe boundary: exchange, corrections, activity channel, large render
+# --------------------------------------------------------------------------- #
+
+def _toy_rows(n_per_submap, submaps, cap, seed=0):
+    """tests/test_active_archive.py::_toy_map's rows for the given submaps."""
+    rng = np.random.default_rng(seed)
+    n_rows = n_per_submap * len(submaps)
+    data = np.zeros((cap, jsm.N_CHANNELS), np.float32)
+    data[:n_rows, 0:3] = rng.normal(0, 1, (n_rows, 3))
+    data[:n_rows, jsm.SUBMAP] = np.repeat(submaps, n_per_submap)
+    data[:n_rows, jsm.CONF] = 50.0
+    data[:n_rows, jsm.STAMP] = 1.0
+    data[:n_rows, jsm.VALID] = 1.0
+    data[:n_rows, jsm.ACT] = 1.0
+    data[:n_rows, jsm.NORMAL] = rng.normal(0, 1, (n_rows, 3))
+    data[:n_rows, jsm.CURV_DIR1] = rng.normal(0, 1, (n_rows, 3))
+    data[:n_rows, jsm.CURV_DIR2] = rng.normal(0, 1, (n_rows, 3))
+    return data, n_rows
+
+
+def _pair(data, count):
+    return (jsm.SurfelMap(data=jnp.asarray(data), count=jnp.int32(count)),
+            tsm.SurfelMap(data=t(data), count=torch.tensor(count, dtype=torch.int32)))
+
+
+# (active rows, archive rows, active submaps, time): everything fits, with
+# a junk (unstable, timed-out) submap among the leavers; the archive too
+# small for the leavers (test_exchange_overflow_drops_and_reports); the
+# active map too small for the enter rows
+EXCHANGES = {
+    "fits": (_toy_rows(50, [0, 1, 2, 3], 512), _toy_rows(20, [4, 5], 256, 1), [0, 2, 4], 1000),
+    "archive_overflow": (_toy_rows(50, [0, 1, 2, 3], 512), (np.zeros((64, 24), np.float32), 0),
+                         [0, 2], 5),
+    "enter_overflow": (_toy_rows(30, [0, 1, 2, 3], 128), _toy_rows(50, [4, 5], 512, 1),
+                       [0, 1, 4, 5], 5),
+}
+
+
+@pytest.mark.parametrize("case", list(EXCHANGES))
+def test_exchange_active_matches_jax(case):
+    """exchange_active equal to JAX's: both maps' rows and counts exactly
+    and stats [n_active, n_archive, dropped] exactly, overflow drops
+    included."""
+    (ad, an), (rd, rn), active, time = EXCHANGES[case]
+    ad = ad.copy()
+    if case == "fits":
+        ad[(ad[:, jsm.SUBMAP] == 1) & (ad[:, jsm.VALID] > 0), jsm.CONF] = 0.5   # junk at time 1000
+    ja, ta = _pair(ad, an)
+    jr, tr = _pair(rd, rn)
+    mask = np.zeros(8, bool)
+    mask[active] = True
+    ja2, jr2, jst = jsm.exchange_active(ja, jr, jnp.asarray(mask), jnp.int32(time), CFG)
+    ta2, tr2, tst = tsm.exchange_active(ta, tr, t(mask), time, PCFG)
+    np.testing.assert_array_equal(n(tst), n(jst))
+    assert tst.dtype == torch.int32
+    if case != "fits":
+        assert int(n(jst)[2]) > 0
+    for a, b in ((ta2, ja2), (tr2, jr2)):
+        assert int(a.count) == int(b.count) and a.count.dtype == torch.int32
+        np.testing.assert_array_equal(n(a.data), n(b.data))
+
+
+def test_apply_submap_deltas_and_activity_channel():
+    """apply_submap_deltas within 1e-6 (valid rows move with their submap,
+    tombstones stay); refresh_active_channel and active_from_submaps
+    exactly."""
+    data, cnt = _toy_rows(40, [0, 1, 2, 3, 5], 256)
+    data[::7, jsm.VALID] = 0.0
+    jm, tm = _pair(data, cnt)
+    rng = np.random.default_rng(4)
+    xi = (0.2 * rng.standard_normal((6, 6))).astype(np.float32)
+    deltas = np.array(jlie.se3_exp(jnp.asarray(xi)))
+    deltas[2] = np.eye(4)
+    np.testing.assert_allclose(n(tsm.apply_submap_deltas(tm, t(deltas)).data),
+                               n(jsm.apply_submap_deltas(jm, jnp.asarray(deltas)).data), atol=1e-6)
+    mask = np.zeros(8, bool)
+    mask[[1, 5]] = True
+    np.testing.assert_array_equal(n(tsm.refresh_active_channel(tm, t(mask)).data),
+                                  n(jsm.refresh_active_channel(jm, jnp.asarray(mask)).data))
+    np.testing.assert_array_equal(n(tsm.active_from_submaps(tm, t(mask))),
+                                  n(jsm.active_from_submaps(jm, jnp.asarray(mask))))
+
+
+def test_render_index_large_capacity(world):
+    """Above 2**20 rows render_index takes the exact float z-buffer: on a
+    map of 2**20 + 64 rows (the frame-0 surfels at the front, a shifted
+    copy of some at the tail so that ids past 2**20 win pixels) equal to
+    JAX's."""
+    jm, _, _ = world
+    cnt = int(jm.count)
+    data = np.zeros(((1 << 20) + 64, jsm.N_CHANNELS), np.float32)
+    data[:cnt] = n(jm.data)[:cnt]
+    tail = n(jm.data)[:cnt:max(1, cnt // 64)][:64].copy()
+    tail[:, 2] -= 0.05
+    data[1 << 20:(1 << 20) + tail.shape[0]] = tail
+    pinv = np.asarray(jlie.se3_inverse(jnp.asarray(POSES[1])))
+    jl, tl = _pair(data, data.shape[0])
+    ij = n(jax.jit(jsm.render_index, static_argnames=("intr",))(jl, jnp.asarray(pinv), INTR))
+    it = n(tsm.render_index(tl, t(pinv), PINTR))
+    assert (ij >= (1 << 20)).sum() > 10
+    np.testing.assert_array_equal(it, ij)
