@@ -251,11 +251,15 @@ def detect_and_describe(intensity: torch.Tensor, n_per_level: int = 256,
 
 def hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hamming distances of broadcast (..., 8) packed descriptors -> (...)
-    int64.  A SWAR popcount on the 32-bit words held in non-negative int64
-    (so every shift is logical), in place on the (..., 8) temporaries; the
-    byte counts of the 8 words are summed before the bytes are folded:
-    each byte then holds at most 64, so nothing carries."""
+    int64.  On the card: a SWAR popcount on the 32-bit words held in
+    non-negative int64 (so every shift is logical), in place on the
+    (..., 8) temporaries; the byte counts of the 8 words are summed before
+    the bytes are folded: each byte then holds at most 64, so nothing
+    carries.  On the CPU with NumPy 2: NumPy's popcount of the same words
+    (the same integers, a tenth of the time)."""
     x = torch.bitwise_xor(a, b)
+    if x.device.type == "cpu" and hasattr(np, "bitwise_count"):
+        return torch.from_numpy(np.bitwise_count(x.numpy()).sum(-1, dtype=np.int64))
     t = x >> 1
     x -= t.bitwise_and_(0x55555555)
     t = x >> 2

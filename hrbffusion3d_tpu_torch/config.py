@@ -1,6 +1,6 @@
 """Engine configuration of the port: its own copy of the JAX package's
 ``SLAMConfig`` and ``CameraIntrinsics`` (every field, default and comment),
-the TUM fr1 intrinsics and ``small_test_config``.  The port imports nothing
+the TUM / ICL-NUIM camera presets and ``small_test_config``.  The port imports nothing
 of the JAX package; ``tests/test_torch_core.py`` holds the two copies equal
 field by field.
 
@@ -53,9 +53,12 @@ class CameraIntrinsics:
         )
 
 
-# TUM fr1 camera preset, from the TUM1.yaml calibration file the
-# reference ships with ORB_SLAM2_m.
+# TUM camera presets (fr1/fr2/fr3 + ICL-NUIM), values from the standard
+# TUM1/2/3.yaml calibration files the reference ships with ORB_SLAM2_m.
 TUM1 = CameraIntrinsics(517.306408, 516.469215, 318.643040, 255.313989, 640, 480)
+TUM2 = CameraIntrinsics(520.908620, 521.007327, 325.141442, 249.701764, 640, 480)
+TUM3 = CameraIntrinsics(535.4, 539.2, 320.1, 247.6, 640, 480)
+ICL_NUIM = CameraIntrinsics(481.20, -480.00, 319.50, 239.50, 640, 480)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -103,6 +103,27 @@ def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def mat_to_rt(T: torch.Tensor):
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (...,4,4) to points (...,3) (broadcasting over leading dims)."""
+    return rotate_vectors(T, pts) + T[..., :3, 3]
+
+
+def rotate_vectors(T: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    return matmul(T[..., :3, :3], vecs[..., None])[..., 0]
+
+
+def compute_update_se3(result_rt: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One GN update of the accumulated odometry transform
+    (``OdometryProvider::computeUpdateSE3``): x = [v|w] from the 6x6 solve;
+    the incremental transform exp(x) composes on the left of the running
+    estimate, ``resultRt = exp(x) * resultRt``."""
+    return matmul(se3_exp(x), result_rt)
+
+
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]

@@ -1,0 +1,74 @@
+""".klg compressed RGB-D log reader (the port's own copy of
+``hrbffusion3d_tpu/io/klg.py``, numpy and zlib only).
+
+Replaces ``RawLogReader`` (``GUI/src/Tools/RawLogReader.cpp``): the
+ElasticFusion log format — header ``int32 numFrames``; per frame
+``int64 timestamp, int32 depthSize, int32 imageSize`` followed by
+zlib-compressed u16 depth and JPEG rgb (sizes equal to raw -> uncompressed).
+
+The JAX package decodes a JPEG colour payload with Pillow.  The port has no
+imaging library: a JPEG payload is decoded by the native loader's libjpeg
+(``io/native_loader``); this reader raises on one.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Iterator, NamedTuple
+
+import numpy as np
+
+
+class KLGFrame(NamedTuple):
+    timestamp: int
+    depth: np.ndarray   # (H,W) float32 meters
+    rgb: np.ndarray     # (H,W,3) float32 [0,1]
+
+
+def frames(path: str, width: int = 640, height: int = 480,
+           depth_scale: float = 1.0 / 1000.0) -> Iterator[KLGFrame]:
+    raw_depth_size = width * height * 2
+    raw_rgb_size = width * height * 3
+    with open(path, "rb") as f:
+        (num_frames,) = struct.unpack("<i", f.read(4))
+        for _ in range(num_frames):
+            hdr = f.read(8 + 4 + 4)
+            if len(hdr) < 16:
+                return
+            ts, dsize, isize = struct.unpack("<qii", hdr)
+            dbuf = f.read(dsize)
+            ibuf = f.read(isize)
+            if dsize == raw_depth_size:
+                depth_u16 = np.frombuffer(dbuf, np.uint16)
+            else:
+                depth_u16 = np.frombuffer(zlib.decompress(dbuf), np.uint16)
+            depth = depth_u16.reshape(height, width).astype(np.float32) * depth_scale
+            if isize == raw_rgb_size:
+                rgb = np.frombuffer(ibuf, np.uint8).reshape(height, width, 3)
+            elif isize == 0:
+                rgb = np.zeros((height, width, 3), np.uint8)
+            else:
+                raise RuntimeError(
+                    f"{path}: frame at timestamp {ts} has a JPEG colour payload; the "
+                    "Python reader has no JPEG decoder (use io.native_loader, whose "
+                    "libjpeg decodes it)")
+            yield KLGFrame(ts, depth, rgb.astype(np.float32) / 255.0)
+
+
+def write(path: str, depths: np.ndarray, rgbs: np.ndarray,
+          timestamps=None, depth_scale: float = 1.0 / 1000.0):
+    """Write a .klg (zlib depth + raw rgb) — used by tests and for
+    converting synthetic sequences."""
+    n, h, w = depths.shape
+    with open(path, "wb") as f:
+        f.write(struct.pack("<i", n))
+        for i in range(n):
+            ts = i if timestamps is None else int(timestamps[i])
+            d16 = np.round(depths[i] / depth_scale).astype(np.uint16)
+            dbuf = zlib.compress(d16.tobytes())
+            rgb8 = (np.clip(rgbs[i], 0, 1) * 255).astype(np.uint8)
+            ibuf = rgb8.tobytes()
+            f.write(struct.pack("<qii", ts, len(dbuf), len(ibuf)))
+            f.write(dbuf)
+            f.write(ibuf)

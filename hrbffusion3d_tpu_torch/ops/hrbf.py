@@ -56,6 +56,30 @@ def hess_phi(v: torch.Tensor, d2: torch.Tensor, support: torch.Tensor) -> torch.
     return torch.where((at_zero & (T2 > 0.0))[..., None, None], H_zero, H)
 
 
+def third_phi(v: torch.Tensor, d2: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
+    """Third derivative of phi: (...,3,3,3), index order [i,j,c] =
+    d^3 phi / dv_i dv_j dv_c (hrbfbase.glsl:72-124, getWeightT); zero at
+    d2 == 0 and outside the support."""
+    T2 = support * support
+    safe_T2 = torch.clamp(T2, min=_EPS)
+    r = torch.sqrt(torch.clamp(d2, min=0.0) / safe_T2)
+    safe_r = torch.clamp(r, min=1e-20)
+    s = torch.clamp(1.0 - r, min=0.0)
+    b = s * s / safe_r
+    c60 = 60.0 / (safe_T2 * safe_T2)
+    eye = torch.eye(3, dtype=v.dtype, device=v.device)
+    # sym = d_ic v_j + d_jc v_i + d_ij v_c
+    sym = (eye[..., :, None, :] * v[..., None, :, None]
+           + eye[..., None, :, :] * v[..., :, None, None]
+           + eye[..., :, :, None] * v[..., None, None, :])
+    vvv = v[..., :, None, None] * v[..., None, :, None] * v[..., None, None, :]
+    coef = (2.0 * s + b) / (safe_T2 * safe_r * safe_r)
+    t = c60[..., None, None, None] * (b[..., None, None, None] * sym
+                                      - coef[..., None, None, None] * vvv)
+    inside = (d2 <= T2) & (d2 > 0.0)
+    return torch.where(inside[..., None, None, None], t, 0.0)
+
+
 def _diffs(x: torch.Tensor, nb_pos: torch.Tensor):
     v = x[..., None, :] - nb_pos
     return v, torch.sum(v * v, dim=-1)
@@ -79,6 +103,48 @@ def hrbf_gradient(x, nb_pos, nb_normal, nb_support, nb_mask) -> torch.Tensor:
     sol = HERMITE_SCALE * nb_normal
     g = -torch.einsum("...kij,...kj->...ki", H, sol)
     return torch.sum(torch.where(nb_mask[..., None], g, 0.0), dim=-2)
+
+
+def hrbf_hessian(x, nb_pos, nb_normal, nb_support, nb_mask) -> torch.Tensor:
+    """hess f(x): (...,3,3) (hrbfbase.glsl:168-195)."""
+    v, d2 = _diffs(x, nb_pos)
+    T3 = third_phi(v, d2, nb_support)
+    sol = HERMITE_SCALE * nb_normal
+    h = -torch.einsum("...kijc,...kc->...kij", T3, sol)
+    return torch.sum(torch.where(nb_mask[..., None, None], h, 0.0), dim=-3)
+
+
+def hrbf_value_grad(x, nb_pos, nb_normal, nb_support, nb_mask):
+    """Fused (f, grad f, n_support), sharing the distance computation."""
+    v, d2 = _diffs(x, nb_pos)
+    sol = HERMITE_SCALE * nb_normal
+    g = grad_phi(v, d2, nb_support)
+    m = nb_mask & (d2 < nb_support * nb_support)
+    f = torch.sum(torch.where(m, -torch.sum(g * sol, dim=-1), 0.0), dim=-1)
+    H = hess_phi(v, d2, nb_support)
+    gr = -torch.einsum("...kij,...kj->...ki", H, sol)
+    grad = torch.sum(torch.where(nb_mask[..., None], gr, 0.0), dim=-2)
+    return f, grad, torch.sum(m.to(torch.int32), dim=-1)
+
+
+def hrbf_projection(x, nb_pos, nb_normal, nb_support, nb_mask,
+                    iterations: int = 3) -> torch.Tensor:
+    """MLS-style projection of x onto the implicit surface
+    (hrbfbase.glsl:197-242, debug/utility in the reference): iterate
+    x <- x - <n, x - weighted_mean> n with n the normalised HRBF gradient
+    and a narrow Gaussian (sigma^2 = 1e-4) neighbourhood mean."""
+    p = x
+    for _ in range(iterations):
+        v = p[..., None, :] - nb_pos
+        d2 = torch.sum(v * v, dim=-1)
+        w = torch.where(nb_mask, torch.exp(-d2 / 1e-4), 0.0)
+        wsum = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-20)
+        mean = torch.sum(w[..., None] * nb_pos, dim=-2) / wsum
+        g = hrbf_gradient(p, nb_pos, nb_normal, nb_support, nb_mask)
+        gn = g / torch.clamp(torch.linalg.vector_norm(g, dim=-1, keepdim=True), min=1e-12)
+        s = torch.sum(gn * (p - mean), dim=-1, keepdim=True)
+        p = p - s * gn
+    return p
 
 
 def grad_hess_direct(v, d2, nb_normal, nb_support, nb_mask):

@@ -1,6 +1,8 @@
 """HRBF surface prediction on torch tensors (port of
 ``hrbffusion3d_tpu/ops/raycast.py``): the kernel branch of ``predict_hrbf``,
-its attribute epilogue, and the FillIn composite.
+its attribute epilogue, the FillIn composite, and the surfel-splat
+prediction (``predict_splat``, the step's off-frames when
+``raycast_period > 1``) with its depth-only twin ``render_depth``.
 
 Per pixel the fused ray cast (``kernels.raycast_core``) keeps <= K stable
 surfels of the ring-ordered window, brackets the zero crossing of the HRBF
@@ -176,3 +178,57 @@ def fill_in(pred: Prediction, live_vertex: torch.Tensor, live_normal: torch.Tens
         icp_weight=torch.where(have, pred.icp_weight, live_w),
         from_model=have,
     )
+
+
+def predict_splat(m: SurfelMap, pose_inv: torch.Tensor, index_map: torch.Tensor,
+                  intr: CameraIntrinsics, cfg: SLAMConfig) -> Prediction:
+    """Classic surfel-splat prediction — the reference's ``combinedPredict``
+    alternative path (IndexMap.cpp:359-412, combo_splat.frag:19-63): each
+    pixel takes the nearest rendered surfel of the index map (no
+    implicit-surface ray cast).  One row gather, no host read."""
+    h, w = intr.height, intr.width
+    P = h * w
+    flat = index_map.reshape(P)
+    found = flat >= 0
+    rows = m.data[torch.clamp(flat, 0, m.data.shape[0] - 1).long()]
+    Rr = pose_inv[:3, :3]
+    tt = pose_inv[:3, 3]
+    pos = rows[:, smod.POS] @ Rr.T + tt
+    nrm = rows[:, smod.NORMAL] @ Rr.T
+    conf = rows[:, smod.CONF]
+    k1 = rows[:, smod.K1]
+    k2 = rows[:, smod.K2]
+    lam = cfg.icp_curv_weight_lambda
+    cmax = torch.maximum(torch.abs(k1), torch.abs(k2))
+    zz = torch.clamp(pos[:, 2], min=1e-6)
+    icp_w = torch.where(
+        found,
+        (1.0 / (zz * zz)) * (conf / 256.0 + torch.exp(
+            -0.5 * lam * lam / torch.clamp(cmax * cmax, min=1e-12))),
+        0.0)
+    z3 = found[:, None]
+    return Prediction(
+        vertex=torch.where(z3, pos, 0.0).reshape(h, w, 3),
+        conf=torch.where(found, conf, 0.0).reshape(h, w),
+        normal=torch.where(z3, nrm, 0.0).reshape(h, w, 3),
+        radius=torch.where(found, rows[:, smod.RADIUS], 0.0).reshape(h, w),
+        color=torch.where(z3, rows[:, smod.COLOR], 0.0).reshape(h, w, 3),
+        k1=torch.where(found, k1, 1000.0).reshape(h, w),
+        k2=torch.where(found, k2, 1000.0).reshape(h, w),
+        curv_dir1=torch.where(z3, rows[:, smod.CURV_DIR1] @ Rr.T, 0.0).reshape(h, w, 3),
+        curv_dir2=torch.where(z3, rows[:, smod.CURV_DIR2] @ Rr.T, 0.0).reshape(h, w, 3),
+        time=torch.where(found, rows[:, smod.INIT_TIME].to(torch.int32), 0).reshape(h, w),
+        icp_weight=icp_w.reshape(h, w),
+        found=found.reshape(h, w),
+    )
+
+
+def render_depth(m: SurfelMap, pose_inv: torch.Tensor, index_map: torch.Tensor,
+                 intr: CameraIntrinsics) -> torch.Tensor:
+    """Depth-only render for display/debug (IndexMap::renderDepth,
+    IndexMap.cpp:269-301)."""
+    h, w = intr.height, intr.width
+    flat = index_map.reshape(h * w)
+    rows = m.data[torch.clamp(flat, 0, m.data.shape[0] - 1).long()]
+    pos = rows[:, smod.POS] @ pose_inv[:3, :3].T + pose_inv[:3, 3]
+    return torch.where(flat >= 0, pos[:, 2], 0.0).reshape(h, w)

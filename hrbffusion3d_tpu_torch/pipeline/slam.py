@@ -5,7 +5,8 @@ preprocess -> track -> fuse -> clean -> predict (HRBFFusion::processFrame).
 
 Host/device split: the frame counter ``time`` and ``submap_idx`` are host
 ints, so every periodic branch (compaction, crowd rules, pixel-space
-remap) is a Python ``if``; everything else stays on the device, and a step
+remap, the HRBF ray cast every ``raycast_period``-th frame with splat
+prediction between) is a Python ``if``; everything else stays on the device, and a step
 reads nothing back to the host.
 """
 
@@ -150,10 +151,13 @@ def step(state: SLAMState, frame: FrameInput, intr: CameraIntrinsics,
         idx3 = torch.where((idx2 >= 0) & keep_pix, idx2, -1)
     else:
         idx3 = sm.remap_index_map(idx2, remap)
-    if cfg.raycast_period > 1:
-        raise NotImplementedError("raycast_period > 1 (splat prediction) is not ported")
-    pred_attr = torch.where((idx3 >= 0)[..., None], attr_ext, 0.0)
-    pred = raycast.predict_hrbf(m, pose_inv, idx3, intr, cfg, attr_ext=pred_attr)
+    if cfg.raycast_period > 1 and time % cfg.raycast_period != 0:
+        # surfel-splat prediction between the HRBF frames (combinedPredict
+        # alternative path): the ray cast kernel is not launched
+        pred = raycast.predict_splat(m, pose_inv, idx3, intr, cfg)
+    else:
+        pred_attr = torch.where((idx3 >= 0)[..., None], attr_ext, 0.0)
+        pred = raycast.predict_hrbf(m, pose_inv, idx3, intr, cfg, attr_ext=pred_attr)
     filled = raycast.fill_in(pred, pre.vertex_filtered, pre.normal, pre.radius,
                              frame.rgb, conf, curv.k1, curv.k2, cfg)
     return _state_from_prediction(m, new_R, new_t, time, state.submap_idx, intensity,

@@ -237,13 +237,13 @@ def test_synth_matches_jax():
     assert tsynth.render_frame_kinect(scene_t, pano[0], PINTR, gen)[0].shape == dj.shape
 
 
-@pytest.mark.parametrize("name", ["default", "small_test", "TUM1"])
+@pytest.mark.parametrize("name", ["default", "small_test", "TUM1", "TUM2", "TUM3", "ICL_NUIM"])
 def test_config_copy_matches_jax(name):
     """The port's own config.py: every field and default of the JAX
-    package's, and the converters of tests/torch_parity_utils.py give the
-    port's classes."""
-    if name == "TUM1":
-        jax_obj, port_obj = jconfig.TUM1, tconfig.TUM1
+    package's, the camera presets, and the converters of
+    tests/torch_parity_utils.py give the port's classes."""
+    if name.startswith(("TUM", "ICL")):
+        jax_obj, port_obj = getattr(jconfig, name), getattr(tconfig, name)
         assert port_intr(jax_obj) == port_obj
         assert port_obj.level(2) == port_intr(jax_obj.level(2))
     else:
@@ -291,3 +291,69 @@ def test_default_device_is_the_card():
     assert scene.planes.device.type == scene.spheres.device.type == "cpu"
     depth, _ = tsynth.render_frame(scene, np.eye(4, dtype=np.float32), PINTR)
     assert depth.device.type == "cpu" and (depth > 0).all()
+
+
+def test_lie_points_and_update():
+    """mat_to_rt, transform_points, rotate_vectors (batched and broadcast)
+    and compute_update_se3 against JAX's (tests/test_lie.py)."""
+    xi = (0.2 * RNG.standard_normal((5, 6))).astype(np.float32)
+    T = np.asarray(jlie.se3_exp(jnp.asarray(xi)))
+    pts = RNG.standard_normal((5, 3)).astype(np.float32)
+    for fn in ("transform_points", "rotate_vectors"):
+        for Tm, p in ((T, pts), (T[0], pts), (T[:, None], pts[None].repeat(5, 0))):
+            np.testing.assert_allclose(n(getattr(tlie, fn)(t(Tm), t(p))),
+                                       n(getattr(jlie, fn)(jnp.asarray(Tm), jnp.asarray(p))),
+                                       atol=1e-6)
+    R, tr = tlie.mat_to_rt(t(T))
+    np.testing.assert_array_equal(n(tlie.rt_to_mat(R, tr)), T)
+    x = (0.05 * RNG.standard_normal(6)).astype(np.float32)
+    np.testing.assert_allclose(n(tlie.compute_update_se3(t(T[1]), t(x))),
+                               n(jlie.compute_update_se3(jnp.asarray(T[1]), jnp.asarray(x))),
+                               atol=1e-6)
+
+
+def test_third_phi_matches_jax_and_autodiff():
+    """third_phi against JAX's and against torch.func's derivative of
+    hess_phi (tests/test_hrbf.py::test_third_phi_matches_autodiff)."""
+    sup = torch.tensor(0.4)
+    for seed in range(5):
+        v = np.random.default_rng(20 + seed).uniform(-0.15, 0.15, 3).astype(np.float32)
+        d2 = np.float32(np.sum(v * v))
+        got = thrbf.third_phi(t(v), torch.tensor(d2), sup)
+        np.testing.assert_allclose(n(got), n(jhrbf.third_phi(v, d2, np.float32(0.4))),
+                                   rtol=1e-5, atol=1e-3)
+        want = torch.func.jacfwd(lambda u: thrbf.hess_phi(u, torch.sum(u * u), sup))(t(v))
+        np.testing.assert_allclose(n(got), n(want), atol=2e-2, rtol=1e-3)
+    assert not thrbf.third_phi(torch.zeros(3), torch.tensor(0.0), sup).any()
+
+
+def test_hrbf_hessian_value_grad_projection():
+    """hrbf_hessian, hrbf_value_grad and hrbf_projection against JAX's; the
+    Hessian also against torch.func's derivative of hrbf_gradient and
+    symmetric (tests/test_hrbf.py)."""
+    x, pos, nrm, sup, mask = _neighbours()
+    args_t = tuple(t(a) for a in (x, pos, nrm, sup, mask))
+    args_j = tuple(jnp.asarray(a) for a in (x, pos, nrm, sup, mask))
+    H = thrbf.hrbf_hessian(*args_t)
+    Hj = n(jhrbf.hrbf_hessian(*args_j))
+    np.testing.assert_allclose(n(H), Hj, rtol=1e-4, atol=1e-4 * np.abs(Hj).max())
+    np.testing.assert_allclose(n(H), n(H.transpose(-1, -2)), atol=1e-3)
+    want = torch.func.vmap(torch.func.jacfwd(
+        lambda q, *nb: thrbf.hrbf_gradient(q, *nb)))(*args_t)
+    np.testing.assert_allclose(n(H), n(want), atol=5e-1, rtol=1e-3)
+    f, g, cnt = thrbf.hrbf_value_grad(*args_t)
+    fj, gj, cj = jhrbf.hrbf_value_grad(*args_j)
+    np.testing.assert_allclose(n(f), n(fj), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(n(g), n(gj), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(n(cnt), n(cj))
+    np.testing.assert_array_equal(n(f), n(thrbf.hrbf_value(*args_t)[0]))
+    np.testing.assert_array_equal(n(g), n(thrbf.hrbf_gradient(*args_t)))
+    # projection onto the plane z = 1 (tests/test_io.py::test_hrbf_projection_onto_plane)
+    p_pos, p_nrm, p_sup, p_mask = _plane_patch()
+    q = np.array([0.02, -0.01, 1.04], np.float32)
+    proj = thrbf.hrbf_projection(t(q), t(p_pos), t(p_nrm), t(p_sup), t(p_mask))
+    projj = jhrbf.hrbf_projection(*(jnp.asarray(a) for a in (q, p_pos, p_nrm, p_sup, p_mask)))
+    np.testing.assert_allclose(n(proj), n(projj), atol=1e-5)
+    assert abs(float(proj[2]) - 1.0) < 5e-3
+    np.testing.assert_allclose(n(thrbf.hrbf_projection(*args_t)),
+                               n(jhrbf.hrbf_projection(*args_j)), atol=1e-4)

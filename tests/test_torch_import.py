@@ -1,6 +1,6 @@
 """The port runs where there is no JAX and stands alone from the JAX
 package: importing the package, every one of its submodules (the sparse
-backend's and the full system's included) and ``chip_smoke``'s imports
+backend's, the full system's and the real-data entry point's included) and ``chip_smoke``'s imports
 leaves ``jax`` and every ``hrbffusion3d_tpu`` module out of ``sys.modules``,
 and succeeds with both blocked.  The port's copies of the JAX package's
 numpy-only code (the BRIEF pattern, the reduction-plan construction,
@@ -45,15 +45,20 @@ def test_port_imports_without_jax_or_the_jax_package():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, leaked = out.stdout.strip().split(" ", 1)
-    # core, ops, map, tracking, pipeline, eval, utils, backend, io and their
-    # modules, the full system's (backend.loop, pipeline.full_slam, io.traj,
-    # io.ply) included
-    assert int(n_modules) >= 38, out.stdout
+    # core, ops, map, tracking, pipeline, eval, utils, backend, io, viz and
+    # their modules, the full system's (backend.loop, pipeline.full_slam,
+    # io.traj, io.ply) and the real-data entry point's (run_tum, io.png,
+    # io.tum, io.klg, io.native_loader, utils.timing, utils.params,
+    # utils.checkpoint, viz.stats, viz.viewer, eval.recon, eval.mesh)
+    # included
+    assert int(n_modules) >= 51, out.stdout
     assert leaked == "[]", leaked
     for name in ("backend/brief_pattern", "backend/features", "backend/reduce_plan",
                  "backend/ba", "backend/keyframes", "backend/bow", "backend/vocab",
                  "backend/posegraph", "backend/loop", "pipeline/full_slam", "io/traj",
-                 "io/ply"):
+                 "io/ply", "run_tum", "io/png", "io/tum", "io/klg", "io/native_loader",
+                 "utils/timing", "utils/params", "utils/checkpoint", "viz/stats",
+                 "viz/viewer", "eval/recon", "eval/mesh"):
         assert (ROOT / "hrbffusion3d_tpu_torch" / f"{name}.py").exists(), name
 
 

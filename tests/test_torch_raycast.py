@@ -12,6 +12,10 @@ the nearest tap's selection, the kernel form does not), vertex atol 1e-4
 where both found, normal dot > 0.9999 on 99 %, nearest-surfel attributes
 (conf) equal on > 99 % (float ties in the nearest-tap argmin).
 
+The surfel-splat prediction (``predict_splat``, the step's off-frames at
+``raycast_period > 1``) and ``render_depth`` are row gathers of the same
+map: within atol 1e-5 of JAX's on a shared map.
+
 The CUDA kernel itself runs only on the card (``chip_smoke.py`` and the
 ``cuda``-marked test below)."""
 
@@ -25,6 +29,7 @@ import torch
 from torch_parity_utils import (CFG, INTR, PCFG, PINTR, n, port_cfg, port_frames,
                                 port_measurement, t)
 
+from hrbffusion3d_tpu.map import surfel_map as jsm
 from hrbffusion3d_tpu.ops import pallas_kernels as jpk
 from hrbffusion3d_tpu.ops import raycast as jray
 from hrbffusion3d_tpu_torch.core import lie as tlie
@@ -179,6 +184,26 @@ def test_fill_in(scene):
         close = np.abs(a - b) <= 1e-4 + 1e-3 * np.abs(b)
         close = close.reshape(close.shape[:2] + (-1,)).all(-1)
         assert close[same].mean() > 0.99, f
+
+
+def test_predict_splat_and_render_depth_match_jax():
+    """On the map of frame 0 seen from frame 1 (the ``scene`` fixture's)."""
+    meas = port_measurement(*FRAMES[0])
+    m = tsm.initialise(PCFG.map_capacity, tsm.FrameMeasurement(*map(t, meas)),
+                       t(POSES[0]), PCFG)
+    pinv = tlie.se3_inverse(t(POSES[1]))
+    idx = tsm.render_index(m, pinv, PINTR)
+    jm = jsm.SurfelMap(data=jnp.asarray(n(m.data)), count=jnp.asarray(n(m.count)))
+    pj = jray.predict_splat(jm, jnp.asarray(n(pinv)), jnp.asarray(n(idx)), INTR, CFG)
+    pt = tray.predict_splat(m, pinv, idx, PINTR, PCFG)
+    assert n(pt.found).mean() > 0.5
+    for f in pt._fields:
+        a, b = n(getattr(pt, f)), n(getattr(pj, f))
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        np.testing.assert_allclose(a, b, atol=1e-5, err_msg=f)
+    np.testing.assert_allclose(
+        n(tray.render_depth(m, pinv, idx, PINTR)),
+        n(jray.render_depth(jm, jnp.asarray(n(pinv)), jnp.asarray(n(idx)), INTR)), atol=1e-5)
 
 
 @pytest.mark.cuda

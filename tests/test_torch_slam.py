@@ -6,7 +6,10 @@ run 3 steps on the same frames:
   (a) replay mode (``fixed_pose``), which isolates fuse, clean and predict:
       map count within 0.5 %, predicted vertex within 1e-3 m on >= 99 % of
       the pixels valid in both;
-  (b) tracked mode: per-frame t within 1e-3 m and R within 1e-3 rad.
+  (b) tracked mode: per-frame t within 1e-3 m and R within 1e-3 rad;
+  (c) splat: tracked with ``raycast_period = 2`` (the HRBF ray cast on
+      even frames, surfel-splat prediction between): the pose as (b), the
+      map count and the prediction as (a).
 The JAX side runs use_pallas_raycast=False (no compiled Pallas on the CPU);
 the ``found`` tolerances of the raycast parity cover the XLA-vs-kernel form.
 
@@ -18,16 +21,20 @@ jitted once.  ``step_impl`` with ``fixed_pose`` set to the tracked pose
 sides take the frames of the port's renderer (test_torch_core.py holds it
 against JAX's)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity_utils import CFG, INTR, PCFG, PINTR, n, port_frames, rot_angle, t
+from torch_parity_utils import (CFG, INTR, PCFG, PINTR, n, port_cfg, port_frames, rot_angle,
+                                t)
 
 from hrbffusion3d_tpu.core import lie as jlie
 from hrbffusion3d_tpu.pipeline import slam as jslam
 from hrbffusion3d_tpu.tracking import odometry as jodo
+from hrbffusion3d_tpu_torch.ops import raycast as tray
 from hrbffusion3d_tpu_torch.pipeline import slam as tslam
 from hrbffusion3d_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
@@ -49,9 +56,9 @@ def _jax_frame(i):
     return jslam.FrameInput(*(jnp.asarray(a) for a in FRAMES[i]))
 
 
-def _jax_step(state, i, tracked):
+def _jax_step(state, i, tracked, cfg=CFG):
     frame = _jax_frame(i)
-    pre_done = jslam._preprocess(frame, INTR, CFG)
+    pre_done = jslam._preprocess(frame, INTR, cfg)
     pose = jnp.asarray(POSES[i])
     if tracked:
         depth_f, pre, _, intensity = pre_done
@@ -63,7 +70,7 @@ def _jax_step(state, i, tracked):
             prev_R=state.R, prev_t=state.t, prev_intensity=state.prev_intensity, cfg=CFG)
         tr = _track(state.R, state.t, inp, INTR, CFG)
         pose = jlie.rt_to_mat(tr.R, tr.t)
-    return _step(state, frame, INTR, CFG, fixed_pose=pose, pre_done=pre_done)
+    return _step(state, frame, INTR, cfg, fixed_pose=pose, pre_done=pre_done)
 
 
 @pytest.fixture(scope="module")
@@ -106,21 +113,31 @@ def _check_prediction(ts, fields):
     assert (np.abs(vt - vj)[both].max(-1) < 1e-3).mean() >= 0.99
 
 
-@pytest.mark.parametrize("mode", ["replay", "tracked"])
-def test_three_steps(boot, mode):
+@pytest.mark.parametrize("mode", ["replay", "tracked", "splat"])
+def test_three_steps(boot, mode, monkeypatch):
     js, fields = boot
     ts = state_from_numpy(fields, "cpu")
-    tracked = mode == "tracked"
+    tracked = mode != "replay"
+    cfg = dataclasses.replace(CFG, raycast_period=2) if mode == "splat" else CFG
+    pcfg = port_cfg(cfg)
+    calls = []
+    for name in ("predict_hrbf", "predict_splat"):
+        fn = getattr(tray, name)
+        monkeypatch.setattr(tray, name, lambda *a, _fn=fn, _name=name, **k:
+                            calls.append(_name) or _fn(*a, **k))
     for i in (1, 2, 3):
-        js = _jax_step(js, i, tracked)
+        js = _jax_step(js, i, tracked, cfg)
         frame = tslam.FrameInput(t(FRAMES[i][0]), t(FRAMES[i][1]))
-        ts = tslam.step(ts, frame, PINTR, PCFG, fixed_pose=None if tracked else POSES[i])
+        ts = tslam.step(ts, frame, PINTR, pcfg, fixed_pose=None if tracked else POSES[i])
         assert ts.time == int(js.time) == i + 1
         if tracked:
             assert np.abs(n(ts.t) - np.asarray(js.t)).max() < 1e-3, i
             assert rot_angle(n(ts.R), np.asarray(js.R)) < 1e-3, i
-        else:
+        if mode != "tracked":
             cj = int(js.map.count)
             assert abs(int(ts.map.count) - cj) <= 0.005 * cj, i
             _check_prediction(ts, _jax_numpy_state(js))
     assert torch.isfinite(ts.pred_vertex).all()
+    # frames 2, 3, 4: the ray cast on even frames only under raycast_period 2
+    assert calls == (["predict_hrbf", "predict_splat", "predict_hrbf"] if mode == "splat"
+                     else ["predict_hrbf"] * 3)
