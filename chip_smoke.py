@@ -64,9 +64,23 @@ and prints:
     accuracy against the scene and its mesh on the card, a subset against
     the CPU; PNG decode ms per filter type; a JSON line
     ``{"run_tum": {...}}``;
+  - every tracking and normal setting of ``SLAMConfig``
+    (``phase_tracking_modes``): the correspondence search, sparse ICP,
+    bilinear photometric lookups (separate and joint), fixed
+    correspondences, the early exit (its live iterations per level),
+    subsampling, top-k, the patch association, both together, central-
+    difference normals, ICP only and RGB only, each bootstrap + 7 steps of
+    the orbit beside the default mode's in one call: ATE (gated but for
+    the one-term modes), 0 host syncs in every step, the kernels' launches
+    (PCA none with central differences), the median step, and the last
+    step's ``track`` repeated on the CPU (within 1e-4 rad and 1e-4 m, the
+    CPU's own 1-thread spread beside it); one ``track(rgb_only=True)``
+    the same way within 1e-3 (its float32 spread is ~1e-4); a JSON line
+    ``{"tracking_modes": {...}}``;
   - a JSON line ``{"kernels": [...]}``: per kernel its launches on the main
     path (the bilateral kernel's keyframe call site apart, and the
-    launches of each ``phase_run_tum`` path beside them), max abs error
+    launches of each ``phase_run_tum`` path and each tracking mode beside
+    them), max abs error
     against the plain version, both times and the bound (the least time
     the card could take for the same work);
   - last, ``{"ok": true, "device": {...}}``.
@@ -1825,6 +1839,178 @@ def phase_run_tum(dev, cmd=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phase_tracking_modes: every tracking and normal setting of SLAMConfig on
+# the dense step's cell (bench.py's config, the orbit at 640x480)
+# ---------------------------------------------------------------------- #
+MODE_STEPS = 7
+# the finest level's Gauss-Newton increments at 640x480 on this orbit fall
+# to 1e-4-1e-3 while the coarser levels' stay above 1.8e-3 (the port on
+# the CPU, three steps), so 1e-3 stops finest-level loops early only
+MODE_EPS = 1e-3
+MODE_TOPK = dict(tracking_topk=76800, tracking_topk_full_iters=3)
+TRACKING_MODES = {
+    "corr_search": dict(icp_use_correspondence_search=True, icp_search_radius=2),
+    "sparse_icp": dict(icp_use_sparse=True),
+    "bilinear_separate": dict(tracking_rgb_nearest=False),
+    "bilinear_joint": dict(tracking_rgb_nearest=False, tracking_joint_gather=True),
+    "reassoc": dict(tracking_reassoc_period=2),
+    "converge_eps": dict(tracking_converge_eps=MODE_EPS),
+    "subsample": dict(tracking_subsample=2),
+    "topk": MODE_TOPK,
+    "patch": dict(tracking_patch_assoc=True),
+    "topk_patch": dict(MODE_TOPK, tracking_patch_assoc=True),
+    "central_diff_normals": dict(normal_pca=False),
+    "icp_only": dict(icp_weight=100.0),
+    "rgb_only": dict(icp_weight=0.0),
+}
+# one-term tracking: ATE printed, not gated
+UNGATED_MODES = ("icp_only", "rgb_only")
+MODE_R_TOL, MODE_T_TOL = 1e-4, 1e-4     # card vs CPU: rad, m
+# track(rgb_only=True) (unit weights, no robustifier) is float32-sensitive
+# at 640x480: the port on the CPU alone moves 1.2e-4-2.2e-4 rad and
+# 2.0e-4-4.7e-4 m between 1, 2 and 4 threads (three steps into the orbit)
+RGB_ONLY_TOL = (1e-3, 1e-3)
+
+
+@contextlib.contextmanager
+def _tracks(sink):
+    """Append each ``odometry.track`` call's (args, kwargs, result) to
+    ``sink``; nothing is synchronised (the step looks the function up in
+    the module when it calls it)."""
+    fn = odometry.track
+
+    def run(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        sink.append((args, kwargs, out))
+        return out
+
+    odometry.track = run
+    try:
+        yield
+    finally:
+        odometry.track = fn
+
+
+def _rot_gap(Ra: torch.Tensor, Rb: torch.Tensor) -> float:
+    """Geodesic angle (rad) between two rotations, from their chord in
+    float64."""
+    chord = float(torch.linalg.norm(Ra.cpu().double() - Rb.cpu().double()))
+    return 2.0 * float(np.arcsin(min(chord / (2.0 * np.sqrt(2.0)), 1.0)))
+
+
+def _track_card_vs_cpu(label, args, cfg, rgb_only=False, tol=(MODE_R_TOL, MODE_T_TOL)) -> dict:
+    """One ``track`` on the card and on the CPU from the same inputs (a
+    step's own), and on the CPU again on one thread (another float32
+    summation order: the CPU's own spread, printed beside); fails when
+    the card is more than ``tol`` (rad, m) from the CPU."""
+    prev_R, prev_t, inp, intr = args[:4]
+    card = odometry.track(prev_R, prev_t, inp, intr, cfg, rgb_only=rgb_only)
+    cpu_inp = odometry.TrackingInputs(*(tuple(x.cpu() for x in f) for f in inp))
+    t0 = time.perf_counter()
+    cpu = odometry.track(prev_R.cpu(), prev_t.cpu(), cpu_inp, intr, cfg, rgb_only=rgb_only)
+    cpu_s = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu1 = odometry.track(prev_R.cpu(), prev_t.cpu(), cpu_inp, intr, cfg, rgb_only=rgb_only)
+    finally:
+        torch.set_num_threads(threads)
+    d_r = _rot_gap(card.R, cpu.R)
+    d_t = float((card.t.cpu() - cpu.t).abs().max())
+    if not (d_r <= tol[0] and d_t <= tol[1]):
+        raise RuntimeError(f"{label}: track card vs CPU {d_r} rad, {d_t} m")
+    return dict(card_vs_cpu_rad=d_r, card_vs_cpu_m=d_t, cpu_track_s=cpu_s,
+                cpu_threads=threads, cpu_1_thread_rad=_rot_gap(cpu1.R, cpu.R),
+                cpu_1_thread_m=float((cpu1.t - cpu.t).abs().max()),
+                moved_m=float(torch.linalg.norm(cpu.t - prev_t.cpu())))
+
+
+def _mode_run(name, cfg, poses, frames) -> tuple[dict, list]:
+    """bootstrap + MODE_STEPS steps under ``cfg``: every step counted in
+    sync-debug mode and timed, the kernels' launches counted over the run,
+    the trajectory gated (but for the one-term modes), and the last step's
+    track repeated on the CPU."""
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    calls, step_ms, syncs = [], [], 0
+    with _tracks(calls):
+        state = slam.bootstrap(frames[0], TUM1, cfg, init_pose=poses[0])
+        est = [lie.rt_to_mat(state.R, state.t)]
+        for f in frames[1:MODE_STEPS + 1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, s = _count_syncs(lambda: slam.step(state, f, TUM1, cfg))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            syncs += s
+            est.append(lie.rt_to_mat(state.R, state.t))
+    launches = dict(kernels.LAUNCHES)
+    label = f"tracking mode {name}"
+    if name in UNGATED_MODES:
+        est_np = torch.stack(est).cpu().numpy()
+        if not np.isfinite(est_np).all():
+            raise RuntimeError(f"{label}: non-finite poses")
+        ate = ate_rmse(est_np, poses[:len(est)], align=False)
+        dense, icp = float(state.dense_frac), float(state.last_icp_count)
+    else:
+        ate, dense, icp = _check_run(label, state, est, poses)
+    frames_run = MODE_STEPS + 1
+    want = dict.fromkeys(launches, frames_run)
+    if not cfg.normal_pca:
+        want["normal_pca"] = 0
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, expected {want}")
+    if syncs:
+        raise RuntimeError(f"{label}: {syncs} host syncs over {MODE_STEPS} steps")
+    live = torch.stack([c[2].live_iters for c in calls]).cpu().numpy()
+    out = dict(ate_mm=ate * 1e3, dense_frac=dense, last_icp_count=icp, host_syncs=syncs,
+               launches=launches, step_ms=step_ms,
+               median_step_ms=float(np.median(step_ms[1:])),
+               live_iters=live.tolist(), budget=list(cfg.pyramid_iterations))
+    out.update(_track_card_vs_cpu(label, calls[-1][0], cfg))
+    print(f"{label}: ATE {out['ate_mm']:.3f} mm{' (not gated)' if name in UNGATED_MODES else ''}, "
+          f"dense_frac {dense:.4f}, last_icp_count {icp:.0f}, median step "
+          f"{out['median_step_ms']:.2f} ms (steps 2-{MODE_STEPS}), host syncs {syncs}, "
+          f"launches {json.dumps(launches)}; last track card vs CPU "
+          f"{out['card_vs_cpu_rad']:.3g} rad, {out['card_vs_cpu_m']:.3g} m "
+          f"(CPU track {out['cpu_track_s']:.1f} s; the CPU on 1 vs {out['cpu_threads']} threads "
+          f"{out['cpu_1_thread_rad']:.3g} rad, {out['cpu_1_thread_m']:.3g} m)")
+    return out, calls
+
+
+def phase_tracking_modes(poses, frames, smi) -> dict:
+    """The dense step under each tracking and normal setting (13 modes) and
+    the default beside them, each bootstrap + MODE_STEPS steps on the
+    card in one call; then one ``track(rgb_only=True)`` from the default
+    run's last inputs, card against CPU."""
+    t_phase = time.perf_counter()
+    out = {}
+    default, calls = _mode_run("default", BENCH_CFG, poses, frames)
+    out["default"] = default
+    r = out["rgb_only_track"] = _track_card_vs_cpu(
+        "track(rgb_only=True)", calls[-1][0], BENCH_CFG, rgb_only=True, tol=RGB_ONLY_TOL)
+    print(f"tracking modes: track(rgb_only=True) from the default run's last inputs: moved "
+          f"{r['moved_m'] * 1e3:.3f} mm, card vs CPU {r['card_vs_cpu_rad']:.3g} rad, "
+          f"{r['card_vs_cpu_m']:.3g} m (the CPU on 1 vs {r['cpu_threads']} threads "
+          f"{r['cpu_1_thread_rad']:.3g} rad, {r['cpu_1_thread_m']:.3g} m)")
+    for name, fields in TRACKING_MODES.items():
+        cfg = dataclasses.replace(BENCH_CFG, **fields)
+        out[name], _ = _mode_run(name, cfg, poses, frames)
+    live = np.array(out["converge_eps"]["live_iters"])
+    print(f"tracking modes: converge_eps {MODE_EPS}: live iterations per step and level "
+          f"(finest first) {live.tolist()} of {out['converge_eps']['budget']}")
+    if not (live[:, 0] < BENCH_CFG.pyramid_iterations[0]).any():
+        raise RuntimeError(f"converge_eps {MODE_EPS} never stopped the finest level early")
+    print(f"tracking modes: median step ms (steps 2-{MODE_STEPS}, sync-debug mode on, {smi}): "
+          + ", ".join(f"{k} {v['median_step_ms']:.2f}" for k, v in out.items()
+                      if "median_step_ms" in v))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"tracking modes: phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     name, smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -1843,6 +2029,9 @@ def main() -> None:
     real = phase_run_tum(dev)
     real["device"] = smi
     print(json.dumps({"run_tum": real}, default=float))
+    modes = phase_tracking_modes(poses, frames, smi)
+    modes["device"] = smi
+    print(json.dumps({"tracking_modes": modes}, default=float))
 
     rows = []
     for kname in kernels.LAUNCHES:
@@ -1859,6 +2048,8 @@ def main() -> None:
         row["replay_launches"] = real["replay"]["launches"][kname]
         row["checkpoint_launches"] = real["checkpoint"]["launches"][kname]
         row["splat_launches"] = real["splat"]["launches"][kname]
+        row["tracking_modes_launches"] = {k: v["launches"][kname] for k, v in modes.items()
+                                          if isinstance(v, dict) and "launches" in v}
         if kname == "bilateral_filter":
             row["keyframe_launches"] = full["tracked"]["keyframe_bilateral_launches"]
         if kname == "raycast_core":

@@ -8,7 +8,7 @@ import math
 import torch
 
 from ..config import CameraIntrinsics
-from ..utils.tensors import device_or_card
+from ..utils.tensors import const, device_or_card
 
 
 def pixel_grid(h: int, w: int, device=None, dtype=torch.float32):
@@ -46,6 +46,12 @@ def in_bounds(u: torch.Tensor, v: torch.Tensor, intr: CameraIntrinsics):
     vi = torch.round(v).to(torch.int32)
     ok = (ui >= 0) & (vi >= 0) & (ui < intr.width) & (vi < intr.height)
     return ui, vi, ok
+
+
+def intrinsic_matrix(intr: CameraIntrinsics, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The 3x3 pinhole matrix K on ``device`` (default the CUDA card)."""
+    return const([[intr.fx, 0.0, intr.cx], [0.0, intr.fy, intr.cy], [0.0, 0.0, 1.0]],
+                 device_or_card(device), dtype)
 
 
 def mean_focal(intr: CameraIntrinsics) -> float:

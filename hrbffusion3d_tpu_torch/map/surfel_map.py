@@ -450,6 +450,12 @@ def compact(m: SurfelMap, keep: torch.Tensor) -> SurfelMap:
     return SurfelMap(data=data, count=new_count)
 
 
+def clean(m: SurfelMap, pose: torch.Tensor, index_map: torch.Tensor,
+          intr: CameraIntrinsics, cfg: SLAMConfig, time: int) -> SurfelMap:
+    """The cleaning pass and stream compaction (clean_mask, compact)."""
+    return compact(m, clean_mask(m, pose, index_map, intr, cfg, time))
+
+
 def clean_with_remap(m: SurfelMap, pose: torch.Tensor, index_map: torch.Tensor,
                      intr: CameraIntrinsics, cfg: SLAMConfig, time: int,
                      attr: torch.Tensor | None = None):

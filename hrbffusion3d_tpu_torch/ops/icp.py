@@ -1,11 +1,20 @@
-"""Tracking residuals and normal equations on torch tensors (port of the
-default joint-nearest path of ``hrbffusion3d_tpu/ops/icp.py``).
+"""Tracking residuals and normal equations on torch tensors (port of
+``hrbffusion3d_tpu/ops/icp.py``):
+  ICPReduction::search/getProducts (reduce.cu:253-573) -> :func:`icp_step`
+  RGBResidual (reduce.cu:942-1154)                     -> :func:`rgb_residual`
+  RGBReduction (reduce.cu:697-896)                     -> :func:`rgb_step`
+  SO3Reduction (reduce.cu:1156-1359)                   -> :func:`so3_step`
+and the fused single-gather pass :func:`joint_step` with its
+fixed-correspondence, subsampled, top-k and patch-anchored variants.
 
 Every pixel contributes a row [J | r]; the 6x6 system is one weighted Gram
-product.  The ICP target, the depth and the intensity all come from the
-same rounded pixel, so one 9-channel row gather per Gauss-Newton iteration
-serves both terms (the reference's nearest-pixel photometric lookup).
-Matrix products assume full float32 (TF32 off on the card).
+product.  The model prediction is packed into rows so that one row gather
+per Gauss-Newton iteration fetches a pixel's correspondence: 9 channels
+[v n w d i] at the rounded pixel (``pack_joint_nearest``, the reference's
+nearest-pixel photometric lookup), 36 channels for the 2x2 bilinear
+footprint (``pack_joint``), or the separate pair ``pack_model`` /
+``pack_last`` of the ICP and photometric terms.  Everything here is plain
+PyTorch; matrix products assume full float32 (TF32 off on the card).
 """
 
 from __future__ import annotations
@@ -13,17 +22,17 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import CameraIntrinsics, SLAMConfig
 from ..core import camera
 from .patches import extract_patches
 
 
-def _gather(map2d: torch.Tensor, vi: torch.Tensor, ui: torch.Tensor) -> torch.Tensor:
-    """Clamped nearest-pixel gather. map2d: (H,W[,C]); vi/ui: (N,) int."""
-    h, w = map2d.shape[:2]
-    flat = map2d.reshape((h * w,) + tuple(map2d.shape[2:]))
-    return flat[(torch.clamp(vi, 0, h - 1) * w + torch.clamp(ui, 0, w - 1)).long()]
+def _flat(vi: torch.Tensor, ui: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Flat row index of the clamped integer pixel (vi, ui)."""
+    return (torch.clamp(vi.to(torch.int32), 0, h - 1) * w
+            + torch.clamp(ui.to(torch.int32), 0, w - 1)).long()
 
 
 def _gram(rows: torch.Tensor, weight: torch.Tensor):
@@ -32,11 +41,50 @@ def _gram(rows: torch.Tensor, weight: torch.Tensor):
     return S[:6, :6], S[:6, 6], S[6, 6]
 
 
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(x, dim=-1)
+
+
+def _project(vcurr_cp: torch.Tensor, intr: CameraIntrinsics):
+    """(z, u0f, v0f) of previous-camera-frame points."""
+    z = vcurr_cp[:, 2]
+    safe_z = torch.where(torch.abs(z) > 1e-12, z, 1e-12)
+    return (z, vcurr_cp[:, 0] * intr.fx / safe_z + intr.cx,
+            vcurr_cp[:, 1] * intr.fy / safe_z + intr.cy)
+
+
+def _icp_rows(found, s_cp, d_cp, n_cp, wp, cfg: SLAMConfig):
+    """Point-to-plane rows [n | s x n | n.(s - d)] in the previous camera
+    frame (reduce.cu:474-507) -> StepResult."""
+    r = torch.sum(n_cp * (s_cp - d_cp), dim=-1)
+    rows = torch.cat([n_cp, _cross(s_cp, n_cp), r[:, None]], dim=-1)
+    rows = torch.where(found[:, None], rows, 0.0)
+    if cfg.icp_use_weighted:
+        weight = torch.where(found & torch.isfinite(wp), wp, 0.0)
+    else:
+        weight = found.to(rows.dtype)
+    A, b, r2 = _gram(rows, weight)
+    return StepResult(A=A, b=b, residual2=r2, count=found.sum(dtype=torch.float32))
+
+
 class StepResult(NamedTuple):
     A: torch.Tensor
     b: torch.Tensor
     residual2: torch.Tensor
     count: torch.Tensor
+
+
+class SparseICPExtras(NamedTuple):
+    """Per-pixel data the sparse-ICP ADMM lambda update needs after the
+    pose solve (updateLambdaMapKernel, cudafuncs.cu:1030-1075)."""
+
+    found: torch.Tensor   # (N,) bool correspondence mask
+    d_cp: torch.Tensor    # (N,3) unmodified target point, previous camera frame
+    z: torch.Tensor       # (N,3) shrinkage variable of this iteration
 
 
 class RGBCorres(NamedTuple):
@@ -49,6 +97,72 @@ class RGBCorres(NamedTuple):
     count: torch.Tensor
 
 
+def _rgb_corres(u0f, v0f, d0, i_last, td1, i_next, static_valid, in_last, cfg) -> RGBCorres:
+    """The photometric gate and residual at a warp (reduce.cu:1030-1040)."""
+    depth_ok = (d0 > 0) & (torch.abs(td1 - d0) <= cfg.max_depth_delta_rgb) & (i_last != 0)
+    valid = static_valid & in_last & depth_ok
+    diff = torch.where(valid, i_next - i_last, 0.0)
+    return RGBCorres(u0f=u0f, v0f=v0f, d0=d0, diff=diff, valid=valid,
+                     sigma_sum=torch.sum(diff * diff), count=valid.sum(dtype=torch.float32))
+
+
+def lp_shrink(h: torch.Tensor, mu: float, p: float, iters: int) -> torch.Tensor:
+    """The L_p proximal ("thrink") operator (reduce.cu:301-315): zero inside
+    the threshold, otherwise a fixed-point iteration on the shrink factor.
+    h: (..., 3)."""
+    alpha_a = ((2.0 / mu) * (1.0 - p)) ** (1.0 / (2.0 - p))
+    h_tilde = alpha_a + (p / mu) * alpha_a ** (p - 1.0)
+    h_norm = _norm(h)
+    safe = torch.clamp(h_norm, min=1e-12)
+    beta = (alpha_a / safe + 1.0) / 2.0
+    for _ in range(iters):
+        beta = 1.0 - (p / mu) * safe ** (p - 2.0) * beta ** (p - 1.0)
+    return torch.where((h_norm <= h_tilde)[..., None], 0.0, beta[..., None] * h)
+
+
+def sparse_icp_lambda_update(lam: torch.Tensor, extras: SparseICPExtras,
+                             R_curr_new: torch.Tensor, t_curr_new: torch.Tensor,
+                             R_prev_inv: torch.Tensor, t_prev: torch.Tensor,
+                             vmap_curr: torch.Tensor, mu: float) -> torch.Tensor:
+    """ADMM dual update after the pose solve (updateLambdaMapKernel):
+    lambda += mu * (s_cp(new pose) - d_cp - z) at found correspondences."""
+    vcurr = vmap_curr.reshape(lam.shape[0], 3)
+    s_cp = ((vcurr @ R_curr_new.T + t_curr_new) - t_prev) @ R_prev_inv.T
+    delta = s_cp - extras.d_cp - extras.z
+    return torch.where(extras.found[:, None], lam + mu * delta, lam)
+
+
+# ---------------------------------------------------------------------- #
+# packed per-level model data
+# ---------------------------------------------------------------------- #
+
+def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[y, x] = x[y + dy, x + dx], zero past the bottom / right edge."""
+    h, w = x.shape[:2]
+    pad = [0, 0] * (x.ndim - 2) + [0, dx, 0, dy]
+    return F.pad(x, pad)[dy:dy + h, dx:dx + w]
+
+
+def pack_model(vmap_g: torch.Tensor, nmap_g: torch.Tensor,
+               icp_weight: torch.Tensor) -> torch.Tensor:
+    """(H,W,3)+(H,W,3)+(H,W) -> (H*W, 8) packed model rows [v n w 0] for
+    icp_step."""
+    P = icp_weight.numel()
+    return torch.cat([vmap_g.reshape(P, 3), nmap_g.reshape(P, 3), icp_weight.reshape(P, 1),
+                      icp_weight.new_zeros(P, 1)], dim=-1)
+
+
+def pack_last(last_depth: torch.Tensor, last_intensity: torch.Tensor) -> torch.Tensor:
+    """(H,W)x2 -> (H*W, 8) rows of the 2x2 bilinear footprint
+    [d00,i00,d01,i01,d10,i10,d11,i11] (shifted copies, zero past the far
+    edges), so one row gather at the floor pixel fetches all four corners."""
+    P = last_depth.numel()
+    cols = []
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        cols += [_shift(last_depth, dy, dx).reshape(P), _shift(last_intensity, dy, dx).reshape(P)]
+    return torch.stack(cols, dim=-1)
+
+
 def pack_joint_nearest(vmap_g: torch.Tensor, nmap_g: torch.Tensor,
                        icp_weight: torch.Tensor, last_depth: torch.Tensor,
                        last_intensity: torch.Tensor) -> torch.Tensor:
@@ -59,73 +173,285 @@ def pack_joint_nearest(vmap_g: torch.Tensor, nmap_g: torch.Tensor,
                       last_intensity.reshape(P, 1)], dim=-1)
 
 
+def pack_joint(vmap_g: torch.Tensor, nmap_g: torch.Tensor, icp_weight: torch.Tensor,
+               last_depth: torch.Tensor, last_intensity: torch.Tensor) -> torch.Tensor:
+    """(H*W, 36) rows of [v(3) n(3) w d i] for the 2x2 footprint (corners
+    00, 01, 10, 11 as shifted copies, zero past the far edges): the ICP
+    target (rounded pixel) and the bilinear photometric footprint (floor
+    pixel) lie in one 2x2 window, so one row gather serves both terms."""
+    h, w = icp_weight.shape
+    base = pack_joint_nearest(vmap_g, nmap_g, icp_weight, last_depth,
+                              last_intensity).reshape(h, w, 9)
+    return torch.cat([_shift(base, dy, dx).reshape(h * w, 9)
+                      for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1))], dim=-1)
+
+
+# ---------------------------------------------------------------------- #
+# patch-anchored association (cfg.tracking_patch_assoc)
+# ---------------------------------------------------------------------- #
+
+class PatchAssoc(NamedTuple):
+    """The (2R+1)^2-tap patch of model rows gathered once around the
+    level-entry warp pixel; each iteration then selects its tap by offset
+    with no gather.  Pixels whose rounded warp leaves the window lose their
+    correspondence for that iteration.  Tap payload [d, n_cp(3), w, i] in
+    the previous camera frame (the model vertex is derived from the tap
+    pixel and its depth)."""
+
+    rows: torch.Tensor   # (M, T*6) anchored patch rows, T = (2R+1)^2
+    au: torch.Tensor     # (M,) anchor pixel u (int32, unclamped)
+    av: torch.Tensor     # (M,) anchor pixel v
+    ok: torch.Tensor     # (M,) bool anchor in the image
+
+
+def pack_patch_base(last_depth: torch.Tensor, nmap_c: torch.Tensor,
+                    icp_weight: torch.Tensor, last_intensity: torch.Tensor) -> torch.Tensor:
+    """(H,W)x3 + (H,W,3) -> (H,W,6) base image [d, n_cp(3), w, i]; the
+    normal is in the previous CAMERA frame."""
+    return torch.cat([last_depth[..., None], nmap_c, icp_weight[..., None],
+                      last_intensity[..., None]], dim=-1)
+
+
+def build_patch_table(base6: torch.Tensor, radius: int) -> torch.Tensor:
+    """(H,W,6) -> (H*W, T*6) patch table of shifted copies (out-of-image
+    taps are zero, so d = 0 marks them invalid).  Tap order
+    d = (dy+R)*(2R+1) + (dx+R)."""
+    h, w = base6.shape[:2]
+    return extract_patches(base6, radius).reshape(h * w, (2 * radius + 1) ** 2 * 6)
+
+
+def _warp_cp(R_curr, t_curr, R_prev_inv, t_prev, vcurr):
+    """Current-frame points -> (world, previous camera frame)."""
+    vcurr_g = vcurr @ R_curr.T + t_curr
+    return vcurr_g, (vcurr_g - t_prev) @ R_prev_inv.T
+
+
+def patch_anchor(R_curr: torch.Tensor, t_curr: torch.Tensor,
+                 R_prev_inv: torch.Tensor, t_prev: torch.Tensor,
+                 vcurr: torch.Tensor, table: torch.Tensor,
+                 intr: CameraIntrinsics) -> PatchAssoc:
+    """Anchor the patch association at the current warp: one wide row
+    gather of the (2R+1)^2-tap patch per tracked pixel."""
+    h, w = intr.height, intr.width
+    _, vcurr_cp = _warp_cp(R_curr, t_curr, R_prev_inv, t_prev, vcurr)
+    z, u0f, v0f = _project(vcurr_cp, intr)
+    ui = torch.round(u0f).to(torch.int32)
+    vi = torch.round(v0f).to(torch.int32)
+    ok = (ui >= 0) & (vi >= 0) & (ui < w) & (vi < h) & (z > 0)
+    return PatchAssoc(rows=table[_flat(vi, ui, h, w)], au=ui, av=vi, ok=ok)
+
+
+def joint_step_patch(R_curr: torch.Tensor, t_curr: torch.Tensor,
+                     R_prev_inv: torch.Tensor, t_prev: torch.Tensor,
+                     patch: PatchAssoc, radius: int,
+                     vcurr: torch.Tensor, ncurr: torch.Tensor, valid_curr: torch.Tensor,
+                     i_next: torch.Tensor, static_valid: torch.Tensor,
+                     intr: CameraIntrinsics, cfg: SLAMConfig):
+    """One gather-free joint GN pass against the anchored patch: where the
+    rounded warp stays inside the anchor window the association equals
+    joint_step's nearest-pixel one; out-of-window pixels drop their
+    correspondence.  The system is assembled in the previous camera frame.
+    Returns (icp StepResult, RGBCorres)."""
+    h, w = intr.height, intr.width
+    D = 2 * radius + 1
+    _, vcurr_cp = _warp_cp(R_curr, t_curr, R_prev_inv, t_prev, vcurr)
+    # normals straight into the previous camera frame (|cross| is rotation
+    # invariant, so the angle gate is unchanged)
+    ncurr_cp = ncurr @ (R_prev_inv @ R_curr).T
+    z, u0f, v0f = _project(vcurr_cp, intr)
+    ui = torch.round(u0f).to(torch.int32)
+    vi = torch.round(v0f).to(torch.int32)
+    du = ui - patch.au
+    dv = vi - patch.av
+    inwin = (torch.abs(du) <= radius) & (torch.abs(dv) <= radius) & patch.ok
+    tap = torch.clamp((dv + radius) * D + (du + radius), 0, D * D - 1).long()
+    r = torch.gather(patch.rows.reshape(-1, D * D, 6), 1,
+                     tap[:, None, None].expand(-1, 1, 6))[:, 0]
+    d0, n_cp, wp, i_last = r[:, 0], r[:, 1:4], r[:, 4], r[:, 5]
+    # model vertex from the tap pixel and its depth (the prediction is on-ray)
+    d_cp = torch.stack([(ui.to(torch.float32) - intr.cx) * d0 * (1.0 / intr.fx),
+                        (vi.to(torch.float32) - intr.cy) * d0 * (1.0 / intr.fy), d0], dim=-1)
+    in_img = (ui >= 0) & (vi >= 0) & (ui < w) & (vi < h) & (z > 0)
+    ok = in_img & inwin & valid_curr & (d0 > 0) & (torch.sum(n_cp * n_cp, dim=-1) > 1e-6)
+    dist = _norm(d_cp - vcurr_cp)
+    sine = _norm(_cross(ncurr_cp, n_cp))
+    found = ok & (sine <= cfg.angle_threshold) & (dist <= cfg.dist_threshold)
+    icp_res = _icp_rows(found, vcurr_cp, d_cp, n_cp, wp, cfg)
+
+    in_last = (u0f >= 0) & (v0f >= 0) & (u0f <= w - 1) & (v0f <= h - 1) & (z > 0)
+    corres = _rgb_corres(u0f, v0f, d0, i_last, z, i_next, static_valid & inwin, in_last, cfg)
+    return icp_res, corres
+
+
+# ---------------------------------------------------------------------- #
+# subsampled and top-k pixel sets (cfg.tracking_subsample, tracking_topk)
+# ---------------------------------------------------------------------- #
+
+class SubPixels(NamedTuple):
+    """Pose-invariant current-frame inputs of the subsampled GN iterations:
+    the per-pixel arrays joint_step / rgb_step read, gathered at a pixel
+    subset."""
+
+    vcurr: torch.Tensor         # (M,3) unprojected current depth
+    ncurr: torch.Tensor         # (M,3)
+    valid: torch.Tensor         # (M,) bool ICP validity gate
+    i_next: torch.Tensor        # (M,) current intensity
+    static_valid: torch.Tensor  # (M,) bool photometric static gate
+    gx: torch.Tensor            # (M,) Sobel dI/dx
+    gy: torch.Tensor            # (M,) Sobel dI/dy
+
+
+def _valid_curr(vmap_curr: torch.Tensor, ncurr: torch.Tensor) -> torch.Tensor:
+    """The live frame's ICP gate: depth and a unit-ish normal."""
+    return (vmap_curr.reshape(-1, 3)[:, 2] > 0) & (torch.sum(ncurr * ncurr, dim=-1) > 0.25)
+
+
+def _sub_pixels_at(ids: torch.Tensor, vmap_curr, nmap_curr, next_depth, next_image,
+                   static_valid, d_idx, d_idy, intr: CameraIntrinsics) -> SubPixels:
+    """The SubPixels bundle at flat pixel ids, with one (M, 11) row gather."""
+    P = intr.height * intr.width
+    vcurr = camera.unproject(next_depth, intr).reshape(P, 3)
+    ncurr = nmap_curr.reshape(P, 3)
+    tbl = torch.cat([
+        vcurr, ncurr, _valid_curr(vmap_curr, ncurr)[:, None].to(torch.float32),
+        next_image.reshape(P, 1), static_valid.reshape(P, 1).to(torch.float32),
+        d_idx.reshape(P, 1), d_idy.reshape(P, 1)], dim=-1)
+    r = tbl[ids.long()]
+    return SubPixels(vcurr=r[:, 0:3], ncurr=r[:, 3:6], valid=r[:, 6] > 0.5, i_next=r[:, 7],
+                     static_valid=r[:, 8] > 0.5, gx=r[:, 9], gy=r[:, 10])
+
+
+def pack_sub_pixels(stride: int, vmap_curr, nmap_curr, next_depth, next_image,
+                    static_valid, d_idx, d_idy, intr: CameraIntrinsics) -> SubPixels:
+    """The SubPixels bundle at the stride-decimated pixel grid."""
+    h, w = intr.height, intr.width
+    dev = next_depth.device
+    yy = torch.arange(0, h, stride, dtype=torch.int64, device=dev)
+    xx = torch.arange(0, w, stride, dtype=torch.int64, device=dev)
+    ids = (yy[:, None] * w + xx[None, :]).reshape(-1)
+    return _sub_pixels_at(ids, vmap_curr, nmap_curr, next_depth, next_image,
+                          static_valid, d_idx, d_idy, intr)
+
+
+def saliency_ids(k: int, vmap_curr, nmap_curr, next_image, static_valid, d_idx, d_idy,
+                 intr: CameraIntrinsics, k1=None, k2=None) -> torch.Tensor:
+    """The k most informative tracked pixels: score = normalised |grad I|^2
+    + normalised clipped (|k1| + |k2|) + a pixel-hash dither that fills the
+    remaining slots uniformly over the valid set; invalid pixels score -1.
+    Row-stratified: the k // h best of every scanline (effective k is
+    (k // h) * h), ties to the lower column as ``jax.lax.top_k`` breaks
+    them.  Returns (k_eff,) int64 flat ids, ascending."""
+    h, w = intr.height, intr.width
+    P = h * w
+    dev = next_image.device
+    valid = _valid_curr(vmap_curr, nmap_curr.reshape(P, 3))
+    sv = static_valid.reshape(P)
+    g2 = torch.where(sv, d_idx.reshape(P) ** 2 + d_idy.reshape(P) ** 2, 0.0)
+    g2n = g2 / torch.clamp(torch.sum(g2) / torch.clamp(sv.sum(dtype=torch.float32), min=1.0),
+                           min=1e-12)
+    score = torch.clamp(g2n, max=8.0)
+    if k1 is not None:
+        c = torch.where(valid, torch.clamp(torch.abs(k1.reshape(P)) + torch.abs(k2.reshape(P)),
+                                           max=50.0), 0.0)
+        cn = c / torch.clamp(torch.sum(c) / torch.clamp(valid.sum(dtype=torch.float32),
+                                                        min=1.0), min=1e-12)
+        score = score + torch.clamp(cn, max=8.0)
+    # uniform dither in [0, 1): a Weyl sequence on the pixel id, the uint32
+    # product modulo 2^32 taken in int64
+    ids_all = torch.arange(P, dtype=torch.int64, device=dev)
+    dither = (((ids_all * 2654435761) & 0xFFFFFFFF) >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    score = torch.where(valid | sv, score + dither, -1.0)
+    k_row = max(1, k // h)
+    # a stable descending sort puts equal scores in column order: the
+    # first k_row are lax.top_k's choice
+    ci = torch.sort(score.reshape(h, w), dim=1, descending=True, stable=True).indices[:, :k_row]
+    ci = torch.sort(ci, dim=1).values
+    return (torch.arange(h, dtype=torch.int64, device=dev)[:, None] * w + ci).reshape(-1)
+
+
 def joint_cur_pack(vmap_curr, nmap_curr, next_depth, intr: CameraIntrinsics):
     """Pose-invariant per-pixel inputs of joint_step: (vcurr, ncurr,
     valid_curr), computed once per pyramid level."""
-    h, w = vmap_curr.shape[:2]
-    n_pix = h * w
+    n_pix = vmap_curr.shape[0] * vmap_curr.shape[1]
     vcurr = camera.unproject(next_depth, intr).reshape(n_pix, 3)
     ncurr = nmap_curr.reshape(n_pix, 3)
-    valid = (vmap_curr.reshape(n_pix, 3)[:, 2] > 0) & (torch.sum(ncurr * ncurr, dim=-1) > 0.25)
-    return vcurr, ncurr, valid
+    return vcurr, ncurr, _valid_curr(vmap_curr, ncurr)
 
 
 def joint_step(R_curr: torch.Tensor, t_curr: torch.Tensor,
                R_prev_inv: torch.Tensor, t_prev: torch.Tensor,
+               vmap_curr: torch.Tensor, nmap_curr: torch.Tensor,
+               next_depth: torch.Tensor,
                joint_rows: torch.Tensor, next_image: torch.Tensor,
-               static_valid: torch.Tensor, cur_pack,
-               intr: CameraIntrinsics, cfg: SLAMConfig):
-    """Fused ICP + photometric correspondence pass sharing ONE row gather of
-    the pack_joint_nearest table at the rounded warp.  Returns (icp
-    StepResult, RGBCorres)."""
+               static_valid: torch.Tensor,
+               intr: CameraIntrinsics, cfg: SLAMConfig,
+               assoc_prev: torch.Tensor | None = None,
+               do_gather: bool | None = None,
+               nearest: bool = False,
+               cur_pack=None,
+               sub: SubPixels | None = None):
+    """Fused ICP + photometric correspondence pass sharing ONE row gather.
+
+    ``nearest``: ``joint_rows`` is the 9-channel ``pack_joint_nearest``
+    table, fetched at the rounded warp; else the 36-channel ``pack_joint``
+    table, fetched at the floor pixel: the ICP target is the nearest of
+    the four corners and the photometric intensity is bilinear.
+    ``assoc_prev`` / ``do_gather``: fixed-correspondence iterations: when
+    ``do_gather`` is False the carried association rows [v(3) n(3) w d i]
+    are reused and the gather is skipped; residuals, gates and Jacobians
+    are still recomputed under the current pose.  ``cur_pack``: the
+    hoisted ``joint_cur_pack``; ``sub``: a subsampled current-frame pixel
+    set (the model table stays full size).
+    Returns (icp StepResult, RGBCorres, assoc (N, 9))."""
     h, w = intr.height, intr.width
-    vcurr, ncurr, valid_curr = cur_pack
-    i_next = next_image.reshape(h * w)
+    if sub is not None:
+        vcurr, ncurr, valid_curr = sub.vcurr, sub.ncurr, sub.valid
+        i_next = sub.i_next
+        static_valid = sub.static_valid
+    else:
+        vcurr, ncurr, valid_curr = (cur_pack if cur_pack is not None else
+                                    joint_cur_pack(vmap_curr, nmap_curr, next_depth, intr))
+        i_next = next_image.reshape(h * w)
 
-    vcurr_g = vcurr @ R_curr.T + t_curr
+    vcurr_g, vcurr_cp = _warp_cp(R_curr, t_curr, R_prev_inv, t_prev, vcurr)
     ncurr_g = ncurr @ R_curr.T
-    vcurr_cp = (vcurr_g - t_prev) @ R_prev_inv.T
-    z = vcurr_cp[:, 2]
-    safe_z = torch.where(torch.abs(z) > 1e-12, z, 1e-12)
-    u0f = vcurr_cp[:, 0] * intr.fx / safe_z + intr.cx
-    v0f = vcurr_cp[:, 1] * intr.fy / safe_z + intr.cy
-
+    z, u0f, v0f = _project(vcurr_cp, intr)
     ui = torch.round(u0f).to(torch.int32)
     vi = torch.round(v0f).to(torch.int32)
-    assoc = joint_rows[(torch.clamp(vi, 0, h - 1) * w + torch.clamp(ui, 0, w - 1)).long()]
-    vp = assoc[:, 0:3]
-    np_ = assoc[:, 3:6]
-    wp = assoc[:, 6]
-    d0 = assoc[:, 7]
-    i_last = assoc[:, 8]
+
+    def gather_assoc():
+        if nearest:
+            return joint_rows[_flat(vi, ui, h, w)]
+        # floor pixel clamped before the fraction, so that boundary pixels
+        # select corner 00 at the clamped pixel
+        u0 = torch.clamp(torch.floor(u0f).to(torch.int32), 0, w - 1)
+        v0 = torch.clamp(torch.floor(v0f).to(torch.int32), 0, h - 1)
+        au = u0f - u0.to(torch.float32)
+        av = v0f - v0.to(torch.float32)
+        c = joint_rows[(v0 * w + u0).long()]                       # (N, 36)
+        near_u = (au > 0.5)[:, None]
+        sel = torch.where((av > 0.5)[:, None],
+                          torch.where(near_u, c[:, 27:36], c[:, 18:27]),
+                          torch.where(near_u, c[:, 9:18], c[:, 0:9]))
+        i00, i01, i10, i11 = c[:, 8], c[:, 17], c[:, 26], c[:, 35]
+        i_last = (i00 * (1 - au) * (1 - av) + i01 * au * (1 - av)
+                  + i10 * (1 - au) * av + i11 * au * av)
+        return torch.cat([sel[:, 0:8], i_last[:, None]], dim=-1)
+
+    assoc = gather_assoc() if assoc_prev is None or do_gather else assoc_prev
+    vp, np_, wp, d0, i_last = assoc[:, 0:3], assoc[:, 3:6], assoc[:, 6], assoc[:, 7], assoc[:, 8]
 
     in_img = (ui >= 0) & (vi >= 0) & (ui < w) & (vi < h) & (z > 0)
     ok = in_img & valid_curr & (vp[:, 2] != 0) & (torch.sum(np_ * np_, dim=-1) > 1e-6)
-    dist = torch.linalg.vector_norm(vp - vcurr_g, dim=-1)
-    sine = torch.linalg.vector_norm(torch.linalg.cross(ncurr_g, np_, dim=-1), dim=-1)
+    dist = _norm(vp - vcurr_g)
+    sine = _norm(_cross(ncurr_g, np_))
     found = ok & (sine <= cfg.angle_threshold) & (dist <= cfg.dist_threshold)
-
-    s_cp = vcurr_cp
-    d_cp = (vp - t_prev) @ R_prev_inv.T
-    n_cp = np_ @ R_prev_inv.T
-    r = torch.sum(n_cp * (s_cp - d_cp), dim=-1)
-    rows = torch.cat([n_cp, torch.linalg.cross(s_cp, n_cp, dim=-1), r[:, None]], dim=-1)
-    rows = torch.where(found[:, None], rows, 0.0)
-    if cfg.icp_use_weighted:
-        weight = torch.where(found & torch.isfinite(wp), wp, 0.0)
-    else:
-        weight = found.to(rows.dtype)
-    A, b, r2 = _gram(rows, weight)
-    icp_res = StepResult(A=A, b=b, residual2=r2, count=found.sum(dtype=torch.float32))
+    icp_res = _icp_rows(found, vcurr_cp, (vp - t_prev) @ R_prev_inv.T, np_ @ R_prev_inv.T,
+                        wp, cfg)
 
     in_last = (u0f >= 0) & (v0f >= 0) & (u0f <= w - 1) & (v0f <= h - 1) & (z > 0)
-    depth_ok = (d0 > 0) & (torch.abs(z - d0) <= cfg.max_depth_delta_rgb) & (i_last != 0)
-    rgb_valid = static_valid & in_last & depth_ok
-    diff = torch.where(rgb_valid, i_next - i_last, 0.0)
-    corres = RGBCorres(u0f=u0f, v0f=v0f, d0=d0, diff=diff, valid=rgb_valid,
-                       sigma_sum=torch.sum(diff * diff),
-                       count=rgb_valid.sum(dtype=torch.float32))
-    return icp_res, corres
+    corres = _rgb_corres(u0f, v0f, d0, i_last, z, i_next, static_valid, in_last, cfg)
+    return icp_res, corres, assoc
 
 
 def rgb_static_valid(next_image: torch.Tensor, d_idx: torch.Tensor,
@@ -146,6 +472,141 @@ def rgb_static_valid(next_image: torch.Tensor, d_idx: torch.Tensor,
     gy = d_idy.reshape(P)
     strong = (gx * gx + gy * gy) >= min_scale
     return in_range & not_isolated & strong & (next_depth.reshape(P) > 0)
+
+
+# ---------------------------------------------------------------------- #
+# ICP
+# ---------------------------------------------------------------------- #
+
+def icp_step(R_curr: torch.Tensor, t_curr: torch.Tensor,
+             R_prev_inv: torch.Tensor, t_prev: torch.Tensor,
+             vmap_curr: torch.Tensor, nmap_curr: torch.Tensor,
+             model_rows: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfig,
+             k1_curr: torch.Tensor | None = None, k2_curr: torch.Tensor | None = None,
+             k1_prev: torch.Tensor | None = None, k2_prev: torch.Tensor | None = None,
+             sparse_lambda: torch.Tensor | None = None):
+    """Projective-association point-to-plane ICP normal equations
+    (reduce.cu:253-573).  The live maps are in their camera frame;
+    ``model_rows`` (``pack_model``) hold the prediction in the WORLD frame;
+    the system is assembled in the previous camera frame.
+
+    With ``cfg.icp_use_correspondence_search`` the (2R+1)^2 window around
+    the projected pixel is scored by p = (D_p + D_n + D_c)/3
+    (reduce.cu:349-430; D_p alone without the curvature maps) and the
+    lowest-scoring valid tap wins (the first in window order on a tie);
+    else the nearest projective tap.  With ``sparse_lambda`` (sparse ICP,
+    reduce.cu:479-492) the target moves to d' = d + z - lambda/mu and the
+    result is (StepResult, SparseICPExtras)."""
+    h, w = vmap_curr.shape[:2]
+    n_pix = h * w
+    vcurr = vmap_curr.reshape(n_pix, 3)
+    ncurr = nmap_curr.reshape(n_pix, 3)
+    valid_curr = (vcurr[:, 2] > 0) & (torch.sum(ncurr * ncurr, dim=-1) > 0.25)
+    vcurr_g, s_cp = _warp_cp(R_curr, t_curr, R_prev_inv, t_prev, vcurr)
+    ncurr_g = ncurr @ R_curr.T
+    z, uf, vf = _project(s_cp, intr)
+    u = torch.round(uf).to(torch.int32)
+    v = torch.round(vf).to(torch.int32)
+    in_img = (u >= 0) & (v >= 0) & (u < w) & (v < h) & (z > 0)
+
+    search = cfg.icp_use_correspondence_search
+    radius = cfg.icp_search_radius if search else 0
+    dev = vmap_curr.device
+    offs = torch.arange(-radius, radius + 1, dtype=torch.int32, device=dev)
+    # every tap of the window at once: (T, N), T in row-major window order
+    vi = (v[None, :] + offs.repeat_interleave(2 * radius + 1)[:, None])
+    ui = (u[None, :] + offs.repeat(2 * radius + 1)[:, None])
+    flat = _flat(vi, ui, h, w)
+    rows = model_rows[flat]                                       # (T, N, 8)
+    vp, np_, wp = rows[..., 0:3], rows[..., 3:6], rows[..., 6]
+    ok = (in_img & (vi >= 0) & (vi < h) & (ui >= 0) & (ui < w)
+          & (vp[..., 2] != 0) & (torch.sum(np_ * np_, dim=-1) > 1e-6))
+    dist = _norm(vp - vcurr_g)
+    sine = _norm(_cross(ncurr_g.expand_as(np_), np_))
+    ok = ok & (sine <= cfg.angle_threshold) & (dist <= cfg.dist_threshold)
+
+    if search:
+        d_p_r = torch.amax(torch.where(ok, dist, -1e8), dim=0)
+        p = dist / torch.clamp(d_p_r, min=1e-12)
+        if k1_curr is not None and k1_prev is not None:
+            k1c = k1_curr.reshape(n_pix)
+            k2c = k2_curr.reshape(n_pix)
+            k1p = k1_prev.reshape(n_pix)[flat]
+            k2p = k2_prev.reshape(n_pix)[flat]
+            ckmax = torch.clamp(torch.maximum(torch.abs(k1p), torch.abs(k2p)), min=1e-6)
+            d_n = 1.0 - torch.sum(np_ * ncurr_g, dim=-1)
+            d_c = 1.0 - (torch.exp(-torch.abs(k1p - k1c) / ckmax)
+                         * torch.exp(-torch.abs(k2p - k2c) / ckmax))
+            p = (p + d_n + d_c) / 3.0
+        # the reference's running best with a strict '<' from 1e8: the
+        # first tap of least score among the valid ones
+        cand = ok & (p < 1e8)
+        best = torch.argmin(torch.where(cand, p, float("inf")), dim=0)
+        sel = torch.gather(rows, 0, best.view(1, -1, 1).expand(1, -1, rows.shape[-1]))[0]
+        sel = torch.where(cand.any(dim=0)[:, None], sel, 0.0)
+        best_v, best_n, best_w = sel[:, 0:3], sel[:, 3:6], sel[:, 6]
+        found = ok.any(dim=0)
+    else:
+        best_v, best_n, best_w, found = vp[0], np_[0], wp[0], ok[0]
+    found = found & valid_curr
+
+    d_cp = (best_v - t_prev) @ R_prev_inv.T
+    n_cp = best_n @ R_prev_inv.T
+    if sparse_lambda is None:
+        return _icp_rows(found, s_cp, d_cp, n_cp, best_w, cfg)
+    # sparse ICP: shift the target by the shrinkage variable z and the
+    # scaled dual, d' = d + z - lambda/mu
+    mu = cfg.sparse_icp_mu
+    zs = lp_shrink(s_cp - d_cp + sparse_lambda / mu, mu, cfg.sparse_icp_p,
+                   cfg.sparse_icp_shrink_iters)
+    zs = torch.where(found[:, None], zs, 0.0)
+    res = _icp_rows(found, s_cp, d_cp + zs - sparse_lambda / mu, n_cp, best_w, cfg)
+    return res, SparseICPExtras(found=found, d_cp=d_cp, z=zs)
+
+
+# ---------------------------------------------------------------------- #
+# RGB
+# ---------------------------------------------------------------------- #
+
+def rgb_residual(krkinv: torch.Tensor, kt: torch.Tensor,
+                 next_depth: torch.Tensor, next_image: torch.Tensor,
+                 last_rows: torch.Tensor, static_valid: torch.Tensor,
+                 cfg: SLAMConfig) -> RGBCorres:
+    """Photometric correspondences and residual statistics
+    (reduce.cu:942-1154): NEXT pixels warped into the LAST image through
+    (K R K^-1, K t); the last [depth | intensity] comes from one row gather
+    of the ``pack_last`` table: at the rounded pixel with
+    ``cfg.tracking_rgb_nearest`` (the reference), else over the 2x2
+    footprint (intensity bilinear, depth of the nearest corner)."""
+    h, w = next_image.shape
+    n_pix = h * w
+    pix = torch.arange(n_pix, device=next_image.device)
+    xf = (pix % w).to(torch.float32)
+    yf = (pix // w).to(torch.float32)
+    d1 = next_depth.reshape(n_pix)
+    td1 = d1 * (krkinv[2, 0] * xf + krkinv[2, 1] * yf + krkinv[2, 2]) + kt[2]
+    safe_td1 = torch.where(torch.abs(td1) > 1e-12, td1, 1e-12)
+    u0f = (d1 * (krkinv[0, 0] * xf + krkinv[0, 1] * yf + krkinv[0, 2]) + kt[0]) / safe_td1
+    v0f = (d1 * (krkinv[1, 0] * xf + krkinv[1, 1] * yf + krkinv[1, 2]) + kt[1]) / safe_td1
+    in_last = (u0f >= 0) & (v0f >= 0) & (u0f <= w - 1) & (v0f <= h - 1)
+
+    if cfg.tracking_rgb_nearest:
+        c = last_rows[_flat(torch.round(v0f), torch.round(u0f), h, w)]
+        d0, i_last = c[:, 0], c[:, 1]
+    else:
+        u0 = torch.floor(u0f).to(torch.int32)
+        v0 = torch.floor(v0f).to(torch.int32)
+        au = u0f - u0.to(torch.float32)
+        av = v0f - v0.to(torch.float32)
+        c = last_rows[_flat(v0, u0, h, w)]
+        d00, i00, d01, i01, d10, i10, d11, i11 = c.unbind(-1)
+        i_last = (i00 * (1 - au) * (1 - av) + i01 * au * (1 - av)
+                  + i10 * (1 - au) * av + i11 * au * av)
+        # nearest-corner depth (the reference rounds, reduce.cu:1032)
+        near_u = au > 0.5
+        d0 = torch.where(av > 0.5, torch.where(near_u, d11, d10), torch.where(near_u, d01, d00))
+    return _rgb_corres(u0f, v0f, d0, i_last, td1, next_image.reshape(n_pix), static_valid,
+                       in_last, cfg)
 
 
 def rgb_step(corres: RGBCorres, sigma_val: torch.Tensor, d_idx: torch.Tensor,

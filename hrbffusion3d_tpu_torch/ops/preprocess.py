@@ -172,6 +172,25 @@ def normal_pca_ref(vertex_f: torch.Tensor, cfg: SLAMConfig, stats: bool = False)
     return (normals, cnt) if stats else normals
 
 
+def normal_central_diff(vertex_f: torch.Tensor, depth_raw: torch.Tensor,
+                        cfg: SLAMConfig) -> torch.Tensor:
+    """Central-difference normal (geometry.glsl:35-47) with the 4-neighbour
+    validity gate of utils.glsl checkNeighbours, flipped to n_z > 0 as the
+    PCA normal is; the image border is invalid."""
+    del_x = (torch.roll(vertex_f, 1, dims=1) - torch.roll(vertex_f, -1, dims=1)) * 0.5
+    del_y = (torch.roll(vertex_f, 1, dims=0) - torch.roll(vertex_f, -1, dims=0)) * 0.5
+    n = torch.linalg.cross(del_x, del_y, dim=-1)
+    n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-20)
+    n = n * torch.where(n[..., 2:3] < 0, -1.0, 1.0)
+    dz = depth_raw
+    ok = ((torch.roll(dz, 1, 1) > 0) & (torch.roll(dz, -1, 1) > 0)
+          & (torch.roll(dz, 1, 0) > 0) & (torch.roll(dz, -1, 0) > 0) & (dz > 0))
+    h, w = dz.shape
+    yy, xx = camera.pixel_grid(h, w, dz.device)
+    ok = ok & (xx >= 1) & (xx < w - 1) & (yy >= 1) & (yy < h - 1)
+    return torch.where(ok[..., None], n, 0.0)
+
+
 class VertexNormalRadius(NamedTuple):
     vertex_raw: torch.Tensor       # (H, W, 3)
     vertex_filtered: torch.Tensor  # (H, W, 3)
@@ -182,14 +201,12 @@ class VertexNormalRadius(NamedTuple):
 
 def vertex_normal_radius(depth_raw: torch.Tensor, depth_filtered: torch.Tensor,
                          intr: CameraIntrinsics, cfg: SLAMConfig) -> VertexNormalRadius:
-    """depth_vertex_normal_radius.frag: unproject raw + filtered depth, PCA
-    normal, initial radius = multiplier * surfel radius."""
-    if not cfg.normal_pca:
-        raise NotImplementedError("central-difference normals are not ported; "
-                                  "the port runs normal_pca")
+    """depth_vertex_normal_radius.frag: unproject raw + filtered depth, the
+    normal (PCA, or central differences when ``cfg.normal_pca`` is off),
+    initial radius = multiplier * surfel radius."""
     v_raw = camera.unproject(depth_raw, intr)
     v_f = camera.unproject(depth_filtered, intr)
-    n = normal_pca(v_f, cfg)
+    n = normal_pca(v_f, cfg) if cfg.normal_pca else normal_central_diff(v_f, depth_raw, cfg)
     rad = cfg.radius_multiplier * surfel_radius(v_f[..., 2], n[..., 2], intr)
     valid = ((torch.linalg.vector_norm(n, dim=-1) >= 0.3)
              & (v_raw[..., 2] >= cfg.depth_min) & (v_f[..., 2] >= cfg.depth_min))

@@ -113,7 +113,11 @@ def step(state: SLAMState, frame: FrameInput, intr: CameraIntrinsics,
             pred_vmap=state.pred_vertex, pred_nmap=state.pred_normal,
             pred_intensity=state.pred_intensity, icp_weight=state.pred_icp_weight,
             prev_R=state.R, prev_t=state.t, prev_intensity=state.prev_intensity,
-            cfg=cfg)
+            cfg=cfg,
+            **({"next_k1": curv.k1, "next_k2": curv.k2,
+                "pred_k1": state.pred_k1, "pred_k2": state.pred_k2}
+               if cfg.icp_use_correspondence_search else {}),
+            **({"sal_k1": curv.k1, "sal_k2": curv.k2} if cfg.tracking_topk > 0 else {}))
         tr = odometry.track(state.R, state.t, inp, intr, cfg)
         new_R, new_t = tr.R, tr.t
         icp_error, icp_count = tr.icp_error, tr.icp_count

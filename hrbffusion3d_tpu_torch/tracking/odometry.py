@@ -1,15 +1,24 @@
-"""Frame-to-model tracking on torch tensors (port of the default path of
+"""Frame-to-model tracking on torch tensors (port of
 ``hrbffusion3d_tpu/tracking/odometry.py``): SO(3) image-warp pre-alignment
-at the coarsest level, then coarse-to-fine joint ICP + photometric
-Gauss-Newton solving (A_rgb + w^2 A_icp) x = (b_rgb + w b_icp), w = 10.
+at the coarsest level, then coarse-to-fine ICP + photometric Gauss-Newton
+solving (A_rgb + w^2 A_icp) x = (b_rgb + w b_icp), w = ``cfg.icp_weight``,
+under every tracking setting of ``SLAMConfig``: the fused single-gather
+pass (nearest or bilinear), the separate ICP and photometric terms
+(correspondence search, sparse ICP, ICP only, RGB only), fixed-correspondence
+iterations, early exit, and the finest level's subsampled, top-k and
+patch-anchored iterations.
 
-The iteration counts are fixed, so the loops are Python loops; the
-divergence and keep-best logic stays on the device as ``torch.where`` and
-nothing is read back to the host.
+The iteration budgets are Python loops.  The divergence and keep-best
+logic, and the early exit (``cfg.tracking_converge_eps``), stay on the
+device as ``torch.where`` over the carry: once an iteration's increment is
+small enough, the later ones of that loop leave the carry unchanged, which
+is the result of the JAX package's early-exiting loop without its saving.
+Nothing is read back to the host.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -38,46 +47,39 @@ class TrackingInputs(NamedTuple):
     last_nmap_g: tuple
     icp_weight: tuple
     prev_intensity: tuple
-
-
-def _check_supported(cfg: SLAMConfig, rgb_only: bool = False) -> None:
-    """The port runs the default joint-nearest tracking path only."""
-    off = {
-        "icp_use_sparse": cfg.icp_use_sparse,
-        "icp_use_correspondence_search": cfg.icp_use_correspondence_search,
-        "tracking_patch_assoc": cfg.tracking_patch_assoc,
-        "tracking_topk > 0": cfg.tracking_topk > 0,
-        "tracking_subsample > 1": cfg.tracking_subsample > 1,
-        "tracking_reassoc_period > 1": cfg.tracking_reassoc_period > 1,
-        "tracking_converge_eps > 0": cfg.tracking_converge_eps > 0,
-        "tracking_rgb_nearest=False": not cfg.tracking_rgb_nearest,
-        "icp_weight outside (0, 100)": not (0 < cfg.icp_weight < 100),
-        "rgb_only": rgb_only,
-    }
-    bad = [k for k, v in off.items() if v]
-    if bad:
-        raise NotImplementedError(
-            "tracking mode not ported (only the default joint-nearest path is): "
-            + ", ".join(bad))
+    # curvature pyramids of the correspondence search's score
+    # (reduce.cu:415-422), built only with cfg.icp_use_correspondence_search
+    next_k1: tuple = ()
+    next_k2: tuple = ()
+    last_k1: tuple = ()
+    last_k2: tuple = ()
+    # the live curvature of the finest level alone (1-tuples), for the
+    # saliency score of cfg.tracking_topk
+    sal_k1: tuple = ()
+    sal_k2: tuple = ()
 
 
 def build_inputs(next_depth, next_intensity, next_vmap, next_nmap,
                  pred_vmap, pred_nmap, pred_intensity, icp_weight,
-                 prev_R, prev_t, prev_intensity, cfg: SLAMConfig) -> TrackingInputs:
+                 prev_R, prev_t, prev_intensity, cfg: SLAMConfig,
+                 next_k1=None, next_k2=None, pred_k1=None, pred_k2=None,
+                 sal_k1=None, sal_k2=None) -> TrackingInputs:
     """Build all pyramids with the fused per-level passes; the model
-    prediction moves to the world frame with the previous pose."""
+    prediction moves to the world frame with the previous pose.  The
+    curvature maps ride along with the ICP weight in the pooled scalars."""
     L = cfg.num_pyramid_levels
     pred_valid = pred_vmap[..., 2] > 0
     vmap_g = torch.where(pred_valid[..., None], pred_vmap @ prev_R.T + prev_t, 0.0)
     nmap_g = torch.where(pred_valid[..., None], pred_nmap @ prev_R.T, 0.0)
     pred_depth = torch.where(pred_valid, pred_vmap[..., 2], 0.0)
+    use_curv = cfg.icp_use_correspondence_search and next_k1 is not None
 
     levels = [{
         "deps": (next_depth, pred_depth),
         "ints": (next_intensity, pred_intensity, prev_intensity),
         "vmaps": (next_vmap, vmap_g),
         "nmaps": (next_nmap, nmap_g),
-        "scalars": (icp_weight,),
+        "scalars": (icp_weight,) + ((next_k1, next_k2, pred_k1, pred_k2) if use_curv else ()),
     }]
     for _ in range(L - 1):
         p = levels[-1]
@@ -94,13 +96,15 @@ def build_inputs(next_depth, next_intensity, next_vmap, next_nmap,
     def pyr(group, i):
         return tuple(lvl[group][i] for lvl in levels)
 
+    curv = ({"next_k1": pyr("scalars", 1), "next_k2": pyr("scalars", 2),
+             "last_k1": pyr("scalars", 3), "last_k2": pyr("scalars", 4)} if use_curv else {})
+    sal = {"sal_k1": (sal_k1,), "sal_k2": (sal_k2,)} if sal_k1 is not None else {}
     return TrackingInputs(
         next_depth=pyr("deps", 0), next_intensity=pyr("ints", 0),
         next_vmap=pyr("vmaps", 0), next_nmap=pyr("nmaps", 0),
         last_depth=pyr("deps", 1), last_intensity=pyr("ints", 1),
         last_vmap_g=pyr("vmaps", 1), last_nmap_g=pyr("nmaps", 1),
-        icp_weight=pyr("scalars", 0), prev_intensity=pyr("ints", 2),
-    )
+        icp_weight=pyr("scalars", 0), prev_intensity=pyr("ints", 2), **curv, **sal)
 
 
 class TrackResult(NamedTuple):
@@ -112,6 +116,9 @@ class TrackResult(NamedTuple):
     rgb_count: torch.Tensor
     A: torch.Tensor           # (6,6) final joint system
     b: torch.Tensor
+    # (L,) int32 Gauss-Newton iterations that changed the carry, per level
+    # (the budget unless cfg.tracking_converge_eps stopped a loop early)
+    live_iters: torch.Tensor | None = None
 
 
 def _k_matrix(intr: CameraIntrinsics, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -152,66 +159,272 @@ def _so3_prealign(inp: TrackingInputs, intr: CameraIntrinsics, cfg: SLAMConfig):
     return torch.where(done, best_R, R_lr)
 
 
+
+
+def _where_carry(keep: torch.Tensor, old, new):
+    """``old`` where the () bool ``keep`` holds, else ``new``, over a carry
+    of tensors, tuples, dicts and None."""
+    if old is None:
+        return None
+    if isinstance(old, dict):
+        return {k: _where_carry(keep, old[k], new[k]) for k in old}
+    if isinstance(old, tuple):
+        return tuple(_where_carry(keep, a, b) for a, b in zip(old, new))
+    return torch.where(keep, old, new)
+
+
+def _gn_loop(body, n_iters: int, carry, eps: float):
+    """Run ``body`` (i, carry -> (carry, |dx|)) ``n_iters`` times.  With
+    ``eps > 0`` the loop ends, in effect, after the first iteration whose
+    SE(3) increment norm is <= eps: every later one still runs but leaves
+    the carry unchanged (a device-side flag, no host read).  Returns
+    (carry, the iterations that changed it: an int, or a () int32 tensor
+    with ``eps > 0``)."""
+    if eps <= 0.0:
+        for i in range(n_iters):
+            carry, _ = body(i, carry)
+        return carry, n_iters
+    dev = carry[0].device
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    live = torch.zeros((), dtype=torch.int32, device=dev)
+    for i in range(n_iters):
+        new, dx = body(i, carry)
+        live = live + (~done).to(torch.int32)
+        carry = _where_carry(done, carry, new)
+        done = done | ~(dx > eps)
+    return carry, live
+
+
 def track(prev_R: torch.Tensor, prev_t: torch.Tensor, inp: TrackingInputs,
-          intr: CameraIntrinsics, cfg: SLAMConfig) -> TrackResult:
-    """Incremental-transform estimate (RGBDOdometry.cpp:796-1249), joint
-    ICP + photometric path with fixed iteration budgets."""
-    _check_supported(cfg)
+          intr: CameraIntrinsics, cfg: SLAMConfig, rgb_only: bool = False) -> TrackResult:
+    """Incremental-transform estimate (RGBDOdometry.cpp:796-1249).
+
+    ``cfg.icp_weight`` >= 100 tracks with ICP alone, 0 (or ``rgb_only``)
+    with the photometric term alone.  The fused single-gather pass runs
+    when both terms do, with neither sparse ICP nor the correspondence
+    search, and with nearest-pixel photometric lookups or
+    ``cfg.tracking_joint_gather``; the separate ``icp_step`` +
+    ``rgb_residual`` formulation otherwise.  The finest level's top-k,
+    patch and subsample iterations and the fixed-correspondence ones ride
+    on the fused pass."""
+    use_icp = (not rgb_only) and cfg.icp_weight > 0
+    use_rgb = rgb_only or cfg.icp_weight < 100
     dev = prev_R.device
     result_rt = torch.eye(4, dtype=torch.float32, device=dev)
-    if cfg.so3_prealign:
+    if cfg.so3_prealign and use_rgb:
         result_rt[:3, :3] = _so3_prealign(inp, intr, cfg)
 
     prev_R_inv = prev_R.T
     prev_T = lie.rt_to_mat(prev_R, prev_t)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     stats = {"icp_e": zero, "icp_c": zero, "rgb_e": zero, "rgb_c": zero}
-    lastA = torch.zeros((6, 6), dtype=torch.float32, device=dev)
-    lastb = torch.zeros((6,), dtype=torch.float32, device=dev)
-    w = cfg.icp_weight
+    carry = (result_rt, torch.zeros((6, 6), dtype=torch.float32, device=dev),
+             torch.zeros((6,), dtype=torch.float32, device=dev), stats, None)
+    iters = cfg.pyramid_iterations
+    eps = cfg.tracking_converge_eps
+    live = {}
 
     for lvl in range(cfg.num_pyramid_levels - 1, -1, -1):
         li = intr.level(lvl)
-        d_idx, d_idy = pyr_ops.sobel_derivatives(inp.next_intensity[lvl])
+        K, Kinv = _k_matrix(li, dev)
+        next_int = inp.next_intensity[lvl]
+        d_idx, d_idy = pyr_ops.sobel_derivatives(next_int)
         min_scale = (cfg.min_gradient_magnitudes[lvl] ** 2) / (cfg.sobel_scale ** 2)
-        model_rows = icp_ops.pack_joint_nearest(
-            inp.last_vmap_g[lvl], inp.last_nmap_g[lvl], inp.icp_weight[lvl],
-            inp.last_depth[lvl], inp.last_intensity[lvl])
-        static_valid = icp_ops.rgb_static_valid(
-            inp.next_intensity[lvl], d_idx, d_idy, inp.next_depth[lvl], min_scale)
-        cur_pack = icp_ops.joint_cur_pack(
-            inp.next_vmap[lvl], inp.next_nmap[lvl], inp.next_depth[lvl], li)
+        use_sparse = cfg.icp_use_sparse and use_icp
+        # the fused pass: ICP + photometric share one row gather
+        use_joint = ((cfg.tracking_joint_gather or cfg.tracking_rgb_nearest)
+                     and use_rgb and use_icp and not use_sparse
+                     and not cfg.icp_use_correspondence_search)
+        if use_joint:
+            packer = (icp_ops.pack_joint_nearest if cfg.tracking_rgb_nearest
+                      else icp_ops.pack_joint)
+            model_rows = packer(inp.last_vmap_g[lvl], inp.last_nmap_g[lvl], inp.icp_weight[lvl],
+                                inp.last_depth[lvl], inp.last_intensity[lvl])
+            last_rows = None
+            cur_pack = icp_ops.joint_cur_pack(inp.next_vmap[lvl], inp.next_nmap[lvl],
+                                              inp.next_depth[lvl], li)
+        else:
+            model_rows = icp_ops.pack_model(inp.last_vmap_g[lvl], inp.last_nmap_g[lvl],
+                                            inp.icp_weight[lvl])
+            last_rows = icp_ops.pack_last(inp.last_depth[lvl], inp.last_intensity[lvl])
+            cur_pack = None
+        static_valid = icp_ops.rgb_static_valid(next_int, d_idx, d_idy, inp.next_depth[lvl],
+                                                min_scale)
+        # fixed-correspondence iterations: carry the association rows and
+        # re-gather every reassoc-th iteration only
+        reassoc = (cfg.tracking_reassoc_period
+                   if use_joint and cfg.tracking_reassoc_period > 1 else 1)
+        has_curv = len(inp.next_k1) > 0
 
-        for _ in range(cfg.pyramid_iterations[lvl]):
+        def body(it, carry, sub=None, patch=None, sv_scale=None):
+            result_rt, _, _, st, extra = carry
+            rt_inv = lie.se3_inverse(result_rt)
             # current pose estimate: currentT = prevT * resultRt^-1
-            cur = prev_T @ lie.se3_inverse(result_rt)
-            icp_res, corres = icp_ops.joint_step(
-                cur[:3, :3], cur[:3, 3], prev_R_inv, prev_t, model_rows,
-                inp.next_intensity[lvl], static_valid, cur_pack, li, cfg)
-            # sigmaVal = sqrt(count): the reference's quirk (RGBDOdometry.cpp:1017)
-            sigma_val = torch.sqrt(torch.clamp(corres.count, min=1.0))
-            rgb_res = icp_ops.rgb_step(corres, sigma_val, d_idx, d_idy, li, cfg)
-            lastA = rgb_res.A + (w * w) * icp_res.A
-            lastb = rgb_res.b + w * icp_res.b
-            stats = {
-                "rgb_e": torch.sqrt(corres.sigma_sum) / torch.clamp(corres.count, min=1.0),
-                "rgb_c": corres.count,
-                "icp_e": torch.sqrt(icp_res.residual2) / torch.clamp(icp_res.count, min=1.0),
-                "icp_c": icp_res.count,
-            }
-            x = icp_ops.solve_system(lastA, lastb)
+            cur = prev_T @ rt_inv
+            R_curr, t_curr = cur[:3, :3], cur[:3, 3]
+            A = b = None
+            if use_joint:
+                if patch is not None:
+                    if sub is not None:
+                        vc, nc, vl = sub.vcurr, sub.ncurr, sub.valid
+                        i_nx, sv = sub.i_next, sub.static_valid
+                    else:
+                        vc, nc, vl = cur_pack
+                        i_nx, sv = next_int.reshape(-1), static_valid
+                    icp_res, corres = icp_ops.joint_step_patch(
+                        R_curr, t_curr, prev_R_inv, prev_t, patch, cfg.tracking_patch_radius,
+                        vc, nc, vl, i_nx, sv, li, cfg)
+                else:
+                    icp_res, corres, extra = icp_ops.joint_step(
+                        R_curr, t_curr, prev_R_inv, prev_t, inp.next_vmap[lvl],
+                        inp.next_nmap[lvl], inp.next_depth[lvl], model_rows, next_int,
+                        static_valid, li, cfg,
+                        assoc_prev=extra if reassoc > 1 else None,
+                        do_gather=it % reassoc == 0 if reassoc > 1 else None,
+                        nearest=cfg.tracking_rgb_nearest, cur_pack=cur_pack, sub=sub)
+                # subsampled iterations keep the full set's robustifier
+                # scale: sigmaVal = sqrt(count) (the reference's quirk,
+                # RGBDOdometry.cpp:1017) times the stride
+                if sv_scale is None:
+                    sv_scale = float(cfg.tracking_subsample) if sub is not None else 1.0
+                sigma_val = torch.sqrt(torch.clamp(corres.count, min=1.0)) * sv_scale
+                rgb_res = icp_ops.rgb_step(corres, sigma_val,
+                                           sub.gx if sub is not None else d_idx,
+                                           sub.gy if sub is not None else d_idy, li, cfg)
+                w = cfg.icp_weight
+                A = rgb_res.A + (w * w) * icp_res.A
+                b = rgb_res.b + w * icp_res.b
+                st = {"rgb_e": torch.sqrt(corres.sigma_sum) / torch.clamp(corres.count, min=1.0),
+                      "rgb_c": corres.count,
+                      "icp_e": torch.sqrt(icp_res.residual2) / torch.clamp(icp_res.count, min=1.0),
+                      "icp_c": icp_res.count}
+            else:
+                if use_rgb:
+                    corres = icp_ops.rgb_residual(
+                        K @ rt_inv[:3, :3] @ Kinv, K @ rt_inv[:3, 3], inp.next_depth[lvl],
+                        next_int, last_rows, static_valid, cfg)
+                    sigma_val = (torch.full((), -1.0, device=dev) if rgb_only
+                                 else torch.sqrt(torch.clamp(corres.count, min=1.0)))
+                    rgb_res = icp_ops.rgb_step(corres, sigma_val, d_idx, d_idy, li, cfg)
+                    A, b = rgb_res.A, rgb_res.b
+                    st = {**st, "rgb_e": torch.sqrt(corres.sigma_sum)
+                          / torch.clamp(corres.count, min=1.0), "rgb_c": corres.count}
+                if use_icp:
+                    icp_out = icp_ops.icp_step(
+                        R_curr, t_curr, prev_R_inv, prev_t, inp.next_vmap[lvl],
+                        inp.next_nmap[lvl], model_rows, li, cfg,
+                        k1_curr=inp.next_k1[lvl] if has_curv else None,
+                        k2_curr=inp.next_k2[lvl] if has_curv else None,
+                        k1_prev=inp.last_k1[lvl] if has_curv else None,
+                        k2_prev=inp.last_k2[lvl] if has_curv else None,
+                        sparse_lambda=extra if use_sparse else None)
+                    icp_res, extras = icp_out if use_sparse else (icp_out, None)
+                    w = cfg.icp_weight if use_rgb else 1.0
+                    A = (w * w) * icp_res.A if A is None else A + (w * w) * icp_res.A
+                    b = w * icp_res.b if b is None else b + w * icp_res.b
+                    st = {**st, "icp_e": torch.sqrt(icp_res.residual2)
+                          / torch.clamp(icp_res.count, min=1.0), "icp_c": icp_res.count}
+
+            x = icp_ops.solve_system(A, b)
             # computeUpdateSE3: [rodrigues(x[3:]) | x[:3]] composed on the left
             inc = torch.eye(4, dtype=torch.float32, device=dev)
             inc[:3, :3] = lie.so3_exp(x[3:])
             inc[:3, 3] = x[:3]
             result_rt = inc @ result_rt
+            if use_sparse:
+                # ADMM dual update with the post-solve pose
+                # (RGBDOdometry.cpp:1209-1224 -> updateLambdaMapKernel)
+                cur2 = prev_T @ lie.se3_inverse(result_rt)
+                extra = icp_ops.sparse_icp_lambda_update(
+                    extra, extras, cur2[:3, :3], cur2[:3, 3], prev_R_inv, prev_t,
+                    inp.next_vmap[lvl], cfg.sparse_icp_mu)
+            return (result_rt, A, b, st, extra), torch.linalg.vector_norm(x)
 
+        n_pix = li.height * li.width
+        # sparse ICP's lambda map is zeroed at each level (RGBDOdometry.cpp:965-978)
+        extra0 = (torch.zeros((n_pix, 3), dtype=torch.float32, device=dev) if use_sparse else
+                  torch.zeros((n_pix, 9), dtype=torch.float32, device=dev) if reassoc > 1 else
+                  None)
+        carry = carry[:4] + (extra0,)
+        live[lvl] = 0
+        # the finest level's fast iterations: the top-k most salient pixels and/or
+        # the patch-anchored association; then full-resolution polish
+        # iterations.  Neither runs with fixed correspondences or the
+        # subsampled pixel set
+        fast = lvl == 0 and use_joint and reassoc == 1 and cfg.tracking_subsample == 1
+        drive_patch = fast and cfg.tracking_rgb_nearest and cfg.tracking_patch_assoc
+        drive_topk = fast and cfg.tracking_topk > 0
+        if drive_patch or drive_topk:
+            table = None
+            if drive_patch:
+                # camera-frame model normals: the world-frame pyramid rotated
+                # back (nmap_g = nmap_c @ prev_R.T)
+                nmap_c = (inp.last_nmap_g[lvl].reshape(n_pix, 3) @ prev_R).reshape(
+                    li.height, li.width, 3)
+                table = icp_ops.build_patch_table(
+                    icp_ops.pack_patch_base(inp.last_depth[lvl], nmap_c, inp.icp_weight[lvl],
+                                            inp.last_intensity[lvl]),
+                    cfg.tracking_patch_radius)
+
+            def anchor(rt, vcurr_rows):
+                cur = prev_T @ lie.se3_inverse(rt)
+                return icp_ops.patch_anchor(cur[:3, :3], cur[:3, 3], prev_R_inv, prev_t,
+                                            vcurr_rows, table, li)
+
+            sub_sel, scale, n_full, n_sel = None, 1.0, 0, iters[0]
+            if drive_topk:
+                ids = icp_ops.saliency_ids(
+                    cfg.tracking_topk, inp.next_vmap[lvl], inp.next_nmap[lvl], next_int,
+                    static_valid, d_idx, d_idy, li,
+                    k1=inp.sal_k1[0] if inp.sal_k1 else None,
+                    k2=inp.sal_k2[0] if inp.sal_k2 else None)
+                sub_sel = icp_ops._sub_pixels_at(
+                    ids, inp.next_vmap[lvl], inp.next_nmap[lvl], inp.next_depth[lvl],
+                    next_int, static_valid, d_idx, d_idy, li)
+                scale = (n_pix / ids.shape[0]) ** 0.5
+                n_full = min(cfg.tracking_topk_full_iters, iters[0])
+                n_sel = iters[0] - n_full
+            if n_sel:
+                patch1 = (anchor(carry[0], sub_sel.vcurr if sub_sel is not None else cur_pack[0])
+                          if drive_patch else None)
+                carry, k = _gn_loop(functools.partial(body, sub=sub_sel, patch=patch1,
+                                                      sv_scale=scale), n_sel, carry, eps)
+                live[lvl] += k
+            if n_full:
+                # polish at full resolution, the patch re-anchored at the
+                # current estimate
+                patch2 = anchor(carry[0], cur_pack[0]) if drive_patch else None
+                carry, k = _gn_loop(functools.partial(body, patch=patch2), n_full, carry, eps)
+                live[lvl] += k
+            continue
+
+        # finest-level pixel subsampling: the first iterations on a
+        # stride-decimated live pixel set, the last
+        # tracking_subsample_full_iters at full resolution
+        n_sub = 0
+        if lvl == 0 and use_joint and reassoc == 1 and cfg.tracking_subsample > 1:
+            n_sub = max(0, iters[0] - min(cfg.tracking_subsample_full_iters, iters[0]))
+        if n_sub:
+            sub = icp_ops.pack_sub_pixels(
+                cfg.tracking_subsample, inp.next_vmap[lvl], inp.next_nmap[lvl],
+                inp.next_depth[lvl], next_int, static_valid, d_idx, d_idy, li)
+            carry, k = _gn_loop(functools.partial(body, sub=sub), n_sub, carry, eps)
+            live[lvl] += k
+        carry, k = _gn_loop(body, iters[lvl] - n_sub, carry, eps)
+        live[lvl] += k
+
+    result_rt, lastA, lastb, stats, _ = carry
     cur = prev_T @ lie.se3_inverse(result_rt)
     R_new = lie.orthonormalise(cur[:3, :3])
     t_new = cur[:3, 3]
     # divergence guard (RGBDOdometry.cpp:1232-1236)
     too_far = torch.linalg.vector_norm(t_new - prev_t) > cfg.tracking_divergence_limit
+    live_iters = torch.stack([
+        live[lvl] if isinstance(live[lvl], torch.Tensor)
+        else torch.full((), live[lvl], dtype=torch.int32, device=dev)
+        for lvl in range(cfg.num_pyramid_levels)])
     return TrackResult(
         R=torch.where(too_far, prev_R, R_new), t=torch.where(too_far, prev_t, t_new),
         icp_error=stats["icp_e"], icp_count=stats["icp_c"],
-        rgb_error=stats["rgb_e"], rgb_count=stats["rgb_c"], A=lastA, b=lastb)
+        rgb_error=stats["rgb_e"], rgb_count=stats["rgb_c"], A=lastA, b=lastb,
+        live_iters=live_iters)

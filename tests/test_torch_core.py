@@ -75,6 +75,13 @@ def test_camera():
     assert tcam.max_radial_dist(PINTR) == jcam.max_radial_dist(INTR)
 
 
+@pytest.mark.parametrize("level", [0, 2])
+def test_intrinsic_matrix(level):
+    km = tcam.intrinsic_matrix(PINTR.level(level), device="cpu")
+    assert km.dtype == torch.float32
+    np.testing.assert_array_equal(n(km), n(jcam.intrinsic_matrix(INTR.level(level))))
+
+
 @pytest.mark.parametrize("shape,radius,fill", [((6, 9), 2, 0.0), ((6, 9, 3), 1, -1.0)])
 def test_patches(shape, radius, fill):
     x = RNG.standard_normal(shape).astype(np.float32)

@@ -126,6 +126,22 @@ def test_clean_with_remap(fused, mode):
         np.testing.assert_array_equal(via_pixel, via_remap)
 
 
+def test_clean(fused):
+    """clean = compact(clean_mask): the fused map with some surfels made
+    stale, cleaned at the frame-1 render."""
+    (jm2, jidx), _, pose1 = fused
+    data = np.array(n(jm2.data))
+    cnt = int(jm2.count)
+    data[:cnt][np.random.default_rng(4).uniform(size=cnt) < 0.05, jsm.STAMP] = -300.0
+    jm3 = jax.jit(jsm.clean, static_argnames=("intr", "cfg"))(
+        jsm.SurfelMap(data=jnp.asarray(data), count=jm2.count), jnp.asarray(pose1), jidx,
+        INTR, CFG, time=jnp.int32(2))
+    tm3 = tsm.clean(tsm.SurfelMap(data=t(data), count=t(np.asarray(jm2.count))), t(pose1),
+                    t(jidx), PINTR, PCFG, time=2)
+    assert int(jm3.count) < cnt
+    _assert_map(tm3, jm3)
+
+
 def test_grow_and_empty():
     m = tsm.empty_map(8, "cpu")
     g = tsm.grow(m, 16)

@@ -73,14 +73,3 @@ def test_track(pyramids, inputs):
     np.testing.assert_allclose(float(rt.icp_count), float(rj.icp_count), rtol=1e-3)
     np.testing.assert_allclose(float(rt.rgb_count), float(rj.rgb_count), rtol=1e-3)
 
-
-@pytest.mark.parametrize("mode", [dict(icp_use_sparse=True), dict(tracking_topk=64),
-                                  dict(tracking_patch_assoc=True),
-                                  dict(icp_use_correspondence_search=True),
-                                  dict(tracking_subsample=2)])
-def test_non_default_modes_raise(pyramids, mode):
-    _, it = pyramids
-    cfg = dataclasses.replace(TCFG, **mode)
-    with pytest.raises(NotImplementedError):
-        todo.track(it.last_vmap_g[0].new_tensor(np.eye(3, dtype=np.float32)),
-                   it.last_vmap_g[0].new_zeros(3), it, PINTR, cfg)
