@@ -77,10 +77,23 @@ and prints:
     CPU's own 1-thread spread beside it); one ``track(rgb_only=True)``
     the same way within 1e-3 (its float32 spread is ~1e-4); a JSON line
     ``{"tracking_modes": {...}}``;
+  - the landmark-sharded local BA (``phase_distributed``): (a)
+    ``phase_backend``'s last local-BA problem, padded as the mesh path
+    pads it, on 1-, 4- and 8-shard meshes of the card (0 host syncs, a
+    repeat bit for bit, card vs the port's CPU run of the same mesh and
+    n shards vs 1 within 1e-4, ms per solve beside ``ba.optimize``); (b)
+    the same problem in 2 spawned ``gloo`` processes of 4 shards (their
+    tensors on the card) and in 1 ``nccl`` process of 8, each within 2e-5
+    of the in-process 8-shard solve; (c) ``FullSLAM(mesh=make_mesh(4))``
+    on 41 frames of (b)'s protocol through a synchronous
+    ``process_batch`` (every local BA sharded, ATE under 5 cm, 0 host
+    syncs and every kernel in each dense step) beside ``mesh=None`` on
+    the same frames (the keyframe-pose gap printed); a JSON line
+    ``{"distributed": {...}}``;
   - a JSON line ``{"kernels": [...]}``: per kernel its launches on the main
     path (the bilateral kernel's keyframe call site apart, and the
-    launches of each ``phase_run_tum`` path and each tracking mode beside
-    them), max abs error
+    launches of each ``phase_run_tum`` path, each tracking mode and
+    ``phase_distributed`` (c) beside them), max abs error
     against the plain version, both times and the bound (the least time
     the card could take for the same work);
   - last, ``{"ok": true, "device": {...}}``.
@@ -117,6 +130,7 @@ from hrbffusion3d_tpu_torch.eval.ate import ate_rmse
 from hrbffusion3d_tpu_torch.io import klg, native_loader, ply, png, traj, tum
 from hrbffusion3d_tpu_torch.map import surfel_map as sm
 from hrbffusion3d_tpu_torch.ops import kernels, preprocess, pyramid, raycast
+from hrbffusion3d_tpu_torch.parallel import dist_ba, multihost, sharding
 from hrbffusion3d_tpu_torch.pipeline import full_slam, slam
 from hrbffusion3d_tpu_torch.tracking import odometry
 from hrbffusion3d_tpu_torch.utils import checkpoint
@@ -942,7 +956,8 @@ def _profile_call(label: str, fn, phase: str = "backend") -> dict:
 def phase_backend(dev) -> dict:
     """The sparse backend at FullSLAM's production settings: six keyframes
     of 640x480 frames inserted into a ``SparseBackend`` on the card, local
-    BA after each (the last keyframe's pose drifted), each call timed with
+    BA after each (the last keyframe's pose drifted; its unpadded problem
+    is returned beside the results, on the host), each call timed with
     the card synchronised around it and its host syncs counted.  Then held
     to the port on the CPU: detection, the last local BA's padded problem,
     a 128-camera PCG BA, the pose graph of the six keyframes with a loop
@@ -984,6 +999,9 @@ def phase_backend(dev) -> dict:
                 t1 = time.perf_counter()
                 if last:
                     before = float(np.linalg.norm(be.keyframes[-1].pose[:3, 3] - gt[t - 1][:3, 3]))
+                    # the problem this local BA solves: phase_distributed's
+                    last_problem = be.local_problem()[0]
+                t_ba = time.perf_counter()
                 captured.clear()
                 deltas, ba_syncs = _count_syncs(be.local_ba)
                 torch.cuda.synchronize()
@@ -993,7 +1011,7 @@ def phase_backend(dev) -> dict:
                            landmarks=len(be.landmarks),
                            shared=sum(len(o) >= 2 for o in be.lm_obs.values()),
                            insert_ms=1e3 * (t1 - t0), insert_syncs=ins_syncs,
-                           local_ba_ms=1e3 * (t2 - t1), local_ba_syncs=ba_syncs,
+                           local_ba_ms=1e3 * (t2 - t_ba), local_ba_syncs=ba_syncs,
                            ba=_ba_sizes(captured["prob"]) if deltas is not None else None)
                 rows.append(row)
                 b = row["ba"]
@@ -1096,7 +1114,7 @@ def phase_backend(dev) -> dict:
     secs = time.perf_counter() - t_phase
     print(f"backend: phase {secs:.1f} s")
     return dict(keyframes=rows, profiled=profiled, drift_mm=[before * 1e3, after * 1e3],
-                seconds=secs)
+                seconds=secs), last_problem
 
 @contextlib.contextmanager
 def _recorded(mod, attr, sink, label=None):
@@ -2011,6 +2029,281 @@ def phase_tracking_modes(poses, frames, smi) -> dict:
     return out
 
 
+# phase_distributed: the landmark-sharded local BA (parallel/dist_ba) on
+# meshes of DIST_SHARDS shards of the one card; card against the port's CPU
+# run of the same mesh and n shards against 1 within DIST_TOL (poses: norm
+# of se3_log of the difference; landmarks: metres) and DIST_CHI2_RTOL
+# (tests/test_torch_ba.py's solver bounds); the multi-process solves of
+# the unpadded problem against the in-process 8-shard one within DIST_MP_TOL
+# (tests/test_multihost_2proc.py's bound); FullSLAM(mesh=make_mesh(4)) on
+# phase_full_system (b)'s protocol cut to DIST_FRAMES frames (5 keyframes)
+DIST_SHARDS = (1, 4, 8)
+DIST_TOL, DIST_CHI2_RTOL, DIST_MP_TOL = 1e-4, 1e-4, 2e-5
+DIST_FRAMES, DIST_FULL_SHARDS = 41, 4
+# (b): (backend, processes, shards per process); NCCL refuses two ranks on
+# one card, so the gloo ranks share it and the nccl group has one rank
+DIST_PROCESS_RUNS = (("gloo", 2, 4), ("nccl", 1, 8))
+DIST_TIMEOUT_S = 180.0
+
+
+def _dist_rank(addr, n_processes, rank, backend, local_shards, device, problem_path, out_path):
+    """One process of phase_distributed (b): the sharded solve of the
+    problem saved at ``problem_path`` on ``local_shards`` shards of
+    ``device`` (None: the card) per process; process 0 writes the cameras,
+    the landmarks of every shard and chi2 to ``out_path`` (.npz)."""
+    multihost.initialize(addr, n_processes, rank, backend=backend)
+    try:
+        mesh = multihost.global_mesh(local_shards=local_shards, device=device)
+        prob = ba.BAProblem(*torch.load(problem_path))
+        sb = multihost.globalize_sharded_ba(dist_ba.partition_problem(prob, mesh.size), mesh)
+        cams, points, chi = dist_ba.make_optimizer(mesh)(sb)
+        pts = dist_ba.gather_points(points, prob.points.shape[0], mesh)
+        if multihost.is_coordinator():
+            np.savez(out_path, cams=cams.cpu().numpy(), points=pts, chi=chi.cpu().numpy(),
+                     device=str(mesh.devices[0]))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _dist_gaps(a, b, n_lms: int) -> dict:
+    """Gaps of sharded solve a = (cams, points, chi2) from b: the largest
+    pose gap, the largest landmark gap (m) and chi2's relative gap."""
+    pa, pb = dist_ba.gather_points(a[1], n_lms), dist_ba.gather_points(b[1], n_lms)
+    return dict(pose=_pose_gap(a[0], b[0]), points=float(np.abs(pa - pb).max()),
+                chi2_rel=abs(float(a[2]) - float(b[2])) / abs(float(b[2])))
+
+
+def _dist_check(label, gaps, pose_tol, chi2_rtol):
+    if not (gaps["pose"] < pose_tol and gaps["points"] < pose_tol
+            and gaps["chi2_rel"] < chi2_rtol):
+        raise RuntimeError(f"distributed {label}: {gaps} (limits {pose_tol}, chi2 {chi2_rtol})")
+
+
+def _dist_solver(prob, dev) -> dict:
+    """(a) The padded problem on make_mesh(n) of the card for each n of
+    DIST_SHARDS: host syncs of the solve, a repeat bit for bit, ms per
+    call, the port's CPU run of the same mesh and the 1-shard run as
+    references; ba.optimize on the same problem beside it."""
+    n_lms = int(prob.points.shape[0])
+    rows, card = {}, {}
+    for n in DIST_SHARDS:
+        mesh = sharding.make_mesh(n, devices=[dev])
+        run = dist_ba.make_optimizer(mesh)
+        sb = multihost.globalize_sharded_ba(dist_ba.partition_problem(prob, n), mesh)
+        torch.cuda.synchronize()
+        out, syncs = _count_syncs(lambda: run(sb))
+        again, syncs_again = _count_syncs(lambda: run(sb))
+        torch.cuda.synchronize()
+        same = (torch.equal(out[0], again[0]) and float(out[2]) == float(again[2])
+                and all(torch.equal(x, y) for x, y in zip(out[1], again[1])))
+        ms = _median_ms(lambda: run(sb), n=5)
+        cpu_mesh = sharding.make_mesh(n, devices=["cpu"])
+        cpu = dist_ba.make_optimizer(cpu_mesh)(
+            multihost.globalize_sharded_ba(dist_ba.partition_problem(prob, n), cpu_mesh))
+        card[n] = out
+        row = rows[n] = dict(ms=ms, host_syncs=[syncs, syncs_again], bitwise_repeat=same,
+                             chi2=float(out[2]), vs_cpu=_dist_gaps(out, cpu, n_lms),
+                             edges_per_shard=[int(s.obs.shape[0]) for s in sb.shards],
+                             valid_edges_per_shard=[int((s.edge_valid > 0).sum())
+                                                    for s in sb.shards])
+        if n != DIST_SHARDS[0]:
+            row["vs_1_shard"] = _dist_gaps(out, card[DIST_SHARDS[0]], n_lms)
+        print(f"distributed (a): make_mesh({n}) on {dev}: {ms:.1f} ms per solve, host syncs "
+              f"{syncs} and {syncs_again}, repeat bit for bit {same}; card vs CPU {row['vs_cpu']}"
+              + (f"; vs 1 shard {row['vs_1_shard']}" if "vs_1_shard" in row else ""))
+        if syncs or syncs_again:
+            raise RuntimeError(f"distributed (a): the {n}-shard solve made host syncs")
+        if not same:
+            raise RuntimeError(f"distributed (a): the {n}-shard solve did not repeat bit for bit")
+        _dist_check(f"(a) {n} shards, card vs CPU", row["vs_cpu"], DIST_TOL, DIST_CHI2_RTOL)
+        if "vs_1_shard" in row:
+            _dist_check(f"(a) {n} shards vs 1", row["vs_1_shard"], DIST_TOL, DIST_CHI2_RTOL)
+    on_card = _to(prob, dev)
+    plans = ba.build_plans(prob, "dense", device=dev)
+    single = ba.optimize(on_card, solver="dense", plans=plans)
+    ms = _median_ms(lambda: ba.optimize(on_card, solver="dense", plans=plans), n=5)
+    gap = _pose_gap(single[0].cams, card[DIST_SHARDS[0]][0])
+    print(f"distributed (a): ba.optimize on the same problem: {ms:.1f} ms per solve, poses "
+          f"{gap:.3g} from the 1-shard solve")
+    return dict(shards=rows, ba_optimize_ms=ms, ba_optimize_pose_gap=gap)
+
+
+def _dist_processes(problem, dev, device=None) -> dict:
+    """(b) phase_backend's last local-BA problem, unpadded, in separate
+    processes: 2 ``gloo`` ranks with 4 shards each, every rank's tensors
+    on the card, and 1 ``nccl`` rank with 8 shards; each against the
+    in-process 8-shard solve of the same problem on the card.  Unpadded,
+    its landmarks fill all 8 shards, so each gloo rank adds several
+    non-empty shards and the all-reduce groups the sum otherwise than the
+    in-process order (the padded problem of (a) leaves rank 1 one shard
+    with edges)."""
+    n_lms = int(problem.points.shape[0])
+    mesh = sharding.make_mesh(8, devices=[dev])
+    sb = dist_ba.partition_problem(problem, mesh.size)
+    ref = dist_ba.make_optimizer(mesh)(multihost.globalize_sharded_ba(sb, mesh))
+    ref_pts = dist_ba.gather_points(ref[1], n_lms)
+    valid = [int((s.edge_valid > 0).sum()) for s in sb.shards]
+    out = dict(valid_edges_per_shard=valid)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "problem.pt")
+        torch.save(tuple(problem), path)
+        for backend, n_proc, local in DIST_PROCESS_RUNS:
+            held = [sum(v > 0 for v in valid[r * local:(r + 1) * local]) for r in range(n_proc)]
+            if n_proc > 1 and min(held) < 2:
+                raise RuntimeError(f"distributed (b): the {backend} ranks hold {held} shards "
+                                   f"with edges ({valid}): the sum's grouping goes untested")
+            dest = Path(tmp) / f"{backend}.npz"
+            t0 = time.perf_counter()
+            multihost.launch_local(_dist_rank, n_proc,
+                                   args=(backend, local, device, path, str(dest)),
+                                   timeout_s=DIST_TIMEOUT_S)
+            got = np.load(dest)
+            row = out[backend] = dict(
+                processes=n_proc, shards_each=local, device=str(got["device"]),
+                nonempty_shards_per_rank=held, seconds=time.perf_counter() - t0,
+                cams=float(np.abs(got["cams"] - ref[0].cpu().numpy()).max()),
+                points=float(np.abs(got["points"][:n_lms] - ref_pts).max()),
+                chi2_rel=abs(float(got["chi"]) - float(ref[2])) / abs(float(ref[2])))
+            print(f"distributed (b): {n_proc} {backend} process(es) x {local} shards on "
+                  f"{row['device']} ({row['seconds']:.1f} s with start-up; shards with edges "
+                  f"per rank {held}, valid edges per shard {valid}): cameras "
+                  f"{row['cams']:.3g}, landmarks {row['points']:.3g} m, chi2 relative "
+                  f"{row['chi2_rel']:.3g} from the in-process 8-shard solve")
+            if not (row["cams"] <= DIST_MP_TOL and row["points"] <= DIST_MP_TOL
+                    and row["chi2_rel"] < DIST_CHI2_RTOL):
+                raise RuntimeError(f"distributed (b): {backend} run {row} (limit {DIST_MP_TOL})")
+    return out
+
+
+@contextlib.contextmanager
+def _per_frame(sink, syncs):
+    """Record, for every slam.bootstrap and slam.step call, the host syncs
+    (of the main thread) and the kernels' launches it made."""
+    fns = {name: getattr(slam, name) for name in ("bootstrap", "step")}
+
+    def recorder(fn):
+        def run(*args, **kwargs):
+            before, s0 = dict(kernels.LAUNCHES), syncs[0]
+            out = fn(*args, **kwargs)
+            sink.append((syncs[0] - s0, {k: v - before[k] for k, v in kernels.LAUNCHES.items()}))
+            return out
+        return run
+
+    for name, fn in fns.items():
+        setattr(slam, name, recorder(fn))
+    try:
+        yield
+    finally:
+        for name, fn in fns.items():
+            setattr(slam, name, fn)
+
+
+def _dist_full_system(dev, mesh) -> dict:
+    """(c) FullSLAM with ``mesh`` on phase_full_system (b)'s protocol cut
+    to DIST_FRAMES frames, sync through one process_batch, then the same
+    frames with mesh=None."""
+    n = DIST_FRAMES
+    scene = synth.complex_room(dev)
+    gt = synth.panorama_trajectory(n, n_turns=1.8 * (n - 1) / 360.0)
+    ds, cs = zip(*(_kinect_frame(scene, gt[i], i, dev) for i in range(n)))
+    batch = slam.FrameInput(torch.stack(ds), torch.stack(cs))
+    solves, problems, frames = [], [], []
+    make_optimizer = dist_ba.make_optimizer
+
+    def counted(m, **kw):
+        run = make_optimizer(m, **kw)
+        return lambda sb: solves.append(len(sb.shards)) or run(sb)
+
+    sys_ = full_slam.FullSLAM(TUM1, FULL_CFG, init_pose=gt[0], mesh=mesh, device=dev)
+    local_problem = sys_.backend.local_problem
+
+    def recorded():
+        built = local_problem()
+        problems.append(built is not None)
+        return built
+
+    sys_.backend.local_problem = recorded
+    torch.cuda.synchronize()
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    dist_ba.make_optimizer = counted
+    try:
+        with _sync_counts() as syncs, _per_frame(frames, syncs):
+            t0 = time.perf_counter()
+            sys_.process_batch(batch, timestamps=[float(i) for i in range(n)])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        dist_ba.make_optimizer = make_optimizer
+    launches = dict(kernels.LAUNCHES)
+    _driven("distributed (c)", launches)
+    est = sys_.poses()
+    ate = ate_rmse(est, gt[:len(est)], align=False)
+
+    plain = full_slam.FullSLAM(TUM1, FULL_CFG, init_pose=gt[0], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain.process_batch(batch, timestamps=[float(i) for i in range(n)])
+    torch.cuda.synchronize()
+    plain_secs = time.perf_counter() - t0
+    kf_a = np.stack([kf.pose for kf in sys_.backend.keyframes]).astype(np.float32)
+    kf_b = np.stack([kf.pose for kf in plain.backend.keyframes]).astype(np.float32)
+    k = min(len(kf_a), len(kf_b))
+    gaps = _pose_gaps(torch.from_numpy(kf_a[:k]), torch.from_numpy(kf_b[:k]))
+    t_gaps = np.linalg.norm(kf_a[:k, :3, 3] - kf_b[:k, :3, 3], axis=1)
+    frame_syncs = [s for s, _ in frames]
+    idle = [i for i, (_, per) in enumerate(frames) if min(per.values()) == 0]
+    out = dict(frames=n, shards=mesh.size, seconds=secs, fps=(n - 1) / secs,
+               ate_mm=ate * 1e3, keyframes=len(kf_a), local_ba_problems=sum(problems),
+               sharded_solves=len(solves), host_syncs_per_frame=frame_syncs,
+               launches=launches, plain=dict(seconds=plain_secs, fps=(n - 1) / plain_secs,
+                                             ate_mm=ate_rmse(plain.poses(), gt[:n],
+                                                             align=False) * 1e3,
+                                             keyframes=len(kf_b)),
+               keyframe_pose_gap=float(gaps.max()), keyframe_gap_mm=float(t_gaps.max() * 1e3),
+               keyframe_gaps_mm=(t_gaps * 1e3).tolist())
+    print(f"distributed (c): FullSLAM(mesh=make_mesh({mesh.size})) on {n} Kinect-noisy "
+          f"{TUM1.width}x{TUM1.height} frames of bench.py's protocol, sync process_batch: "
+          f"{out['fps']:.2f} fps "
+          f"(mesh=None {out['plain']['fps']:.2f}); ATE {ate * 1e3:.2f} mm (mesh=None "
+          f"{out['plain']['ate_mm']:.2f}); keyframes {len(kf_a)} ({len(kf_b)}); local BA "
+          f"problems {sum(problems)}, sharded solves {solves}; host syncs per dense step "
+          f"{sorted(set(frame_syncs))}; launches {json.dumps(launches)}; keyframe poses vs "
+          f"mesh=None: largest gap {out['keyframe_pose_gap']:.3g} (se3_log), "
+          f"{out['keyframe_gap_mm']:.4f} mm (per keyframe "
+          + ", ".join(f"{x:.4f}" for x in out["keyframe_gaps_mm"]) + ")")
+    if not (sum(problems) >= 1 and solves == [mesh.size] * sum(problems)):
+        raise RuntimeError(f"distributed (c): {sum(problems)} local BA problems, sharded "
+                           f"solves {solves}")
+    if not (np.isfinite(est).all() and ate < FULL_ATE_MAX):
+        raise RuntimeError(f"distributed (c): ATE {ate} (limit {FULL_ATE_MAX})")
+    if any(frame_syncs):
+        raise RuntimeError(f"distributed (c): host syncs in dense steps {frame_syncs}")
+    if len(frames) != n or idle:
+        raise RuntimeError(f"distributed (c): {len(frames)} dense steps for {n} frames; a kernel "
+                           f"was not launched on frames {idle}")
+    return out
+
+
+def phase_distributed(problem, dev, smi) -> dict:
+    """The landmark-sharded local BA: (a) phase_backend's last local-BA
+    problem, padded as the mesh path pads it, on 1-, 4- and 8-shard meshes
+    of the card; (b) the same problem unpadded in 2 gloo processes and 1
+    nccl process; (c) FullSLAM(mesh=) end to end."""
+    t_phase = time.perf_counter()
+    prob = ba.pad_problem(problem)
+    print(f"distributed: problem of {problem.obs.shape[0]} edges, {problem.points.shape[0]} "
+          f"landmarks, {problem.cams.shape[0]} cameras (padded "
+          f"{prob.obs.shape[0]} / {prob.points.shape[0]} / {prob.cams.shape[0]}); {smi}")
+    out = dict(problem=_ba_sizes(prob), solver=_dist_solver(prob, dev),
+               processes=_dist_processes(problem, dev),
+               full_system=_dist_full_system(dev, sharding.make_mesh(DIST_FULL_SHARDS,
+                                                                     devices=[dev])))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"distributed: phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     name, smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -2021,7 +2314,7 @@ def main() -> None:
     pre = phase_preprocess_vs_plain(frames)
     phase_use_pallas(poses, frames)
     profiled = phase_breakdown(poses, frames)
-    backend = phase_backend(dev)
+    backend, last_problem = phase_backend(dev)
     print(json.dumps({"backend": backend}))
     full = phase_full_system(dev)
     full["device"] = smi
@@ -2032,6 +2325,9 @@ def main() -> None:
     modes = phase_tracking_modes(poses, frames, smi)
     modes["device"] = smi
     print(json.dumps({"tracking_modes": modes}, default=float))
+    distributed = phase_distributed(last_problem, dev, smi)
+    distributed["device"] = smi
+    print(json.dumps({"distributed": distributed}, default=float))
 
     rows = []
     for kname in kernels.LAUNCHES:
@@ -2050,6 +2346,7 @@ def main() -> None:
         row["splat_launches"] = real["splat"]["launches"][kname]
         row["tracking_modes_launches"] = {k: v["launches"][kname] for k, v in modes.items()
                                           if isinstance(v, dict) and "launches" in v}
+        row["distributed_launches"] = distributed["full_system"]["launches"][kname]
         if kname == "bilateral_filter":
             row["keyframe_launches"] = full["tracked"]["keyframe_bilateral_launches"]
         if kname == "raycast_core":

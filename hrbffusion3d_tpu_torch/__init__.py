@@ -1,12 +1,14 @@
 """PyTorch + CUDA port of HRBF-Fusion: the dense SLAM step, the sparse
-keyframe backend with loop closing, and the full system that joins them
-(``pipeline.full_slam.FullSLAM``).
+keyframe backend with loop closing, the full system that joins them
+(``pipeline.full_slam.FullSLAM``), and the landmark-sharded bundle
+adjustment over a mesh of shards, in one process or several
+(``parallel/``).
 
 A second package beside ``hrbffusion3d_tpu`` (the JAX reference, which it
 is held against by the ``tests/test_torch_*.py`` parity tests).  The layout
 mirrors the JAX package module for module (``core/``, ``ops/``, ``map/``,
-``tracking/``, ``pipeline/``, ``eval/``, ``backend/``) and keeps its
-public layouts: (H, W, C) images, the packed (N, 24) surfel rows, and
+``tracking/``, ``pipeline/``, ``eval/``, ``backend/``, ``parallel/``) and
+keeps its public layouts: (H, W, C) images, the packed (N, 24) surfel rows, and
 256-bit descriptors as eight 32-bit words (``int64`` on the device,
 ``uint32`` in numpy).
 

@@ -15,8 +15,9 @@ machinery (SURVEY §2.9):
 The backend is a host object called synchronously between track and fuse.
 Detection, matching and BA run on torch tensors on its ``device`` (the CUDA
 card unless the caller names another); the landmark bookkeeping is numpy,
-as in the JAX module.  Not ported: the landmark-sharded BA (``mesh=``,
-``parallel/dist_ba``) and the plan-shape cache (it keeps jit cache keys
+as in the JAX module.  With a ``mesh`` (``parallel.sharding.Mesh``) local
+BA runs the landmark-sharded solver (``parallel/dist_ba``) on the mesh's
+devices.  Not ported: the plan-shape cache (it keeps jit cache keys
 stable).
 """
 
@@ -29,6 +30,8 @@ import numpy as np
 import torch
 
 from ..config import CameraIntrinsics, SLAMConfig
+from ..parallel import dist_ba, multihost
+from ..parallel.sharding import Mesh
 from ..utils.tensors import const, device_or_card, host
 from . import ba, features
 
@@ -118,8 +121,9 @@ class SparseBackend:
     """Keyframe graph, landmark store and local BA.
 
     ``device``: where detection, matching and BA run (None: the CUDA card,
-    which raises when there is none).  ``mesh`` (the landmark-sharded BA)
-    is not ported and raises ``NotImplementedError``."""
+    which raises when there is none).  ``mesh``: local BA runs the
+    landmark-sharded solver on the mesh's shards instead (``ba_pad_min``
+    then has no effect, as in JAX)."""
 
     def __init__(self, intr: CameraIntrinsics, cfg: SLAMConfig,
                  n_features: int = 1024, local_window: int = 5,
@@ -127,8 +131,6 @@ class SparseBackend:
                  mesh=None, proj_gate_px: float = 4.0,
                  use_patch_covariance: bool = True,
                  ba_pad_min: tuple = (0, 0, 0), device=None):
-        if mesh is not None:
-            raise NotImplementedError("the landmark-sharded BA (mesh=) is not ported")
         self.intr = intr
         self.cfg = cfg
         self.n_features = n_features
@@ -144,7 +146,10 @@ class SparseBackend:
         self.sigma_px = sigma_px
         # (min_edges, min_lms, min_cams) pre-sizing of the BA padding buckets
         self.ba_pad_min = ba_pad_min
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.sharding.Mesh, not {type(mesh).__name__}")
         self.device = device_or_card(device)
+        self.mesh = mesh
         self.keyframes: list[Keyframe] = []
         self.landmarks: dict[int, np.ndarray] = {}      # id -> world (3,)
         self.lm_obs: dict[int, list[tuple[int, int]]] = {}  # id -> [(kf, kp)]
@@ -446,15 +451,11 @@ class SparseBackend:
         return self._depth_information(kf.kp_cam[kp_i][None])[0]
 
     # ------------------------------------------------------------------ #
-    def local_ba(self) -> Optional[np.ndarray]:
-        """Local bundle adjustment over the last ``local_window`` keyframes
-        (earlier ones fixed), returning per-submap delta transforms
-        delta_k = pose_new_k @ pose_old_k^-1 (UpdateDenseGlobalModel
-        semantics, HRBFFusion.cpp:457-499) or None if not enough data.
-
-        The problem is built and padded on the host and its reduction plans
-        are built there; the padded problem then moves to ``device`` and is
-        solved there."""
+    def local_problem(self):
+        """The local BA problem over the last ``local_window`` keyframes
+        (earlier ones fixed), unpadded on the host, with its keyframe ids
+        and landmark ids in problem order: (problem, cam_ids, lm_ids), or
+        None if there is not enough data."""
         if len(self.keyframes) < 2:
             return None
         win = self.keyframes[-self.local_window:]
@@ -498,7 +499,6 @@ class SparseBackend:
                              for c in cam_ids]).astype(np.float32)
         points = np.stack([self.landmarks[lid] for lid in lm_sel]).astype(np.float32)
 
-        n_cams, n_lms, n_edges = len(cam_ids), len(lm_sel), obs.shape[0]
         prob = ba.BAProblem(
             cams=torch.from_numpy(cams_tcw),
             points=torch.from_numpy(points),
@@ -506,27 +506,50 @@ class SparseBackend:
             cam_idx=torch.as_tensor(edges_c, dtype=torch.int64),
             lm_idx=torch.as_tensor(edges_l, dtype=torch.int64),
             info=torch.from_numpy(np.stack(infos).astype(np.float32)),
-            edge_valid=torch.ones((n_edges,), dtype=torch.float32),
+            edge_valid=torch.ones((obs.shape[0],), dtype=torch.float32),
             fixed=torch.from_numpy(fixed),
         )
-        solver = "dense" if n_cams <= ba.DENSE_SOLVER_MAX_CAMS else "cg"
-        me, ml, mc = self.ba_pad_min
-        prob = ba.pad_problem(prob, collapse_pad_lms=True, min_edges=me, min_lms=ml,
-                              min_cams=mc)
-        plans = ba.build_plans(prob, solver, n_real=n_edges, device=self.device)
-        prob = ba.BAProblem(*(const(x, self.device, x.dtype) for x in prob))
-        out, _ = ba.optimize(prob, solver=solver, plans=plans)
-        new_tcw = host(out.cams)[:n_cams]
-        new_points = host(out.points)[:n_lms]
+        return prob, cam_ids, lm_sel
+
+    def local_ba(self) -> Optional[np.ndarray]:
+        """Local bundle adjustment over the last ``local_window`` keyframes
+        (earlier ones fixed), returning per-submap delta transforms
+        delta_k = pose_new_k @ pose_old_k^-1 (UpdateDenseGlobalModel
+        semantics, HRBFFusion.cpp:457-499) or None if not enough data.
+
+        The problem is built and padded on the host and its reduction plans
+        are built there; the padded problem then moves to ``device`` (with
+        a mesh: its shards to the mesh's devices) and is solved there."""
+        built = self.local_problem()
+        if built is None:
+            return None
+        prob, cam_ids, lm_ids = built
+        n_cams, n_lms, n_edges = len(cam_ids), len(lm_ids), prob.obs.shape[0]
+        if self.mesh is None:
+            solver = "dense" if n_cams <= ba.DENSE_SOLVER_MAX_CAMS else "cg"
+            me, ml, mc = self.ba_pad_min
+            prob = ba.pad_problem(prob, collapse_pad_lms=True, min_edges=me, min_lms=ml,
+                                  min_cams=mc)
+            plans = ba.build_plans(prob, solver, n_real=n_edges, device=self.device)
+            prob = ba.BAProblem(*(const(x, self.device, x.dtype) for x in prob))
+            out, _ = ba.optimize(prob, solver=solver, plans=plans)
+            new_tcw = host(out.cams)[:n_cams]
+            new_points = host(out.points)[:n_lms]
+        else:
+            sb = dist_ba.partition_problem(ba.pad_problem(prob), self.mesh.size)
+            cams_d, points_d, _ = dist_ba.make_optimizer(self.mesh)(
+                multihost.globalize_sharded_ba(sb, self.mesh))
+            new_tcw = host(cams_d)[:n_cams]
+            new_points = dist_ba.gather_points(points_d, n_lms, self.mesh)
 
         # write back + build dense-map deltas
         deltas = np.tile(np.eye(4, dtype=np.float32), (len(self.keyframes), 1, 1))
-        for c, k in cam_index.items():
+        for k, c in enumerate(cam_ids):
             old_pose = self.keyframes[c].pose
             new_pose = np.linalg.inv(new_tcw[k])
             deltas[c] = (new_pose @ np.linalg.inv(old_pose)).astype(np.float32)
             self.keyframes[c].pose = new_pose
-        for lid, k in lm_index.items():
+        for k, lid in enumerate(lm_ids):
             self.landmarks[lid] = new_points[k]
         return deltas
 

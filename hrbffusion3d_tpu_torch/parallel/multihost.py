@@ -1,0 +1,137 @@
+"""Multi-process setup for the landmark-sharded bundle adjustment (port of
+``hrbffusion3d_tpu/parallel/multihost.py``).
+
+Each process runs the same engine; ``torch.distributed`` joins them, and a
+mesh over all of them (``global_mesh``) gives each process its own shards,
+whose partial camera systems ``Mesh.psum`` all-reduces over the group:
+
+  initialize()            -- ``torch.distributed.init_process_group`` with
+                             the JAX module's environment fallbacks and an
+                             explicit backend
+  global_mesh()           -- a mesh over every process, the same number of
+                             shards in each
+  globalize_sharded_ba()  -- this process's shards of a partitioned problem,
+                             placed on its devices
+  is_coordinator()        -- process 0
+  launch_local()          -- run a function in N spawned processes on this
+                             host, joined by a file rendezvous, with a
+                             deadline after which every one is killed
+
+Without ``initialize`` every helper works on the one process.
+
+Departures from JAX: nothing auto-detects a cluster here, so ``initialize``
+needs all three of its settings; the backend is named by the caller
+(``nccl`` for one GPU per process, ``gloo`` otherwise) and never switched
+silently.  ``globalize_sharded_ba`` takes each process's own shards and
+their own plans (the JAX function still builds the problem's fields from
+before the plans were added).
+
+Not ported yet: the two-level ``("host", "chip")`` layout of
+``global_mesh`` and ``host_local_batch``.  In JAX they feed the sharded
+dense step (the surfel map's rows over hosts, the images' rows over
+chips); the port's local BA reads only the shard count, and they come
+with the port's sharded dense step.
+"""
+
+from __future__ import annotations
+
+import datetime
+import multiprocessing
+import os
+import tempfile
+import time
+
+import torch
+import torch.distributed as dist
+
+from ..utils.tensors import device_or_card
+from .dist_ba import ShardedBA, place
+from .sharding import Mesh, concrete_device
+
+
+# rendezvous and every collective give up after this long
+TIMEOUT = datetime.timedelta(seconds=60)
+
+
+def initialize(coordinator_address: str | None = None, num_processes: int | None = None,
+               process_id: int | None = None, *, backend: str) -> None:
+    """``torch.distributed.init_process_group`` for this process, with the
+    environment fallbacks ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` /
+    ``PROCESS_ID``.  The address is ``host:port`` (TCP) or an init URL
+    (``tcp://...``, ``file://...``).  ``backend``: ``nccl`` (one GPU per
+    process: the process takes ``cuda:<process_id % device count>``) or
+    ``gloo``.  Rendezvous and every collective time out after ``TIMEOUT``;
+    the caller leaves the group with
+    ``torch.distributed.destroy_process_group()``."""
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', not {backend!r}")
+    addr = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
+    n = num_processes or os.environ.get("NUM_PROCESSES")
+    pid = process_id if process_id is not None else os.environ.get("PROCESS_ID")
+    if not addr or n is None or pid is None:
+        raise ValueError("initialize needs the coordinator address, the process count and "
+                         "this process's id (arguments or COORDINATOR_ADDRESS / "
+                         "NUM_PROCESSES / PROCESS_ID)")
+    n, pid = int(n), int(pid)
+    if backend == "nccl":
+        torch.cuda.set_device(pid % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=addr if "://" in addr else f"tcp://{addr}",
+                            world_size=n, rank=pid, timeout=TIMEOUT)
+
+
+def global_mesh(local_shards: int = 1, device=None) -> Mesh:
+    """A mesh over every process, ``local_shards`` shards each on this
+    process's ``device`` (None: its CUDA card)."""
+    dev = concrete_device(device_or_card(device))
+    group = dist.group.WORLD if dist.is_initialized() else None
+    return Mesh((dev,) * local_shards, group)
+
+
+def globalize_sharded_ba(sb: ShardedBA, mesh: Mesh) -> ShardedBA:
+    """This process's shards of a problem partitioned for the whole mesh
+    (``partition_problem(prob, mesh.size)``, the same on every process),
+    with their plans, on their devices; the cameras and gauge replicated.
+    One process: the placed problem, which ``make_optimizer``'s solver
+    takes."""
+    if len(sb.shards) != mesh.size:
+        raise ValueError(f"the problem has {len(sb.shards)} shards, the mesh {mesh.size}")
+    lo = mesh.first_shard
+    return place(sb._replace(shards=sb.shards[lo:lo + len(mesh.devices)]), mesh)
+
+
+def is_coordinator() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def launch_local(target, n_processes: int, args: tuple = (), timeout_s: float = 120.0) -> None:
+    """Run ``target(coordinator_address, n_processes, process_id, *args)`` in
+    ``n_processes`` processes started with the spawn method (a process that
+    has used CUDA cannot fork), each to call ``initialize`` with the
+    address, a file rendezvous in a fresh temporary directory.  ``target``
+    must be importable by the children (a module-level function).  Waits
+    at most ``timeout_s`` for all of them, then kills any still running;
+    raises unless every one exited with 0."""
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        addr = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=target, args=(addr, n_processes, r, *args), daemon=True)
+                 for r in range(n_processes)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+    if hung:
+        raise TimeoutError(f"processes {hung} of {n_processes} still ran after {timeout_s} s "
+                           "and were killed")
+    failed = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+    if failed:
+        raise RuntimeError(f"processes exited with codes {failed} (their tracebacks are on "
+                           "stderr)")

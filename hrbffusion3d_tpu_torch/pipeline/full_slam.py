@@ -28,8 +28,16 @@ the worker thread whatever the main thread's TF32 setting is
 
 Host syncs: ``process`` reads the pose back once per frame and the map
 count once (``ensure_capacity``); ``process_batch`` reads one packed vector
-per chunk (``slam.step_chunk``) and uses its count.  Not ported: the
-sharded system (``mesh=``) and the JAX package's device-placement options
+per chunk (``slam.step_chunk``) and uses its count.
+
+``mesh`` (``parallel.sharding.Mesh``): local BA, sync or async, runs the
+landmark-sharded solver (``parallel/dist_ba``) on the mesh's shards.  The
+dense state and the frames stay whole on ``device``: splitting the surfel
+map's rows and the images' rows over the mesh is the next slice of the
+port.  The JAX package's sharded step gives its single-device step's
+result (``tests/test_aa_sharded_step.py``), so this system computes what
+the JAX system with a mesh computes; only the map's placement differs.
+Not ported: the JAX package's device-placement options
 (``backend_on_cpu``, ``ba_on_chip``, ``plan_cache_path``).
 """
 
@@ -64,9 +72,8 @@ class FullSLAM:
                  backend_kwargs: dict | None = None, init_pose=None,
                  loop_kwargs: dict | None = None, async_ba: bool = False,
                  mesh=None, async_queue_depth: int = 2, device=None):
-        if mesh is not None:
-            raise NotImplementedError("the sharded full system (mesh=) is not ported")
         self.device = device_or_card(device)
+        self.mesh = mesh
         self.intr = intr
         self.cfg = cfg
         self.init_pose = init_pose
@@ -75,6 +82,8 @@ class FullSLAM:
         # BA padding buckets pre-sized for a production-scale run
         nf = bk.get("n_features", 1024)
         bk.setdefault("ba_pad_min", (16 * nf, 8 * nf, 32))
+        if mesh is not None:
+            bk.setdefault("mesh", mesh)
         self.backend = SparseBackend(intr, cfg, device=self.device, **bk)
         self.loop_closer = (LoopCloser(self.backend, **(loop_kwargs or {}))
                             if cfg.use_global_ba else None)

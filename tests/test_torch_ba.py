@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity_utils import n, t
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu.backend import ba as jba
 from hrbffusion3d_tpu.backend import posegraph as jpg

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity_utils import INTR, PINTR, jax_frames, n, port_cfg, port_frames, port_intr, t
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu import config as jconfig
 from hrbffusion3d_tpu.core import camera as jcam

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity_utils import n, port_intr, t
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu.backend import features as jf
 from hrbffusion3d_tpu.config import CameraIntrinsics

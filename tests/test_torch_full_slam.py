@@ -194,8 +194,8 @@ def test_forced_deactivation_matches_jax(keyframed):
 
 def test_device_and_mesh():
     """No card and no device: FullSLAM raises (no fall-back to the CPU);
-    mesh= is not ported."""
-    with pytest.raises(NotImplementedError):
+    a mesh that is not the port's (a JAX one, say) is refused."""
+    with pytest.raises(TypeError, match="parallel.sharding.Mesh"):
         tfs.FullSLAM(PINTR, port_cfg(CFG), mesh=object(), device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")

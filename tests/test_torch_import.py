@@ -1,6 +1,7 @@
 """The port runs where there is no JAX and stands alone from the JAX
 package: importing the package, every one of its submodules (the sparse
-backend's, the full system's and the real-data entry point's included) and ``chip_smoke``'s imports
+backend's, the full system's, the real-data entry point's and the
+distributed BA's included) and ``chip_smoke``'s imports
 leaves ``jax`` and every ``hrbffusion3d_tpu`` module out of ``sys.modules``,
 and succeeds with both blocked.  The port's copies of the JAX package's
 numpy-only code (the BRIEF pattern, the reduction-plan construction,
@@ -49,16 +50,18 @@ def test_port_imports_without_jax_or_the_jax_package():
     # their modules, the full system's (backend.loop, pipeline.full_slam,
     # io.traj, io.ply) and the real-data entry point's (run_tum, io.png,
     # io.tum, io.klg, io.native_loader, utils.timing, utils.params,
-    # utils.checkpoint, viz.stats, viz.viewer, eval.recon, eval.mesh)
-    # included
-    assert int(n_modules) >= 51, out.stdout
+    # utils.checkpoint, viz.stats, viz.viewer, eval.recon, eval.mesh) and
+    # the distributed BA's (parallel, parallel.sharding, parallel.dist_ba,
+    # parallel.multihost) included
+    assert int(n_modules) >= 55, out.stdout
     assert leaked == "[]", leaked
     for name in ("backend/brief_pattern", "backend/features", "backend/reduce_plan",
                  "backend/ba", "backend/keyframes", "backend/bow", "backend/vocab",
                  "backend/posegraph", "backend/loop", "pipeline/full_slam", "io/traj",
                  "io/ply", "run_tum", "io/png", "io/tum", "io/klg", "io/native_loader",
                  "utils/timing", "utils/params", "utils/checkpoint", "viz/stats",
-                 "viz/viewer", "eval/recon", "eval/mesh"):
+                 "viz/viewer", "eval/recon", "eval/mesh", "parallel/sharding",
+                 "parallel/dist_ba", "parallel/multihost"):
         assert (ROOT / "hrbffusion3d_tpu_torch" / f"{name}.py").exists(), name
 
 

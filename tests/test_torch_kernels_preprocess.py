@@ -50,6 +50,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity_utils import CFG, INTR, PINTR, n, port_cfg, t
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu.core import camera as jcam
 from hrbffusion3d_tpu.ops import pallas_kernels as pk

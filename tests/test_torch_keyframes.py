@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity_utils import n, port_cfg, port_intr, rot_angle, t
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu.backend import keyframes as jkf
 from hrbffusion3d_tpu.config import CameraIntrinsics, small_test_config
@@ -130,7 +131,8 @@ def test_parametric_information(runs):
 
 
 def test_mesh_and_missing_card_raise():
-    with pytest.raises(NotImplementedError):
+    """A mesh that is not the port's (a JAX one, say) is refused."""
+    with pytest.raises(TypeError, match="parallel.sharding.Mesh"):
         tkf.SparseBackend(PINTR, port_cfg(CFG), mesh=object(), device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")

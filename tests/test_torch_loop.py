@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity_utils import n, port_cfg, port_intr, rot_angle
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu.backend import keyframes as jkf
 from hrbffusion3d_tpu.backend import loop as jloop

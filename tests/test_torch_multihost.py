@@ -1,0 +1,95 @@
+"""The port's multi-process setup (``parallel/multihost.py``): JAX's flat
+``global_mesh`` case of ``tests/test_multihost.py`` on the port (one
+process, an 8-shard CPU mesh), the mesh's ``psum`` and the one-process
+``globalize_sharded_ba``, and a real 2-process ``gloo`` solve of the
+landmark-sharded BA, 4 shards per process, held to the in-process 8-shard
+solve of the same problem within 2e-5 (``tests/test_multihost_2proc.py``'s
+bound; the two add the 8 shards' systems in different orders).
+
+The children run ``tests/torch_dist_child.py`` (no JAX), meet at a file
+rendezvous in a fresh temporary directory (no port to collide with other
+test workers), time out their rendezvous and collectives after 60 s, and
+are killed if they outlive the test's deadline."""
+
+import numpy as np
+import pytest
+import torch
+import torch_dist_child
+
+from hrbffusion3d_tpu_torch.parallel import dist_ba, multihost, sharding
+
+torch.set_num_threads(1)
+
+
+def test_global_mesh_flat_and_two_level():
+    """JAX's case for the flat mesh: one process gives a mesh of its own
+    shards.  The two-level ``("host", "chip")`` layout is not ported: only
+    the sharded dense step would read it."""
+    mesh = multihost.global_mesh(local_shards=8, device="cpu")
+    assert mesh.size == 8 and mesh.devices == (torch.device("cpu"),) * 8
+    assert mesh.group is None and mesh.first_shard == 0
+
+
+def test_make_mesh_layout_and_setup_errors(monkeypatch):
+    """Shards lie round-robin over the devices given (a device may repeat);
+    without devices a mesh needs the card; ``initialize`` needs its three
+    settings and an explicit backend."""
+    mesh = sharding.make_mesh(3, devices=["cpu", "meta"])
+    assert mesh.devices == tuple(torch.device(d) for d in ("cpu", "meta", "cpu"))
+    assert mesh.size == 3 and mesh.group is None
+    for name in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="backend"):
+        multihost.initialize("localhost:1", 1, 0, backend="mpi")
+    with pytest.raises(ValueError, match="process count"):
+        multihost.initialize("localhost:1", backend="gloo")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default devices are valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharding.make_mesh()
+
+
+def test_psum_adds_shards_in_order():
+    """``Mesh.psum`` adds the shards' parts in shard order and hands each
+    shard the sums; it needs one part list per local shard."""
+    mesh = sharding.make_mesh(3, devices=["cpu"])
+    rng = np.random.default_rng(0)
+    parts = [[torch.from_numpy(rng.standard_normal((4, 6)).astype(np.float32)),
+              torch.tensor(float(k))] for k in range(3)]
+    sums = mesh.psum(parts)
+    assert len(sums) == 3
+    want = (parts[0][0] + parts[1][0]) + parts[2][0]
+    for s in sums:
+        assert torch.equal(s[0], want) and float(s[1]) == 3.0
+    with pytest.raises(ValueError, match="psum got 2"):
+        mesh.psum(parts[:2])
+
+
+def test_globalize_sharded_ba_one_process():
+    """In one process ``globalize_sharded_ba`` is the placed problem; it
+    and the solver refuse a partition for another shard count."""
+    prob = torch_dist_child.make_problem(n_lms=16)[0]
+    mesh = sharding.make_mesh(4, devices=["cpu"])
+    sb = dist_ba.partition_problem(prob, 4)
+    placed = multihost.globalize_sharded_ba(sb, mesh)
+    assert len(placed.shards) == 4
+    for a, b in zip(placed.shards, sb.shards):
+        assert all(torch.equal(x, y) for x, y in zip(a[:6], b[:6]))
+    with pytest.raises(ValueError, match="the problem has 2 shards, the mesh 4"):
+        multihost.globalize_sharded_ba(dist_ba.partition_problem(prob, 2), mesh)
+    with pytest.raises(ValueError, match="2 shards for a mesh that runs 4"):
+        dist_ba.make_optimizer(mesh)(dist_ba.partition_problem(prob, 2))
+
+
+def test_two_process_dist_ba_matches_single_process(tmp_path):
+    out = tmp_path / "proc0.npz"
+    multihost.launch_local(torch_dist_child.solve_rank, 2, args=(4, str(out)), timeout_s=90.0)
+    got = np.load(out)
+
+    prob = torch_dist_child.make_problem()[0]
+    mesh = sharding.make_mesh(8, devices=["cpu"])
+    cams, points, chi = dist_ba.make_optimizer(mesh)(dist_ba.partition_problem(prob, 8))
+    np.testing.assert_allclose(got["cams"], cams.numpy(), atol=2e-5)
+    np.testing.assert_allclose(got["points"],
+                               dist_ba.gather_points(points, prob.points.shape[0]), atol=2e-5)
+    np.testing.assert_allclose(float(got["chi"]), float(chi), rtol=1e-4)

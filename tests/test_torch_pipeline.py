@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 from torch_parity_utils import CFG, PCFG, PINTR, n, port_frames, t
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu.map import surfel_map as jsm
 from hrbffusion3d_tpu.pipeline import slam as jslam

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 from torch_parity_utils import CFG, INTR, PCFG, PINTR, n, port_frames, t
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu.ops import preprocess as jpre
 from hrbffusion3d_tpu.ops import pyramid as jpyr

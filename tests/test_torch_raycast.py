@@ -28,6 +28,7 @@ import pytest
 import torch
 from torch_parity_utils import (CFG, INTR, PCFG, PINTR, n, port_cfg, port_frames,
                                 port_measurement, t)
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu.map import surfel_map as jsm
 from hrbffusion3d_tpu.ops import pallas_kernels as jpk

@@ -30,6 +30,7 @@ import pytest
 import torch
 from torch_parity_utils import (CFG, INTR, PCFG, PINTR, n, port_cfg, port_frames, rot_angle,
                                 t)
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu.core import lie as jlie
 from hrbffusion3d_tpu.pipeline import slam as jslam

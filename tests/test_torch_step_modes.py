@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 from torch_parity_utils import (PINTR, TRACK_CFG, boot_both, check_step, jax_tracked_step, n,
                                 port_cfg, port_frames, rot_angle, t)
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu_torch.pipeline import slam as tslam
 from hrbffusion3d_tpu_torch.tracking import odometry as todo

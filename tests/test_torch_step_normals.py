@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 from torch_parity_utils import (CFG, INTR, PINTR, TRACK_CFG, boot_both, check_step, jax_tracked_step, n,
                                 port_cfg, port_frames, t)
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu.core import camera as jcam
 from hrbffusion3d_tpu.ops import preprocess as jpre

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 from torch_parity_utils import CFG, INTR, PINTR, n, port_cfg, port_frames, rot_angle, t
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 from hrbffusion3d_tpu.tracking import odometry as jodo
 from hrbffusion3d_tpu_torch.pipeline import slam as tslam

@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import pytest
 from torch_parity_utils import TRACK_CFG, check_track, n, tracking_pair
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 SCHEMES = dataclasses.replace(TRACK_CFG, pyramid_iterations=(3, 2))
 EPS = dict(pyramid_iterations=(4, 3), tracking_converge_eps=0.003)

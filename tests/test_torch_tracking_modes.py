@@ -21,6 +21,7 @@ import dataclasses
 
 import pytest
 from torch_parity_utils import TRACK_CFG, check_track, tracking_pair
+from torch_parity_utils import unoptimized_jax  # noqa: F401 (autouse fixture)
 
 MODES = {
     "sparse_icp": (dict(icp_use_sparse=True), False),

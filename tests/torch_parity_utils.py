@@ -6,6 +6,9 @@ Sizes follow ``__graft_entry__`` (64x48 intrinsics, the small test config).
 call takes the port's own ``SLAMConfig`` / ``CameraIntrinsics`` (``PCFG``,
 ``PINTR``, ``port_cfg``), made from the same fields.  Tier-1 runs several
 xdist workers, so torch is pinned to one thread.
+
+``unoptimized_jax``, imported into a parity file, compiles that file's JAX
+side without most of XLA's optimisation passes (see its docstring).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from __graft_entry__ import _CFG, _INTR
@@ -28,6 +32,26 @@ INTR = _INTR
 # The JAX side has no compiled Pallas on the CPU: it runs the XLA raycast
 # (use_pallas_raycast=False); the port always runs its kernel's semantics.
 CFG = dataclasses.replace(_CFG, use_pallas_raycast=False)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def unoptimized_jax():
+    """Autouse in the parity files that import it: their JAX side compiles
+    with ``jax_disable_most_optimizations`` (XLA's optimisation passes
+    off).  At these sizes compiling, not running, is most of the JAX side's
+    time.  The values move by float32 rounding only: every tolerance of the
+    importing files holds (not ``test_torch_icp_modes.py``'s 1e-6 on the
+    lambda update, which therefore keeps the default).  The setting is not
+    part of JAX's jit cache keys, so the caches are cleared when it is
+    turned on and again when it is restored: the file compiles all of its
+    JAX side without the passes, and no program compiled without them
+    reaches the tests that run after it in the same worker."""
+    saved = jax.config.read("jax_disable_most_optimizations")
+    jax.clear_caches()
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.clear_caches()
+    jax.config.update("jax_disable_most_optimizations", saved)
 
 
 def port_cfg(cfg):
