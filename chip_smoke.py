@@ -87,13 +87,27 @@ and prints:
     of the in-process 8-shard solve; (c) ``FullSLAM(mesh=make_mesh(4))``
     on 41 frames of (b)'s protocol through a synchronous
     ``process_batch`` (every local BA sharded, ATE under 5 cm, 0 host
-    syncs and every kernel in each dense step) beside ``mesh=None`` on
-    the same frames (the keyframe-pose gap printed); a JSON line
-    ``{"distributed": {...}}``;
+    syncs and every kernel in each dense step; the map's rows on the 4
+    shards: its dense state is row-sharded) beside
+    ``mesh=None`` on the same frames (the keyframe-pose gap printed); a
+    JSON line ``{"distributed": {...}}``;
+  - the row-sharded dense step (``phase_sharded_step``) on 4- and 8-shard
+    meshes of the card, the dense-step cell's 16 frames: (a) replayed at
+    the main path's poses, equal to the unsharded step bit for bit after
+    every step; (b) tracked beside the unsharded step (each frame's pose
+    within 1e-4, equal counts; each step also against the unsharded step
+    from its own previous state, and the unsharded step replayed at its
+    tracked pose bit for bit; ATE under 2.5 cm); (c) each kernel launched
+    on one shard's slab against its plain version and against its
+    whole-image launch on the slab's rows (bit for bit); (d) 0 host syncs
+    in a sharded step; (e) distributed (c); ms per step beside the
+    unsharded step, launches per shard per step, bytes per shard; a JSON
+    line ``{"sharded_step": {...}}``;
   - a JSON line ``{"kernels": [...]}``: per kernel its launches on the main
     path (the bilateral kernel's keyframe call site apart, and the
-    launches of each ``phase_run_tum`` path, each tracking mode and
-    ``phase_distributed`` (c) beside them), max abs error
+    launches of each ``phase_run_tum`` path, each tracking mode,
+    ``phase_distributed`` (c) and each ``phase_sharded_step`` run beside
+    them, with its slab check), max abs error
     against the plain version, both times and the bound (the least time
     the card could take for the same work);
   - last, ``{"ok": true, "device": {...}}``.
@@ -130,7 +144,7 @@ from hrbffusion3d_tpu_torch.eval.ate import ate_rmse
 from hrbffusion3d_tpu_torch.io import klg, native_loader, ply, png, traj, tum
 from hrbffusion3d_tpu_torch.map import surfel_map as sm
 from hrbffusion3d_tpu_torch.ops import kernels, preprocess, pyramid, raycast
-from hrbffusion3d_tpu_torch.parallel import dist_ba, multihost, sharding
+from hrbffusion3d_tpu_torch.parallel import dist_ba, multihost, sharded_step, sharding
 from hrbffusion3d_tpu_torch.pipeline import full_slam, slam
 from hrbffusion3d_tpu_torch.tracking import odometry
 from hrbffusion3d_tpu_torch.utils import checkpoint
@@ -415,7 +429,7 @@ def phase_main_path(poses, frames):
             raise RuntimeError(f"{name} kernel launched {count} times, expected {N_FRAMES}")
     if syncs != 0:
         raise RuntimeError(f"the counted step made {syncs} host syncs")
-    return state, launches, med
+    return state, launches, med, est
 
 
 def _median_ms(fn, n=20, primed=False) -> float:
@@ -473,14 +487,7 @@ def phase_raycast_vs_plain(state):
         out = kernels.raycast_core(attr9, TUM1, cfg)
         *ref, st = kernels.raycast_core_ref(attr9, TUM1, cfg, stats=True)
         torch.cuda.synchronize()
-        f_k, f_r = out[3], ref[3]
-        agree = (f_k == f_r).float().mean().item()
-        both = f_k & f_r
-        max_err = (out[0] - ref[0]).abs().amax(-1)[both].max().item()
-        gk = torch.nn.functional.normalize(out[1][both], dim=-1)
-        gr = torch.nn.functional.normalize(ref[1][both], dim=-1)
-        dots = ((gk * gr).sum(-1) > 0.9999).float().mean().item()
-        near = (out[2][both] == ref[2][both]).float().mean().item()
+        agree, both, max_err, dots, near = _raycast_agreement(out, ref)
         ms = _median_ms(lambda: kernels.raycast_core(attr9, TUM1, cfg), primed=True)
         call_ms = _median_ms(lambda: kernels.raycast_core(attr9, TUM1, cfg))
         plain_ms = _median_ms(lambda: kernels.raycast_core_ref(attr9, TUM1, cfg))
@@ -511,13 +518,44 @@ def phase_raycast_vs_plain(state):
               f"{float(st.n_eval[st.n_sel > 0].double().mean()):.3f} least, "
               f"{float(kernels.raycast_kernel_evals(st, cfg)[st.n_sel > 0].double().mean()):.3f} "
               f"done")
-        if not (agree > 0.995 and both.float().mean().item() > 0.5 and max_err < 1e-4
-                and dots > 0.99 and near >= 0.99):
-            raise RuntimeError(f"raycast kernel disagrees with its plain version ({variant})")
+        _raycast_gate(f"raycast_core [{variant}]", agree, both, max_err, dots, near)
         results[variant] = dict(max_abs_err=max_err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by,
                                 bound_done_ms=done_ms, bound_done_by=done_by)
     return results
+
+
+def _raycast_agreement(out, ref):
+    """(found agreement, found in both, p_surf max abs error there, share of
+    gradients with dot > 0.9999 there, share of equal nearest taps there)."""
+    f_k, f_r = out[3], ref[3]
+    both = f_k & f_r
+    gk = torch.nn.functional.normalize(out[1][both], dim=-1)
+    gr = torch.nn.functional.normalize(ref[1][both], dim=-1)
+    return ((f_k == f_r).float().mean().item(), both,
+            (out[0] - ref[0]).abs().amax(-1)[both].max().item(),
+            ((gk * gr).sum(-1) > 0.9999).float().mean().item(),
+            (out[2][both] == ref[2][both]).float().mean().item())
+
+
+def _raycast_gate(name, agree, both, max_err, dots, near):
+    """The ray cast's rule against its plain version: found agreement >
+    0.995 on > 50 % found, p_surf within 1e-4 m, gradients dot > 0.9999
+    on > 99 % and nearest taps equal on >= 99 % where both found."""
+    if not (agree > 0.995 and both.float().mean().item() > 0.5 and max_err < 1e-4
+            and dots > 0.99 and near >= 0.99):
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version")
+
+
+def _raycast_rule(name, out, ref) -> float:
+    """``_raycast_gate`` on a kernel's output and its plain version's;
+    returns the p_surf max abs error."""
+    agree, both, max_err, dots, near = _raycast_agreement(out, ref)
+    print(f"{name}: found agree {agree:.5f} (both {both.float().mean().item():.4f}), p_surf "
+          f"max abs err {max_err:.3e} m, normal dot>0.9999 {dots:.5f}, nearest equal "
+          f"{near:.5f}")
+    _raycast_gate(name, agree, both, max_err, dots, near)
+    return max_err
 
 
 def _pca_rule(name, out, ref):
@@ -2036,7 +2074,8 @@ def phase_tracking_modes(poses, frames, smi) -> dict:
 # (tests/test_torch_ba.py's solver bounds); the multi-process solves of
 # the unpadded problem against the in-process 8-shard one within DIST_MP_TOL
 # (tests/test_multihost_2proc.py's bound); FullSLAM(mesh=make_mesh(4)) on
-# phase_full_system (b)'s protocol cut to DIST_FRAMES frames (5 keyframes)
+# phase_full_system (b)'s protocol cut to DIST_FRAMES frames (5 keyframes),
+# its keyframe poses within DIST_TOL of mesh=None's
 DIST_SHARDS = (1, 4, 8)
 DIST_TOL, DIST_CHI2_RTOL, DIST_MP_TOL = 1e-4, 1e-4, 2e-5
 DIST_FRAMES, DIST_FULL_SHARDS = 41, 4
@@ -2237,6 +2276,12 @@ def _dist_full_system(dev, mesh) -> dict:
         dist_ba.make_optimizer = make_optimizer
     launches = dict(kernels.LAUNCHES)
     _driven("distributed (c)", launches)
+    data = sys_.state.map.data
+    map_shards = (sum(p.shape[0] > 0 for p in data.parts)
+                  if isinstance(data, sharding.ShardedRows) else 1)
+    if map_shards != mesh.size:
+        raise RuntimeError(f"distributed (c): the map's rows lie on {map_shards} shards, the "
+                           f"mesh has {mesh.size}")
     est = sys_.poses()
     ate = ate_rmse(est, gt[:len(est)], align=False)
 
@@ -2253,7 +2298,8 @@ def _dist_full_system(dev, mesh) -> dict:
     t_gaps = np.linalg.norm(kf_a[:k, :3, 3] - kf_b[:k, :3, 3], axis=1)
     frame_syncs = [s for s, _ in frames]
     idle = [i for i, (_, per) in enumerate(frames) if min(per.values()) == 0]
-    out = dict(frames=n, shards=mesh.size, seconds=secs, fps=(n - 1) / secs,
+    out = dict(frames=n, shards=mesh.size, map_row_shards=map_shards, seconds=secs,
+               fps=(n - 1) / secs,
                ate_mm=ate * 1e3, keyframes=len(kf_a), local_ba_problems=sum(problems),
                sharded_solves=len(solves), host_syncs_per_frame=frame_syncs,
                launches=launches, plain=dict(seconds=plain_secs, fps=(n - 1) / plain_secs,
@@ -2265,7 +2311,7 @@ def _dist_full_system(dev, mesh) -> dict:
     print(f"distributed (c): FullSLAM(mesh=make_mesh({mesh.size})) on {n} Kinect-noisy "
           f"{TUM1.width}x{TUM1.height} frames of bench.py's protocol, sync process_batch: "
           f"{out['fps']:.2f} fps "
-          f"(mesh=None {out['plain']['fps']:.2f}); ATE {ate * 1e3:.2f} mm (mesh=None "
+          f"(mesh=None {out['plain']['fps']:.2f}); map rows on {map_shards} shards; ATE {ate * 1e3:.2f} mm (mesh=None "
           f"{out['plain']['ate_mm']:.2f}); keyframes {len(kf_a)} ({len(kf_b)}); local BA "
           f"problems {sum(problems)}, sharded solves {solves}; host syncs per dense step "
           f"{sorted(set(frame_syncs))}; launches {json.dumps(launches)}; keyframe poses vs "
@@ -2277,6 +2323,9 @@ def _dist_full_system(dev, mesh) -> dict:
                            f"solves {solves}")
     if not (np.isfinite(est).all() and ate < FULL_ATE_MAX):
         raise RuntimeError(f"distributed (c): ATE {ate} (limit {FULL_ATE_MAX})")
+    if not out["keyframe_pose_gap"] <= DIST_TOL:
+        raise RuntimeError(f"distributed (c): keyframe poses {out['keyframe_pose_gap']} from "
+                           f"mesh=None (limit {DIST_TOL})")
     if any(frame_syncs):
         raise RuntimeError(f"distributed (c): host syncs in dense steps {frame_syncs}")
     if len(frames) != n or idle:
@@ -2304,12 +2353,255 @@ def phase_distributed(problem, dev, smi) -> dict:
     return out
 
 
+# phase_sharded_step: the row-sharded dense step (parallel/sharded_step) on
+# make_mesh(n) of the one card for n in SHARD_MESHES, on the dense-step
+# cell's frames under the bench config: (a) replayed at the main path's
+# tracked poses, equal to the unsharded step bit for bit after every step;
+# (b) tracked (tracking_converge_eps 0, the bench config's), beside a
+# free-running unsharded run: each frame's pose within SHARD_POSE_TOL
+# (largest |R - R'|, |t - t'|: tests/test_aa_sharded_step.py's bound) and
+# the same map count; each sharded step also held to the unsharded step
+# from the same state (the sharded run's previous state, gathered), by the
+# same rule, and the unsharded step replayed at the sharded step's tracked
+# pose equal to it bit for bit (all but the tracking is exact); ATE under
+# 2.5 cm (the Gram sums are float64 in both steps, rounded once; in
+# float32 their order moved the pose by up to 1.1e-3 on 8 shards and the
+# count by a surfel now and then, PERF.md); (c) each kernel's slab launch
+# held to its plain version on the slab (the main path's rules) and to its
+# whole-image launch on the rows the shard keeps (bit for bit); (d) 0 host
+# syncs in a sharded step (CUDA sync-debug mode); (e) is
+# phase_distributed (c): FullSLAM with a 4-shard mesh, whose dense state
+# is sharded
+SHARD_MESHES = (4, 8)
+SHARD_POSE_TOL = 1e-4
+SHARD_ATE_MAX = 0.025
+SHARD_SLAB_MESH, SHARD_SLAB_SHARD = 4, 1
+
+
+def _state_diff(ref: slam.SLAMState, got: slam.SLAMState, skip=()) -> list:
+    """The fields of two states that are not equal bit for bit (the map's
+    rows and count apart); ``dense_frac`` (a float mean) and ``skip`` are
+    left out."""
+    got = sharding.gather_state(got)
+    bad = []
+    if not torch.equal(ref.map.count, got.map.count):
+        bad.append("map.count")
+    if not torch.equal(ref.map.data, got.map.data):
+        bad.append("map.data")
+    for name in slam.SLAMState._fields:
+        a, b = getattr(ref, name), getattr(got, name)
+        if name in ("map", "dense_frac") or name in skip:
+            continue
+        if isinstance(a, torch.Tensor) and not torch.equal(a, b) or (
+                not isinstance(a, torch.Tensor) and a != b):
+            bad.append(name)
+    return bad
+
+
+def _shard_bytes(state: slam.SLAMState) -> list:
+    """Bytes of each shard's blocks of the state (map rows and image rows)."""
+    out = [0] * len(state.map.data.parts)
+    for x in [state.map.data] + [getattr(state, f) for f in slam.SLAMState._fields]:
+        if isinstance(x, sharding.ShardedRows):
+            for k, p in enumerate(x.parts):
+                out[k] += p.numel() * p.element_size()
+    return out
+
+
+def _gap(a: slam.SLAMState, b: slam.SLAMState) -> float:
+    return max((a.R - b.R).abs().max().item(), (a.t - b.t).abs().max().item())
+
+
+def _lockstep(label, mesh, frames, poses, fixed):
+    """bootstrap + the frames' steps, unsharded and on ``mesh`` one after
+    the other per frame (``fixed``: each step's pose, replay; None:
+    tracked, each sharded step also held to the unsharded step from its
+    own previous state); each step synchronised and timed; the kernels'
+    launches counted in the sharded steps alone; the host syncs of the
+    last sharded step counted."""
+    cfg = BENCH_CFG
+    ref = slam.bootstrap(frames[0], TUM1, cfg, init_pose=poses[0])
+    got = sharding.shard_state(ref, mesh, cfg)
+    ms_ref, ms_got, diffs, gaps, counts = [], [], [], [], []
+    anchored_gaps, anchored_counts, replayed = [], [], []
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    est = [lie.rt_to_mat(got.R, got.t)]
+    syncs = None
+    for i in range(1, len(frames)):
+        pose = None if fixed is None else fixed[i]
+        prev = sharding.gather_state(got) if fixed is None else None
+        anchor = slam.step(prev, frames[i], TUM1, cfg) if fixed is None else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = slam.step(ref, frames[i], TUM1, cfg, fixed_pose=pose)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        before = dict(kernels.LAUNCHES)
+        if i == len(frames) - 1:
+            got, syncs = _count_syncs(lambda: slam.step(got, frames[i], TUM1, cfg,
+                                                        fixed_pose=pose))
+        else:
+            got = slam.step(got, frames[i], TUM1, cfg, fixed_pose=pose)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for k, v in kernels.LAUNCHES.items():
+            launches[k] += v - before[k]
+        ms_ref.append(1e3 * (t1 - t0))
+        ms_got.append(1e3 * (t2 - t1))
+        est.append(lie.rt_to_mat(got.R, got.t))
+        if fixed is not None:
+            diffs.append(_state_diff(ref, got))
+        gaps.append(_gap(ref, got))
+        counts.append((int(ref.map.count), int(got.map.count)))
+        if anchor is not None:
+            anchored_gaps.append(_gap(anchor, got))
+            anchored_counts.append((int(anchor.map.count), int(got.map.count)))
+            at_pose = slam.step(prev, frames[i], TUM1, cfg,
+                                fixed_pose=lie.rt_to_mat(got.R, got.t))
+            replayed.append(_state_diff(at_pose, got, skip=("last_icp_error", "last_icp_count")))
+            del prev, anchor, at_pose
+    n_steps = len(frames) - 1
+    out = dict(shards=mesh.size, steps=n_steps, syncs_last_step=syncs, launches=launches,
+               launches_per_shard_step={k: v / (n_steps * mesh.size) for k, v in launches.items()},
+               median_step_ms=float(np.median(ms_got[3:])),
+               median_unsharded_ms=float(np.median(ms_ref[3:])),
+               step_ms=ms_got, unsharded_ms=ms_ref, pose_gaps=gaps,
+               counts_equal=all(a == b for a, b in counts), final_count=counts[-1],
+               bytes_per_shard=_shard_bytes(got),
+               map_rows_per_shard=[p.shape[0] for p in got.map.data.parts],
+               image_rows_per_shard=[b - a for a, b in got.pred_vertex.bounds])
+    est_np = torch.stack(est).cpu().numpy()
+    out["ate_mm"] = ate_rmse(est_np, poses[:len(est)], align=False) * 1e3
+    if fixed is not None:
+        out["steps_bit_for_bit"] = sum(not d for d in diffs)
+        out["differing_fields"] = [d for d in diffs if d]
+    else:
+        out["anchored_pose_gaps"] = anchored_gaps
+        out["anchored_counts_equal"] = sum(a == b for a, b in anchored_counts)
+        out["anchored_count_gaps"] = [b - a for a, b in anchored_counts]
+        out["replayed_at_pose_bit_for_bit"] = sum(not d for d in replayed)
+        out["replayed_differing_fields"] = [d for d in replayed if d]
+    print(f"sharded step {label} on make_mesh({mesh.size}): median {out['median_step_ms']:.2f} "
+          f"ms per step (unsharded {out['median_unsharded_ms']:.2f} ms) over steps 4-{n_steps}; "
+          + (f"bit for bit after {out['steps_bit_for_bit']} of {n_steps} steps; "
+             if fixed is not None else
+             f"each step vs the unsharded step from its state: largest pose gap "
+             f"{max(anchored_gaps):.3g}, counts equal in {out['anchored_counts_equal']} of "
+             f"{n_steps} (gaps {out['anchored_count_gaps']}), the unsharded step at the "
+             f"sharded step's pose bit for bit in {out['replayed_at_pose_bit_for_bit']} of "
+             f"{n_steps}; free-running: ")
+          + f"largest pose gap {max(gaps):.3g}; counts equal {out['counts_equal']} (final "
+          f"{counts[-1]}); ATE {out['ate_mm']:.3f} mm; host syncs in the last step {syncs}; "
+          f"launches {json.dumps(launches)}; bytes per shard {out['bytes_per_shard']} "
+          f"(map rows {out['map_rows_per_shard']}, image rows {out['image_rows_per_shard']})")
+    for k, v in launches.items():
+        if v != n_steps * mesh.size:
+            raise RuntimeError(f"sharded step {label}, {mesh.size} shards: {k} launched {v} "
+                               f"times, expected {n_steps * mesh.size} (one per shard per step)")
+    if syncs != 0:
+        raise RuntimeError(f"sharded step {label}: {syncs} host syncs in a step")
+    return out
+
+
+def _slab_checks(frames, state, mesh) -> dict:
+    """(c): each kernel launched on one shard's slab (as the sharded step
+    launches it) against its plain version on the slab and against its
+    whole-image launch on the shard's rows."""
+    cfg = BENCH_CFG
+    img = sharding.ShardedRows.split(frames[1].depth, mesh,
+                                     sharding.row_unit(cfg.num_pyramid_levels))
+    a, b = img.bounds[SHARD_SLAB_SHARD]
+    label = f"slab rows {a}-{b} of make_mesh({mesh.size})"
+    out = {}
+
+    def same(name, slab_out, whole_out, rows, s0):
+        for x, y in zip(slab_out, whole_out):
+            if not torch.equal(x[rows[0] - s0:rows[1] - s0], y[rows[0]:rows[1]]):
+                raise RuntimeError(f"{name}: the slab launch ({label}) differs from the whole "
+                                   "image's on its rows")
+
+    halo = sharded_step.preprocess_halo(cfg)
+    depth = frames[1].depth
+    slab, s0 = depth[max(a - halo, 0):b + halo].contiguous(), max(a - halo, 0)
+    out["bilateral_filter"] = _bilateral_rule(label, slab, cfg)
+    f_slab, f_whole = (preprocess.bilateral_filter(x, cfg) for x in (slab, depth))
+    same("bilateral_filter", [f_slab], [f_whole], (a - 6, b + 6), s0)
+    v_slab = camera.unproject(f_slab, TUM1, row0=s0)
+    v_whole = camera.unproject(f_whole, TUM1)
+    out["normal_pca"] = _pca_rule(f"normal_pca [{label}]", preprocess.normal_pca(v_slab, cfg),
+                                  preprocess.normal_pca_ref(v_slab, cfg))
+    same("normal_pca", [preprocess.normal_pca(v_slab, cfg)],
+         [preprocess.normal_pca(v_whole, cfg)], (a - 3, b + 3), s0)
+    pre_slab = preprocess.vertex_normal_radius(slab, f_slab, TUM1, cfg, row0=s0)
+    pre_whole = preprocess.vertex_normal_radius(depth, f_whole, TUM1, cfg)
+    out["curvature_gradient"] = _curv_rule(f"curvature_gradient [{label}]", pre_slab, cfg)
+    same("curvature_gradient", preprocess.curvature_gradient(pre_slab, TUM1, cfg),
+         preprocess.curvature_gradient(pre_whole, TUM1, cfg), (a, b), s0)
+
+    pose_inv = lie.se3_inverse(lie.rt_to_mat(state.R, state.t))
+    idx = sm.render_index(state.map, pose_inv, TUM1)
+    attr = sm.render_attr_image(state.map, idx, pose_inv)
+    attr9 = torch.cat([attr[..., 0:sm.A_RADIUS + 1],
+                       attr[..., sm.A_VALID:sm.A_VALID + 1]], dim=-1).contiguous()
+    R = cfg.predict_window_multiplier
+    s0 = max(a - R, 0)
+    slab9 = attr9[s0:b + R].contiguous()
+    args = dict(top=a - s0, height=b - a, row0=a)
+    got = kernels.raycast_core(slab9, TUM1, cfg, **args)
+    same("raycast_core", got, kernels.raycast_core(attr9, TUM1, cfg), (a, b), a)
+    out["raycast_core"] = _raycast_rule(f"raycast_core [{label}]", got,
+                                        kernels.raycast_core_ref(slab9, TUM1, cfg, **args))
+    print(f"sharded step (c): every kernel's slab launch ({label}) equals its whole-image "
+          "launch on the slab's rows bit for bit")
+    return {k: {"max_abs_err": v, "rows": [a, b]} for k, v in out.items()}
+
+
+def phase_sharded_step(poses, frames, est, state, smi, full_system) -> dict:
+    """The row-sharded dense step on 4- and 8-shard meshes of the card:
+    (a) replay bit for bit, (b) tracked, (c) the kernels' slab launches,
+    (d) host syncs; (e) phase_distributed (c)'s sharded FullSLAM."""
+    t_phase = time.perf_counter()
+    out = {"replay": {}, "tracked": {}}
+    for n in SHARD_MESHES:
+        mesh = sharding.make_mesh(n, devices=[frames[0].depth.device])
+        r = out["replay"][str(n)] = _lockstep("(a) replay", mesh, frames, poses, est)
+        if r["differing_fields"] or r["steps_bit_for_bit"] != N_FRAMES - 1:
+            raise RuntimeError(f"sharded replay on {n} shards differs from the unsharded step: "
+                               f"{r['differing_fields']}")
+        r = out["tracked"][str(n)] = _lockstep("(b) tracked", mesh, frames, poses, None)
+        if not (max(r["pose_gaps"] + r["anchored_pose_gaps"]) <= SHARD_POSE_TOL
+                and r["counts_equal"] and r["anchored_counts_equal"] == N_FRAMES - 1
+                and r["replayed_at_pose_bit_for_bit"] == N_FRAMES - 1
+                and r["ate_mm"] < SHARD_ATE_MAX * 1e3):
+            raise RuntimeError(f"sharded tracked run on {n} shards: pose gaps "
+                               f"{r['pose_gaps']} (to the unsharded step from the same state "
+                               f"{r['anchored_pose_gaps']}), counts equal {r['counts_equal']} "
+                               f"(count gaps {r['anchored_count_gaps']}), at its pose "
+                               f"{r['replayed_differing_fields']}, ATE {r['ate_mm']} mm")
+    out["slabs"] = _slab_checks(frames, state, sharding.make_mesh(
+        SHARD_SLAB_MESH, devices=[frames[0].depth.device]))
+    out["full_system"] = {k: full_system[k] for k in (
+        "shards", "map_row_shards", "fps", "ate_mm", "keyframes", "local_ba_problems",
+        "sharded_solves", "keyframe_pose_gap", "keyframe_gap_mm")}
+    print("sharded step: median ms per step, sharded (unsharded in the same run), bytes per "
+          "shard: " + "; ".join(
+              f"{m} {n} shards {r['median_step_ms']:.2f} ({r['median_unsharded_ms']:.2f}), "
+              f"{r['bytes_per_shard'][0]} B" for m in ("replay", "tracked")
+              for n, r in out[m].items()) + f"; {smi}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"sharded step (e) = distributed (c): FullSLAM(mesh=make_mesh("
+          f"{full_system['shards']})), map rows on {full_system['map_row_shards']} shards, "
+          f"ATE {full_system['ate_mm']:.2f} mm; {smi}")
+    print(f"sharded step: phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     name, smi = phase_card()
     dev = torch.device("cuda", 0)
     attrs = phase_build()
     poses, frames = phase_frames(dev)
-    state, launches, _ = phase_main_path(poses, frames)
+    state, launches, _, est = phase_main_path(poses, frames)
     ray = phase_raycast_vs_plain(state)
     pre = phase_preprocess_vs_plain(frames)
     phase_use_pallas(poses, frames)
@@ -2328,6 +2620,9 @@ def main() -> None:
     distributed = phase_distributed(last_problem, dev, smi)
     distributed["device"] = smi
     print(json.dumps({"distributed": distributed}, default=float))
+    sharded = phase_sharded_step(poses, frames, est, state, smi, distributed["full_system"])
+    sharded["device"] = smi
+    print(json.dumps({"sharded_step": sharded}, default=float))
 
     rows = []
     for kname in kernels.LAUNCHES:
@@ -2347,6 +2642,9 @@ def main() -> None:
         row["tracking_modes_launches"] = {k: v["launches"][kname] for k, v in modes.items()
                                           if isinstance(v, dict) and "launches" in v}
         row["distributed_launches"] = distributed["full_system"]["launches"][kname]
+        row["sharded_step_launches"] = {f"{m} {n}": sharded[m][str(n)]["launches"][kname]
+                                        for m in ("replay", "tracked") for n in SHARD_MESHES}
+        row["sharded_slab"] = sharded["slabs"][kname]
         if kname == "bilateral_filter":
             row["keyframe_launches"] = full["tracked"]["keyframe_bilateral_launches"]
         if kname == "raycast_core":

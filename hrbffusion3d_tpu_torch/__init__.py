@@ -1,8 +1,9 @@
 """PyTorch + CUDA port of HRBF-Fusion: the dense SLAM step, the sparse
 keyframe backend with loop closing, the full system that joins them
-(``pipeline.full_slam.FullSLAM``), and the landmark-sharded bundle
-adjustment over a mesh of shards, in one process or several
-(``parallel/``).
+(``pipeline.full_slam.FullSLAM``), the landmark-sharded bundle
+adjustment over a mesh of shards, in one process or several, and the
+dense step with the surfel map's rows and the images' rows split over a
+mesh (``parallel/``).
 
 A second package beside ``hrbffusion3d_tpu`` (the JAX reference, which it
 is held against by the ``tests/test_torch_*.py`` parity tests).  The layout

@@ -11,20 +11,22 @@ from ..config import CameraIntrinsics
 from ..utils.tensors import const, device_or_card
 
 
-def pixel_grid(h: int, w: int, device=None, dtype=torch.float32):
+def pixel_grid(h: int, w: int, device=None, dtype=torch.float32, row0: int = 0):
     """Integer pixel coordinates as float (y, x) maps, each (H, W), on
-    ``device`` (default the CUDA card)."""
+    ``device`` (default the CUDA card); ``row0``: the image row of the
+    first row (a row slab of a taller image)."""
     device = device_or_card(device)
-    ys = torch.arange(h, dtype=dtype, device=device)[:, None]
+    ys = torch.arange(row0, row0 + h, dtype=dtype, device=device)[:, None]
     xs = torch.arange(w, dtype=dtype, device=device)[None, :]
     return ys.expand(h, w), xs.expand(h, w)
 
 
-def unproject(depth: torch.Tensor, intr: CameraIntrinsics) -> torch.Tensor:
+def unproject(depth: torch.Tensor, intr: CameraIntrinsics, row0: int = 0) -> torch.Tensor:
     """Depth (H, W) in metres -> camera-frame vertex map (H, W, 3); invalid
-    (<= 0) depths give zero vertices."""
+    (<= 0) depths give zero vertices.  ``row0``: the image row of the
+    first row of a row slab."""
     h, w = depth.shape
-    yy, xx = pixel_grid(h, w, depth.device, depth.dtype)
+    yy, xx = pixel_grid(h, w, depth.device, depth.dtype, row0)
     z = torch.where(depth > 0, depth, 0.0)
     x = (xx - intr.cx) * z * (1.0 / intr.fx)
     y = (yy - intr.cy) * z * (1.0 / intr.fy)

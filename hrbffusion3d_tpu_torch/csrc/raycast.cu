@@ -60,8 +60,14 @@ constexpr int kMaxRing = (2 * kMaxRadius + 1) * (2 * kMaxRadius + 1);
 constexpr int kLadderBatch = 4;  // ladder / k-section points per tap pass
 constexpr int kRingGroup = 8;    // ring taps tested per pass of the walk
 
+// The input is a slab of the attribute image, h_in rows; the output is its
+// rows top .. top + h - 1, the image rows row0 .. row0 + h - 1 (the whole
+// image: h_in = h, top = row0 = 0).  A tap outside the slab is absent, as a
+// tap outside the image is, so a slab that holds every image row within
+// radius of its output rows gives the whole image's result for them; the
+// viewing ray is formed from the image row, so its arithmetic is the same.
 struct Params {
-  int h, w, radius, k, kmin, n_ladder, fp_iters, bis_iters;
+  int h, w, h_in, top, row0, radius, k, kmin, n_ladder, fp_iters, bis_iters;
   int ksec_b, ksec_p;  // k-section: points per pass (> 1 to use it), passes
   float conf_t, fx, fy, cx, cy;
   float ladder[kMaxLadder];    // offset * step, ascending, in metres
@@ -160,12 +166,12 @@ raycast_kernel(const float* __restrict__ attr, float* __restrict__ p_surf,
   const int tid = threadIdx.y * kBlockX + threadIdx.x;
 
   // stage the halo tile: the centre-independent per-tap terms; outside the
-  // image a tap is unstable (valid = 0)
+  // slab a tap is unstable (valid = 0)
   for (int i = tid; i < n_pix; i += kThreads) {
     const int gx = x0 + i % tw;
-    const int gy = y0 + i / tw;
+    const int gy = p.top + y0 + i / tw;
     float a[kChannels] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (gx >= 0 && gx < p.w && gy >= 0 && gy < p.h) {
+    if (gx >= 0 && gx < p.w && gy >= 0 && gy < p.h_in) {
       const float* src = attr + (static_cast<int64_t>(gy) * p.w + gx) * kChannels;
 #pragma unroll
       for (int c = 0; c < kChannels; ++c) a[c] = src[c];
@@ -190,7 +196,7 @@ raycast_kernel(const float* __restrict__ attr, float* __restrict__ p_surf,
 
   // viewing ray (pallas_kernels.py:221-224)
   float rx = (static_cast<float>(x) - p.cx) / p.fx;
-  float ry = (static_cast<float>(y) - p.cy) / p.fy;
+  float ry = (static_cast<float>(p.row0 + y) - p.cy) / p.fy;
   const float rn = 1.f / sqrtf(rx * rx + ry * ry + 1.f);
   rx *= rn;
   ry *= rn;
@@ -404,7 +410,9 @@ Kernel pick(int k, int radius, size_t* smem) {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  ``ladder`` is a host array of
+// Plain C entry point (bound with ctypes).  ``attr`` holds h_in rows; the
+// outputs the h rows from slab row ``top`` on, image row ``row0`` (Params).
+// ``ladder`` is a host array of
 // ``n_ladder`` offsets in metres; ``ring`` a host array of (dy, dx) int8
 // pairs, the (2R+1)^2 window offsets in ring order.  Refinement: false
 // position when ``fp_iters`` > 0, else k-section when ``ksec_b`` > 1, else
@@ -414,18 +422,21 @@ Kernel pick(int k, int radius, size_t* smem) {
 // table of the wrong size or with an offset outside the window).
 extern "C" int raycast_core_launch(
     const float* attr, float* p_surf, float* grad, int32_t* nearest,
-    uint8_t* found, int h, int w, int radius, int k, int kmin, float conf_t,
+    uint8_t* found, int h, int w, int h_in, int top, int row0, int radius, int k,
+    int kmin, float conf_t,
     const float* ladder, int n_ladder, const int8_t* ring, int n_ring,
     int fp_iters, int bis_iters, int ksec_b, int ksec_p, float fx, float fy,
     float cx, float cy, void* stream) {
   size_t smem = 0;
   const Kernel kernel = pick(k, radius, &smem);
-  if (kernel == nullptr || h <= 0 || w <= 0 || radius < 0 || radius > kMaxRadius ||
+  if (kernel == nullptr || h <= 0 || w <= 0 || top < 0 || top + h > h_in || row0 < 0 ||
+      radius < 0 || radius > kMaxRadius ||
       n_ladder < 0 || n_ladder > kMaxLadder || fp_iters < 0 || bis_iters < 0 ||
       ksec_b < 1 || ksec_p < 0 || n_ring != (2 * radius + 1) * (2 * radius + 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.h = h; p.w = w; p.radius = radius; p.k = k; p.kmin = kmin;
+  p.h = h; p.w = w; p.h_in = h_in; p.top = top; p.row0 = row0;
+  p.radius = radius; p.k = k; p.kmin = kmin;
   p.n_ladder = n_ladder; p.fp_iters = fp_iters; p.bis_iters = bis_iters;
   p.ksec_b = ksec_b; p.ksec_p = ksec_p;
   p.conf_t = conf_t; p.fx = fx; p.fy = fy; p.cx = cx; p.cy = cy;

@@ -202,37 +202,71 @@ def render_index(m: SurfelMap, pose_inv: torch.Tensor, intr: CameraIntrinsics,
     (11-bit quantised z in the high bits, 20-bit surfel id in the low
     bits).  Above: the exact float z-buffer, a scatter-min of z, then one
     of the ids of the rows at their pixel's minimum."""
-    h, w = intr.height, intr.width
     n = m.data.shape[0]
-    dev = m.data.device
-    local = _to_camera(m.pos, pose_inv)
+    z, ok, pix = render_targets(m.data, pose_inv, intr, active, conf_threshold)
+    ids = torch.arange(n, dtype=torch.int32, device=m.data.device)
+    if n <= KEY_ROWS:
+        return decode_index(render_keys(z, ok, pix, ids, intr), intr, keyed=True)
+    zbuf = render_zbuf(z, ok, pix, intr)
+    return decode_index(render_winners(z, ok, pix, ids, zbuf, intr), intr, keyed=False)
+
+
+# maps up to this many rows render with one packed-key scatter-min
+KEY_ROWS = 1 << 20
+_ZBIG = 1e30
+
+
+def render_targets(data: torch.Tensor, pose_inv: torch.Tensor, intr: CameraIntrinsics,
+                   active: torch.Tensor | None = None, conf_threshold: float | None = None):
+    """(camera z, rendered, flat target pixel: H*W for none) of map rows."""
+    h, w = intr.height, intr.width
+    local = _to_camera(data[:, POS], pose_inv)
     z = local[:, 2]
     zs = torch.where(z != 0, z, 1e12)
     u = torch.round(local[:, 0] * intr.fx / zs + intr.cx).to(torch.int32)
     v = torch.round(local[:, 1] * intr.fy / zs + intr.cy).to(torch.int32)
-    ok = m.valid & (z > 0) & (u >= 0) & (v >= 0) & (u < w) & (v < h)
+    ok = (data[:, VALID] > 0.5) & (z > 0) & (u >= 0) & (v >= 0) & (u < w) & (v < h)
     if active is not None:
         ok &= active
     if conf_threshold is not None:
-        ok &= m.conf >= conf_threshold
+        ok &= data[:, CONF] >= conf_threshold
     pix = torch.where(ok, v * w + u, h * w).long()   # overflow bucket
-    ids = torch.arange(n, dtype=torch.int32, device=dev)
-    if n <= (1 << 20):
-        zq = torch.clamp(z * (2047.0 / 3.5), 0, 2047).to(torch.int32)
-        key = torch.where(ok, (zq << 20) | ids, _INT_MAX)
-        buf = torch.full((h * w + 1,), _INT_MAX, dtype=torch.int32, device=dev)
-        buf.scatter_reduce_(0, pix, key, "amin", include_self=True)
-        out = buf[:h * w]
-        return torch.where(out == _INT_MAX, -1, out & ((1 << 20) - 1)).reshape(h, w)
-    big = 1e30
-    zbuf = torch.full((h * w + 1,), big, dtype=torch.float32, device=dev)
-    zbuf.scatter_reduce_(0, pix, torch.where(ok, z, big), "amin", include_self=True)
+    return z, ok, pix
+
+
+def render_keys(z, ok, pix, ids, intr: CameraIntrinsics) -> torch.Tensor:
+    """(H*W+1,) scatter-min of the packed key (11-bit quantised z high, the
+    20-bit surfel id ``ids`` low) per target pixel."""
+    zq = torch.clamp(z * (2047.0 / 3.5), 0, 2047).to(torch.int32)
+    key = torch.where(ok, (zq << 20) | ids, _INT_MAX)
+    buf = torch.full((intr.height * intr.width + 1,), _INT_MAX, dtype=torch.int32,
+                     device=z.device)
+    return buf.scatter_reduce_(0, pix, key, "amin", include_self=True)
+
+
+def render_zbuf(z, ok, pix, intr: CameraIntrinsics) -> torch.Tensor:
+    """(H*W+1,) float z-buffer: the scatter-min of z per target pixel."""
+    zbuf = torch.full((intr.height * intr.width + 1,), _ZBIG, dtype=torch.float32,
+                      device=z.device)
+    return zbuf.scatter_reduce_(0, pix, torch.where(ok, z, _ZBIG), "amin", include_self=True)
+
+
+def render_winners(z, ok, pix, ids, zbuf, intr: CameraIntrinsics) -> torch.Tensor:
+    """(H*W+1,) scatter-min of the ids of the rows at their pixel's
+    z-buffer minimum."""
     is_winner = ok & (z <= zbuf[pix])
-    idxbuf = torch.full((h * w + 1,), _INT_MAX, dtype=torch.int32, device=dev)
-    idxbuf.scatter_reduce_(0, pix, torch.where(is_winner, ids, _INT_MAX), "amin",
-                           include_self=True)
-    out = idxbuf[:h * w]
-    return torch.where(out == _INT_MAX, -1, out).reshape(h, w)
+    idxbuf = torch.full((intr.height * intr.width + 1,), _INT_MAX, dtype=torch.int32,
+                        device=z.device)
+    return idxbuf.scatter_reduce_(0, pix, torch.where(is_winner, ids, _INT_MAX), "amin",
+                                  include_self=True)
+
+
+def decode_index(buf: torch.Tensor, intr: CameraIntrinsics, keyed: bool) -> torch.Tensor:
+    """The (H, W) int32 index map (-1 = empty) from a scatter-min buffer."""
+    h, w = intr.height, intr.width
+    out = buf[:h * w]
+    ids = out & ((1 << 20) - 1) if keyed else out
+    return torch.where(out == _INT_MAX, -1, ids).reshape(h, w)
 
 
 # rendered attribute image channels (render_attr_image)
@@ -258,10 +292,16 @@ def render_attr_image(m: SurfelMap, index_map: torch.Tensor, pose_inv: torch.Ten
                       extended: bool = False) -> torch.Tensor:
     """(H, W, 12|23) camera-frame attributes of the rendered surfel per
     pixel, from one row gather of the map."""
-    h, w = index_map.shape
     flat = index_map.reshape(-1)
-    has = flat >= 0
     rows = m.data[torch.clamp(flat, 0, m.data.shape[0] - 1).long()]
+    return attr_from_rows(rows, flat >= 0, pose_inv, index_map.shape, extended)
+
+
+def attr_from_rows(rows: torch.Tensor, has: torch.Tensor, pose_inv: torch.Tensor,
+                   shape, extended: bool = False) -> torch.Tensor:
+    """``render_attr_image`` from the (P, 24) map rows of the pixels'
+    surfels (``has``: the pixel has one) of an image of ``shape``."""
+    h, w = shape
     chans = [
         _to_camera(rows[:, POS], pose_inv), rows[:, NORMAL] @ pose_inv[:3, :3].T,
         rows[:, CONF, None], rows[:, RADIUS, None],
@@ -294,9 +334,6 @@ def fuse(m: SurfelMap, meas: FrameMeasurement, pose: torch.Tensor,
     n_cap = m.data.shape[0]
     dev = m.data.device
     par = int(time) % 2
-    yyq, xxq = camera.pixel_grid(hq, wq, dev)
-    gx = 2.0 * xxq + par
-    gy = 2.0 * yyq + par
 
     attr = render_attr_image(m, index_map, lie.se3_inverse(pose))
 
@@ -304,13 +341,57 @@ def fuse(m: SurfelMap, meas: FrameMeasurement, pose: torch.Tensor,
         return img[par:par + 2 * hq:2, par:par + 2 * wq:2]
 
     meas_q = FrameMeasurement(*(quarter(x) for x in meas))
+    patch = quarter(extract_patches(fuse_attr7(attr), 1)).reshape(P, 9, 7)
+    cand = quarter(extract_patches(index_map, 1, fill=-1)).reshape(P, 9)
+    yyq, xxq = camera.pixel_grid(hq, wq, dev)
+    ok_pix, best_id, new_rows = fuse_pixels(meas_q, patch, cand, 2.0 * xxq + par,
+                                            2.0 * yyq + par, pose, intr, cfg, time,
+                                            submap_idx, act)
+    matched = ok_pix & (best_id >= 0)
+
+    # one winning pixel per surfel: min pixel id (integer scatter-min)
+    pixel_ids = torch.arange(P, dtype=torch.int32, device=dev)
+    wtbl = winner_table(torch.where(matched, best_id, n_cap), matched, pixel_ids, n_cap)
+    # merge, surfel-side: each surfel with a winner gathers its row
+    has_winner = wtbl != _INT_MAX
+    meas_rows = new_rows[torch.clamp(wtbl, 0, P - 1).long()]
+    m = SurfelMap(data=merge_rows(m.data, meas_rows, has_winner), count=m.count)
+
+    # new surfels: block append + in-place index-map update at their pixels
+    new_mask = ok_pix & (best_id < 0)
+    S = min(cfg.new_surfels_capacity, P, n_cap)
+    start = torch.clamp(m.count, 0, n_cap - S)
+    rank = torch.cumsum(new_mask.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    new_id = start + rank
+    appended = new_mask & (rank < S)
+    m = _append(m, new_rows, new_mask, block_size=S)
+
+    upd = fuse_index_update(appended, new_id, cand, meas_q, patch).reshape(hq, wq)
+    idx_updated = index_map.clone()
+    idx_updated[par:par + 2 * hq:2, par:par + 2 * wq:2] = upd
+    return m, idx_updated
+
+
+def fuse_attr7(attr: torch.Tensor) -> torch.Tensor:
+    """The (H, W, 7) [pos | nrm | valid] channels of an attr image that
+    fuse's association window reads."""
+    return torch.cat([attr[..., 0:6], attr[..., A_VALID:A_VALID + 1]], dim=-1)
+
+
+def fuse_pixels(meas_q: FrameMeasurement, patch: torch.Tensor, cand: torch.Tensor,
+                gx: torch.Tensor, gy: torch.Tensor, pose: torch.Tensor,
+                intr: CameraIntrinsics, cfg: SLAMConfig, time: int, submap_idx: int,
+                act=1.0):
+    """fuse's per-pixel half, over P checkerboard pixels: ``meas_q`` their
+    measurements, ``patch`` (P, 9, 7) / ``cand`` (P, 9) the 3x3 window of
+    the attr image and the index map, (``gx``, ``gy``) their image
+    coordinates.  Returns (valid measurement, the best candidate surfel
+    or -1, the (P, 24) rows of the measurements as new surfels)."""
+    P = cand.shape[0]
     ok_pix = _measurement_valid(meas_q, cfg).reshape(P)
     v_local = meas_q.vertex.reshape(P, 3)
     n_local = meas_q.normal.reshape(P, 3)
     new_rows = _pack_frame(meas_q, pose, submap_idx, time, act)     # (P, 24)
-    attr7 = torch.cat([attr[..., 0:6], attr[..., A_VALID:A_VALID + 1]], dim=-1)
-    patch = quarter(extract_patches(attr7, 1)).reshape(P, 9, 7)
-    cand = quarter(extract_patches(index_map, 1, fill=-1)).reshape(P, 9)
 
     xl = (gx.reshape(P) - intr.cx) / intr.fx
     yl = (gy.reshape(P) - intr.cy) / intr.fy
@@ -334,20 +415,24 @@ def fuse(m: SurfelMap, meas: FrameMeasurement, pose: torch.Tensor,
     best_tap = torch.argmin(dist, dim=1, keepdim=True)
     best_ok = torch.gather(good, 1, best_tap)[:, 0]
     best_id = torch.where(best_ok, torch.gather(cand, 1, best_tap)[:, 0], -1)
-    matched = ok_pix & (best_id >= 0)
+    return ok_pix, best_id, new_rows
 
-    # one winning pixel per surfel: min pixel id (integer scatter-min)
-    pixel_ids = torch.arange(P, dtype=torch.int32, device=dev)
-    tgt = torch.where(matched, best_id, n_cap)
-    winner = torch.full((n_cap + 1,), _INT_MAX, dtype=torch.int32, device=dev)
-    winner.scatter_reduce_(0, tgt.long(), torch.where(matched, pixel_ids, _INT_MAX),
+
+def winner_table(target: torch.Tensor, matched: torch.Tensor, pixel_ids: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """(n,) least matched pixel id per surfel row (``target``: its row, n
+    for none); INT_MAX where no pixel matched."""
+    winner = torch.full((n + 1,), _INT_MAX, dtype=torch.int32, device=target.device)
+    winner.scatter_reduce_(0, target.long(), torch.where(matched, pixel_ids, _INT_MAX),
                            "amin", include_self=True)
+    return winner[:n]
 
-    # merge, surfel-side: each surfel with a winner gathers its row
-    wtbl = winner[:n_cap]
-    has_winner = wtbl != _INT_MAX
-    meas_rows = new_rows[torch.clamp(wtbl, 0, P - 1).long()]
-    old = m.data
+
+def merge_rows(old: torch.Tensor, meas_rows: torch.Tensor,
+               has_winner: torch.Tensor) -> torch.Tensor:
+    """fuse's merge: each row with a winning pixel takes the confidence-
+    weighted running average with its measurement row, guarded by
+    newRadius < 1.5x old."""
     c_k = old[:, CONF]
     a = meas_rows[:, CONF]
     denom = torch.clamp(c_k + a, min=1e-12)
@@ -363,24 +448,17 @@ def fuse(m: SurfelMap, meas: FrameMeasurement, pose: torch.Tensor,
     merged[:, STAMP] = meas_rows[:, STAMP]
     merged[:, VALID] = 1.0
     merged[:, ACT] = old[:, ACT]
-    m = SurfelMap(data=torch.where(has_winner[:, None], merged, old), count=m.count)
+    return torch.where(has_winner[:, None], merged, old)
 
-    # new surfels: block append + in-place index-map update at their pixels
-    new_mask = ok_pix & (best_id < 0)
-    S = min(cfg.new_surfels_capacity, P, n_cap)
-    start = torch.clamp(m.count, 0, n_cap - S)
-    rank = torch.cumsum(new_mask.to(torch.int32), dim=0, dtype=torch.int32) - 1
-    new_id = start + rank
-    appended = new_mask & (rank < S)
-    m = _append(m, new_rows, new_mask, block_size=S)
 
-    # z-test against the existing render: the centre tap is this pixel
+def fuse_index_update(appended, new_id, cand, meas_q: FrameMeasurement, patch):
+    """The index map's new value at the checkerboard pixels: an appended
+    surfel wins its pixel's z-test against the existing render (the
+    centre tap is this pixel)."""
     idx_q = cand[:, 4]
-    wins = appended & ((idx_q < 0) | (v_local[:, 2] < patch[:, 4, 2]))
-    upd = torch.where(wins, new_id, idx_q).reshape(hq, wq)
-    idx_updated = index_map.clone()
-    idx_updated[par:par + 2 * hq:2, par:par + 2 * wq:2] = upd
-    return m, idx_updated
+    v_z = meas_q.vertex.reshape(-1, 3)[:, 2]
+    wins = appended & ((idx_q < 0) | (v_z < patch[:, 4, 2]))
+    return torch.where(wins, new_id, idx_q)
 
 
 def clean_mask(m: SurfelMap, pose: torch.Tensor, index_map: torch.Tensor,
@@ -391,36 +469,51 @@ def clean_mask(m: SurfelMap, pose: torch.Tensor, index_map: torch.Tensor,
     behind) or free-space-violating (> 4), and unstable-timeout surfels die.
     The crowd/free-space rules run only every ``clean_crowd_period``-th
     frame."""
-    n = m.data.shape[0]
+    crowd = int(time) % max(cfg.clean_crowd_period, 1) == 0
+    if crowd and attr is None:
+        attr = render_attr_image(m, index_map, lie.se3_inverse(pose))
+    patches = crowd_patches(attr) if crowd else None
+    return clean_mask_rows(m.data, pose, patches, intr, cfg, time)
+
+
+def crowd_patches(attr: torch.Tensor) -> torch.Tensor:
+    """(H*W, 72): the 3x3 window of [pos | conf | init, stamp, active,
+    valid] of an attr image per pixel, which the crowd rules read."""
+    h, w = attr.shape[:2]
+    # A_INIT..A_VALID are adjacent
+    attr8 = torch.cat([attr[..., 0:3], attr[..., A_CONF:A_CONF + 1],
+                       attr[..., A_INIT:A_VALID + 1]], dim=-1)
+    return extract_patches(attr8, 1).reshape(h * w, 9 * 8)
+
+
+def clean_mask_rows(data: torch.Tensor, pose: torch.Tensor, patches: torch.Tensor | None,
+                    intr: CameraIntrinsics, cfg: SLAMConfig, time: int) -> torch.Tensor:
+    """``clean_mask`` of map rows; ``patches``: the whole image's
+    ``crowd_patches`` on a crowd-rule frame, else None."""
+    n = data.shape[0]
     h, w = intr.height, intr.width
     pose_inv = lie.se3_inverse(pose)
-    local = _to_camera(m.pos, pose_inv)
+    local = _to_camera(data[:, POS], pose_inv)
     lz = local[:, 2]
     safe_z = torch.where(lz != 0, lz, 1e12)
     x = local[:, 0] * intr.fx / safe_z + intr.cx
     y = local[:, 1] * intr.fy / safe_z + intr.cy
     in_view = (lz > 0) & (lz < cfg.depth_cutoff) & (x > 0) & (y > 0) & (x < w) & (y < h)
-    local_nz = (m.normal @ pose_inv[:3, :3].T)[:, 2]
+    local_nz = (data[:, NORMAL] @ pose_inv[:3, :3].T)[:, 2]
     xi = torch.clamp(torch.round(x).to(torch.int32), 0, w - 1)
     yi = torch.clamp(torch.round(y).to(torch.int32), 0, h - 1)
-    if attr is None:
-        attr = render_attr_image(m, index_map, pose_inv)
+    radius = data[:, RADIUS]
 
-    crowd_period = max(cfg.clean_crowd_period, 1)
-    if int(time) % crowd_period == 0:
-        # pos | conf | init, stamp, active, valid (A_INIT..A_VALID are adjacent)
-        attr8 = torch.cat([attr[..., 0:3], attr[..., A_CONF:A_CONF + 1],
-                           attr[..., A_INIT:A_VALID + 1]], dim=-1)
-        patch_img = extract_patches(attr8, 1).reshape(h * w, 9 * 8)
-        rows9 = patch_img[(yi * w + xi).long()].reshape(n, 9, 8)
-        wgt = const([1, 2, 1, 2, 4, 2, 1, 2, 1], m.data.device, torch.int32)
+    if patches is not None:
+        rows9 = patches[(yi * w + xi).long()].reshape(n, 9, 8)
+        wgt = const([1, 2, 1, 2, 4, 2, 1, 2, 1], data.device, torch.int32)
         has = in_view[:, None] & (rows9[..., 7] > 0.5)
         cpos_z = rows9[..., 2]
         stable = rows9[..., 3] > cfg.confidence_threshold
         behind = cpos_z > lz[:, None]
         overlap = torch.linalg.vector_norm(rows9[..., 0:2] - local[:, None, :2], dim=-1) < \
-            (m.radius * 1.4)[:, None]
-        red = (has & (rows9[..., 4] < m.data[:, INIT_TIME][:, None]) & stable
+            (radius * 1.4)[:, None]
+        red = (has & (rows9[..., 4] < data[:, INIT_TIME][:, None]) & stable
                & behind & (cpos_z - lz[:, None] < 0.01) & overlap)
         count = torch.sum(torch.where(red, wgt, 0), dim=1)
         fs = (has & (rows9[..., 5] == float(time)) & stable & behind
@@ -429,15 +522,15 @@ def clean_mask(m: SurfelMap, pose: torch.Tensor, index_map: torch.Tensor,
         zcount = torch.sum(torch.where(fs, wgt, 0), dim=1)
         crowd_kill = (count > cfg.clean_overlap_limit) | (zcount > cfg.clean_freespace_limit)
     else:
-        crowd_kill = torch.zeros((n,), dtype=torch.bool, device=m.data.device)
+        crowd_kill = torch.zeros((n,), dtype=torch.bool, device=data.device)
 
     t = cfg.curv_valid_threshold
-    k1 = m.data[:, K1]
-    k2 = m.data[:, K2]
+    k1 = data[:, K1]
+    k2 = data[:, K2]
     curv_bad = (k1 < -t) | (k1 > t) | (k2 < -t) | (k2 > t)
-    unstable_kill = (((time - m.data[:, STAMP]) > cfg.unstable_time_limit)
-                     & (m.data[:, CONF] < cfg.confidence_threshold))
-    return m.valid & ~curv_bad & ~crowd_kill & ~unstable_kill
+    unstable_kill = (((time - data[:, STAMP]) > cfg.unstable_time_limit)
+                     & (data[:, CONF] < cfg.confidence_threshold))
+    return (data[:, VALID] > 0.5) & ~curv_bad & ~crowd_kill & ~unstable_kill
 
 
 def compact(m: SurfelMap, keep: torch.Tensor) -> SurfelMap:

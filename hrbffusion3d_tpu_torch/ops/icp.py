@@ -8,7 +8,11 @@ and the fused single-gather pass :func:`joint_step` with its
 fixed-correspondence, subsampled, top-k and patch-anchored variants.
 
 Every pixel contributes a row [J | r]; the 6x6 system is one weighted Gram
-product.  The model prediction is packed into rows so that one row gather
+product, accumulated in float64 (``_sums``): the tracker rounds each
+system to float32 once, after summing it, so its value does not depend on
+the order the pixels are summed in (the row-sharded step sums the shards'
+systems; its float32 systems are the whole image's).  The model
+prediction is packed into rows so that one row gather
 per Gauss-Newton iteration fetches a pixel's correspondence: 9 channels
 [v n w d i] at the rounded pixel (``pack_joint_nearest``, the reference's
 nearest-pixel photometric lookup), 36 channels for the 2x2 bilinear
@@ -35,9 +39,18 @@ def _flat(vi: torch.Tensor, ui: torch.Tensor, h: int, w: int) -> torch.Tensor:
             + torch.clamp(ui.to(torch.int32), 0, w - 1)).long()
 
 
+def _sums(rows: torch.Tensor, weight: torch.Tensor | None = None) -> torch.Tensor:
+    """(w rows)^T rows of rows (N,k) and weights (N,) (default 1), in
+    float64: each product of the float32 weighted row and the row is exact
+    there."""
+    wr = rows if weight is None else rows * weight[:, None]
+    return wr.double().T @ rows.double()
+
+
 def _gram(rows: torch.Tensor, weight: torch.Tensor):
-    """rows (N,7), weight (N,) -> (A (6,6), b (6,), r2_sum)."""
-    S = (rows * weight[:, None]).T @ rows
+    """rows (N,7), weight (N,) -> (A (6,6), b (6,), r2_sum) in float64
+    (``_sums``)."""
+    S = _sums(rows, weight)
     return S[:6, :6], S[:6, 6], S[6, 6]
 
 
@@ -369,11 +382,12 @@ def saliency_ids(k: int, vmap_curr, nmap_curr, next_image, static_valid, d_idx, 
     return (torch.arange(h, dtype=torch.int64, device=dev)[:, None] * w + ci).reshape(-1)
 
 
-def joint_cur_pack(vmap_curr, nmap_curr, next_depth, intr: CameraIntrinsics):
+def joint_cur_pack(vmap_curr, nmap_curr, next_depth, intr: CameraIntrinsics, row0: int = 0):
     """Pose-invariant per-pixel inputs of joint_step: (vcurr, ncurr,
-    valid_curr), computed once per pyramid level."""
+    valid_curr), computed once per pyramid level (of a row slab from
+    image row ``row0`` on, when given one)."""
     n_pix = vmap_curr.shape[0] * vmap_curr.shape[1]
-    vcurr = camera.unproject(next_depth, intr).reshape(n_pix, 3)
+    vcurr = camera.unproject(next_depth, intr, row0).reshape(n_pix, 3)
     ncurr = nmap_curr.reshape(n_pix, 3)
     return vcurr, ncurr, _valid_curr(vmap_curr, ncurr)
 
@@ -456,14 +470,18 @@ def joint_step(R_curr: torch.Tensor, t_curr: torch.Tensor,
 
 def rgb_static_valid(next_image: torch.Tensor, d_idx: torch.Tensor,
                      d_idy: torch.Tensor, next_depth: torch.Tensor,
-                     min_scale: float) -> torch.Tensor:
+                     min_scale: float, row0: int = 0,
+                     height: int | None = None) -> torch.Tensor:
     """Pose-independent photometric gate (reduce.cu:998-1029): in range,
-    non-isolated (4x4 window of nextImage > 0), strong gradient, has depth."""
+    non-isolated (4x4 window of nextImage > 0), strong gradient, has depth.
+    On a row slab, ``row0`` is its first image row and ``height`` the
+    image's (the slab's first two and last rows are then wrong unless
+    they are the image's border)."""
     h, w = next_image.shape
     P = h * w
     pix = torch.arange(P, device=next_image.device)
-    yy, xx = pix // w, pix % w
-    in_range = (xx < w - 5) & (yy < h - 1)
+    yy, xx = pix // w + row0, pix % w
+    in_range = (xx < w - 5) & (yy < (h if height is None else height) - 1)
     # 4x4 window [i-2..i+1] x [j-2..j+1]: the radius-2 patch minus its
     # last row and column
     pat = extract_patches(next_image, 2).reshape(P, 5, 5)[:, :4, :4]
@@ -646,13 +664,17 @@ def rgb_step(corres: RGBCorres, sigma_val: torch.Tensor, d_idx: torch.Tensor,
 def so3_step(last_image: torch.Tensor, next_image: torch.Tensor,
              next_grad_rows: torch.Tensor, last_gx: torch.Tensor,
              last_gy: torch.Tensor, image_basis: torch.Tensor,
-             kinv: torch.Tensor, krlr: torch.Tensor):
+             kinv: torch.Tensor, krlr: torch.Tensor, row0: int = 0):
     """3-DoF rotation pre-alignment normal equations (reduce.cu:1156-1359).
-    Returns (A (3,3), b (3,), r2, count)."""
+    Returns (A (3,3), b (3,), r2, count), the sums in float64 (``_sums``).
+    The sums run over the pixels of
+    ``last_image`` / ``last_gx`` / ``last_gy``: the whole image, or a row
+    slab of it from image row ``row0`` on; ``next_image`` and
+    ``next_grad_rows`` are always the whole image."""
     h, w = next_image.shape
-    n_pix = h * w
+    n_pix = last_image.numel()
     pix = torch.arange(n_pix, device=next_image.device)
-    yy, xx = pix // w, pix % w
+    yy, xx = pix // w + row0, pix % w
     xf = xx.to(torch.float32)
     yf = yy.to(torch.float32)
     ib = image_basis
@@ -683,16 +705,20 @@ def so3_step(last_image: torch.Tensor, next_image: torch.Tensor,
     jac = torch.linalg.cross(lp, pt, dim=-1)
     res = -(i_next - last_image.reshape(n_pix))
     rows = torch.where(valid[:, None], torch.cat([jac, res[:, None]], dim=-1), 0.0)
-    S = rows.T @ rows
+    S = _sums(rows)
     return S[:3, :3], S[:3, 3], S[3, 3], valid.sum(dtype=torch.float32)
 
 
-def central_gradients(img: torch.Tensor):
-    """(back - fore)/2 gradients with zero borders (reduce.cu:1172-1188)."""
+def central_gradients(img: torch.Tensor, row0: int = 0, height: int | None = None):
+    """(back - fore)/2 gradients with zero borders (reduce.cu:1172-1188).
+    On a row slab, ``row0`` is its first image row and ``height`` the
+    image's (the slab's first and last rows are then wrong unless they
+    are the image's border)."""
     gx = (torch.roll(img, 1, 1) - torch.roll(img, -1, 1)) * 0.5
     gy = (torch.roll(img, 1, 0) - torch.roll(img, -1, 0)) * 0.5
     h, w = img.shape
-    yy = torch.arange(h, device=img.device)[:, None]
+    yy = torch.arange(row0, row0 + h, device=img.device)[:, None]
+    h = h if height is None else height
     xx = torch.arange(w, device=img.device)[None, :]
     inner = (yy >= 1) & (yy < h - 1) & (xx >= 1) & (xx < w - 1)
     return torch.where(inner, gx, 0.0), torch.where(inner, gy, 0.0)

@@ -51,7 +51,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # trailing stream)
 _ENTRIES = {
     "raycast_core": ("raycast.cu", "raycast_core_launch",
-                     [_P] * 5 + [_I] * 5 + [_F, _P, _I, _P] + [_I] * 5 + [_F] * 4),
+                     [_P] * 5 + [_I] * 8 + [_F, _P, _I, _P] + [_I] * 5 + [_F] * 4),
     "bilateral_filter": ("preprocess.cu", "bilateral_filter_launch",
                          [_P, _P, _I, _I, _F, _F, _I]),
     "normal_pca": ("preprocess.cu", "normal_pca_launch", [_P, _P, _I, _I, _F]),
@@ -255,18 +255,36 @@ def launch(name: str, like: torch.Tensor, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def raycast_core(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfig):
+def _slab_rows(attr9: torch.Tensor, intr: CameraIntrinsics, top: int, height, row0: int):
+    """(output rows, checked) of a ray cast over the slab ``attr9``: its
+    rows ``top .. top + height - 1`` are the image rows ``row0 ..``; the
+    whole image by default."""
+    h_in = attr9.shape[0]
+    height = h_in - top if height is None else height
+    if height <= 0 or top < 0 or top + height > h_in or row0 < 0 or row0 + height > intr.height:
+        raise ValueError(f"raycast_core: output rows {top}..{top + height} of a {h_in}-row "
+                         f"slab at image row {row0} do not fit a {intr.height}-row image")
+    return height
+
+
+def raycast_core(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfig,
+                 top: int = 0, height: int | None = None, row0: int = 0):
     """Fused HRBF ray cast over an (H, W, 9) attribute image
     [pos(3) | nrm(3) | conf | radius | valid], camera frame.
 
     Returns (p_surf (H,W,3), grad (H,W,3) unnormalised, nearest ring-tap
     index (H,W) int32, found (H,W) bool) — the output contract of the TPU
-    kernel.  CPU tensors run ``raycast_core_ref``; CUDA tensors launch the
-    kernel."""
+    kernel.  On a row slab of the image (``attr9`` of any row count): the
+    ``height`` rows from slab row ``top`` on, which are the image rows from
+    ``row0`` on; taps outside the slab are absent, so a slab holding every
+    image row within ``predict_window_multiplier`` of them gives their
+    whole-image result.  CPU tensors run ``raycast_core_ref``; CUDA
+    tensors launch the kernel."""
     if not on_card("raycast_core", attr9):
-        return raycast_core_ref(attr9, intr, cfg)
-    h, w = intr.height, intr.width
-    check_input("raycast_core", attr9, (h, w, 9))
+        return raycast_core_ref(attr9, intr, cfg, top=top, height=height, row0=row0)
+    h_in, w = attr9.shape[0], intr.width
+    h = _slab_rows(attr9, intr, top, height, row0)
+    check_input("raycast_core", attr9, (h_in, w, 9))
     if cfg.predict_max_neighbors > 16 or cfg.predict_window_multiplier > 7:
         raise ValueError("raycast_core: the kernel takes predict_max_neighbors <= 16 "
                          "and predict_window_multiplier <= 7")
@@ -279,7 +297,7 @@ def raycast_core(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfig):
     ring = ring_table(cfg.predict_window_multiplier)
     launch("raycast_core", attr9,
            attr9.data_ptr(), p_surf.data_ptr(), grad.data_ptr(),
-           nearest.data_ptr(), found.data_ptr(), h, w,
+           nearest.data_ptr(), found.data_ptr(), h, w, h_in, top, row0,
            cfg.predict_window_multiplier, cfg.predict_max_neighbors,
            cfg.predict_min_neighbors, cfg.predict_conf_threshold,
            ctypes.cast(lad, ctypes.c_void_p), n_lad,
@@ -326,17 +344,18 @@ def raycast_kernel_evals(stats: RaycastStats, cfg: SLAMConfig) -> torch.Tensor:
 
 
 def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfig,
-                     stats: bool = False):
-    """Plain PyTorch version of ``raycast_core`` (same semantics, vectorised
-    over (pixels, 49 taps) in chunks of whole image rows holding about
-    ``cfg.raycast_chunk`` pixels).  With ``stats``, a fifth output: the
-    per-pixel work, ``RaycastStats``."""
+                     stats: bool = False, top: int = 0, height: int | None = None,
+                     row0: int = 0):
+    """Plain PyTorch version of ``raycast_core`` (same semantics, the same
+    slab arguments, vectorised over (pixels, 49 taps) in chunks of whole
+    image rows holding about ``cfg.raycast_chunk`` pixels).  With
+    ``stats``, a fifth output: the per-pixel work, ``RaycastStats``."""
     ladder, fp, bis, ksec_b, ksec_p = _variant(cfg)
     refine = _refine_evals(fp, bis, ksec_b, ksec_p)
     R = cfg.predict_window_multiplier
     K = cfg.predict_max_neighbors
     kmin = cfg.predict_min_neighbors
-    h, w = intr.height, intr.width
+    h, w = _slab_rows(attr9, intr, top, height, row0), intr.width
     dev = attr9.device
     ap = torch.nn.functional.pad(attr9, (0, 0, R, R, R, R))
     lad = const(ladder, dev)
@@ -346,8 +365,9 @@ def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfi
     rows_per_chunk = max(1, min(h, cfg.raycast_chunk // w))
     for r0 in range(0, h, rows_per_chunk):
         r1 = min(h, r0 + rows_per_chunk)
-        nb = _ring_patches(ap, R, slice(r0, r1), w)            # (C, T, 9)
-        yy = torch.arange(r0, r1, dtype=torch.float32, device=dev)[:, None].expand(r1 - r0, w)
+        nb = _ring_patches(ap, R, slice(top + r0, top + r1), w)   # (C, T, 9)
+        yy = torch.arange(row0 + r0, row0 + r1, dtype=torch.float32,
+                          device=dev)[:, None].expand(r1 - r0, w)
         xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(r1 - r0, w)
         rx = ((xx - intr.cx) / intr.fx).reshape(-1)
         ry = ((yy - intr.cy) / intr.fy).reshape(-1)

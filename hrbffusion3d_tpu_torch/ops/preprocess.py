@@ -173,10 +173,13 @@ def normal_pca_ref(vertex_f: torch.Tensor, cfg: SLAMConfig, stats: bool = False)
 
 
 def normal_central_diff(vertex_f: torch.Tensor, depth_raw: torch.Tensor,
-                        cfg: SLAMConfig) -> torch.Tensor:
+                        cfg: SLAMConfig, row0: int = 0,
+                        height: int | None = None) -> torch.Tensor:
     """Central-difference normal (geometry.glsl:35-47) with the 4-neighbour
     validity gate of utils.glsl checkNeighbours, flipped to n_z > 0 as the
-    PCA normal is; the image border is invalid."""
+    PCA normal is; the image border is invalid.  On a row slab, ``row0``
+    is its first image row and ``height`` the image's (its first and last
+    rows are then wrong unless they are the image's border)."""
     del_x = (torch.roll(vertex_f, 1, dims=1) - torch.roll(vertex_f, -1, dims=1)) * 0.5
     del_y = (torch.roll(vertex_f, 1, dims=0) - torch.roll(vertex_f, -1, dims=0)) * 0.5
     n = torch.linalg.cross(del_x, del_y, dim=-1)
@@ -186,7 +189,8 @@ def normal_central_diff(vertex_f: torch.Tensor, depth_raw: torch.Tensor,
     ok = ((torch.roll(dz, 1, 1) > 0) & (torch.roll(dz, -1, 1) > 0)
           & (torch.roll(dz, 1, 0) > 0) & (torch.roll(dz, -1, 0) > 0) & (dz > 0))
     h, w = dz.shape
-    yy, xx = camera.pixel_grid(h, w, dz.device)
+    yy, xx = camera.pixel_grid(h, w, dz.device, row0=row0)
+    h = h if height is None else height
     ok = ok & (xx >= 1) & (xx < w - 1) & (yy >= 1) & (yy < h - 1)
     return torch.where(ok[..., None], n, 0.0)
 
@@ -200,13 +204,17 @@ class VertexNormalRadius(NamedTuple):
 
 
 def vertex_normal_radius(depth_raw: torch.Tensor, depth_filtered: torch.Tensor,
-                         intr: CameraIntrinsics, cfg: SLAMConfig) -> VertexNormalRadius:
+                         intr: CameraIntrinsics, cfg: SLAMConfig,
+                         row0: int = 0) -> VertexNormalRadius:
     """depth_vertex_normal_radius.frag: unproject raw + filtered depth, the
     normal (PCA, or central differences when ``cfg.normal_pca`` is off),
-    initial radius = multiplier * surfel radius."""
-    v_raw = camera.unproject(depth_raw, intr)
-    v_f = camera.unproject(depth_filtered, intr)
-    n = normal_pca(v_f, cfg) if cfg.normal_pca else normal_central_diff(v_f, depth_raw, cfg)
+    initial radius = multiplier * surfel radius.  ``row0``: the first
+    image row of a row slab (the window's rows near the slab's ends are
+    then wrong unless they are the image's)."""
+    v_raw = camera.unproject(depth_raw, intr, row0)
+    v_f = camera.unproject(depth_filtered, intr, row0)
+    n = (normal_pca(v_f, cfg) if cfg.normal_pca
+         else normal_central_diff(v_f, depth_raw, cfg, row0, intr.height))
     rad = cfg.radius_multiplier * surfel_radius(v_f[..., 2], n[..., 2], intr)
     valid = ((torch.linalg.vector_norm(n, dim=-1) >= 0.3)
              & (v_raw[..., 2] >= cfg.depth_min) & (v_f[..., 2] >= cfg.depth_min))
@@ -374,11 +382,12 @@ def update_normal_rad(pre: VertexNormalRadius, curv: CurvatureResult,
 
 def confidence_map(pre: VertexNormalRadius, curv: CurvatureResult,
                    intr: CameraIntrinsics, cfg: SLAMConfig,
-                   weighting: torch.Tensor | float = 1.0) -> torch.Tensor:
+                   weighting: torch.Tensor | float = 1.0, row0: int = 0) -> torch.Tensor:
     """conf = exp(-radial^2 / 0.72) * weighting, optionally times
-    exp(-epsilon / sqrt(gradient_mag))."""
+    exp(-epsilon / sqrt(gradient_mag)).  ``row0``: the first image row of
+    a row slab."""
     h, w = pre.radius.shape
-    yy, xx = camera.pixel_grid(h, w, pre.radius.device)
+    yy, xx = camera.pixel_grid(h, w, pre.radius.device, row0=row0)
     dx = xx - intr.cx
     dy = yy - intr.cy
     radial = torch.sqrt(dx * dx + dy * dy) / camera.max_radial_dist(intr)

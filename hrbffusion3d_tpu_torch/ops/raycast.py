@@ -89,20 +89,25 @@ def predict_hrbf(m: SurfelMap, pose_inv: torch.Tensor, index_map: torch.Tensor,
 def _assemble_prediction(attr_ext: torch.Tensor, pose_inv: torch.Tensor,
                          p_surf: torch.Tensor, nrm: torch.Tensor,
                          nearest: torch.Tensor, found: torch.Tensor,
-                         intr: CameraIntrinsics, cfg: SLAMConfig) -> Prediction:
+                         intr: CameraIntrinsics, cfg: SLAMConfig,
+                         row0: int = 0, attr_row0: int = 0) -> Prediction:
     """Raycast epilogue: the nearest surfel's attributes, fetched from the
-    extended attr image at the tap's pixel, and the per-pixel ICP weight."""
-    h, w = intr.height, intr.width
-    P = h * w
+    extended attr image at the tap's pixel, and the per-pixel ICP weight.
+    On a row slab: the ray cast's outputs are the image rows from ``row0``
+    on, and ``attr_ext`` the rows from ``attr_row0`` on, every row within
+    the window's radius of them that the image has."""
+    w = intr.width
+    P = p_surf.shape[0]
+    h = P // w
     dev = p_surf.device
     offs = const(_ring_offsets(cfg.predict_window_multiplier), dev,
                  torch.int64)                                   # (n_off, 2) dy, dx
     d_yx = offs[nearest.long()]
     pid = torch.arange(P, device=dev)
-    py = torch.clamp(pid // w + d_yx[:, 0], 0, h - 1)
+    py = torch.clamp(row0 + pid // w + d_yx[:, 0], 0, intr.height - 1) - attr_row0
     px = torch.clamp(pid % w + d_yx[:, 1], 0, w - 1)
     # [conf, radius, init | color(3), k1, k2, d1(3), d2(3)]
-    flat = attr_ext.reshape(P, smod.ATTR_EXT_CHANNELS)
+    flat = attr_ext.reshape(-1, smod.ATTR_EXT_CHANNELS)
     near = torch.cat([flat[:, smod.A_CONF:smod.A_INIT + 1], flat[:, 12:23]], dim=-1)[py * w + px]
     Rr = pose_inv[:3, :3]
     f1 = found[:, None]
@@ -186,11 +191,16 @@ def predict_splat(m: SurfelMap, pose_inv: torch.Tensor, index_map: torch.Tensor,
     alternative path (IndexMap.cpp:359-412, combo_splat.frag:19-63): each
     pixel takes the nearest rendered surfel of the index map (no
     implicit-surface ray cast).  One row gather, no host read."""
-    h, w = intr.height, intr.width
-    P = h * w
-    flat = index_map.reshape(P)
-    found = flat >= 0
+    flat = index_map.reshape(-1)
     rows = m.data[torch.clamp(flat, 0, m.data.shape[0] - 1).long()]
+    return splat_from_rows(rows, flat >= 0, pose_inv, cfg, index_map.shape)
+
+
+def splat_from_rows(rows: torch.Tensor, found: torch.Tensor, pose_inv: torch.Tensor,
+                    cfg: SLAMConfig, shape) -> Prediction:
+    """``predict_splat`` from the (P, 24) map rows of the pixels' surfels
+    (``found``: the pixel has one) of an image of ``shape`` (H, W)."""
+    h, w = shape
     Rr = pose_inv[:3, :3]
     tt = pose_inv[:3, 3]
     pos = rows[:, smod.POS] @ Rr.T + tt

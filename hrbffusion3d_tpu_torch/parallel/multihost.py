@@ -9,7 +9,10 @@ whose partial camera systems ``Mesh.psum`` all-reduces over the group:
                              the JAX module's environment fallbacks and an
                              explicit backend
   global_mesh()           -- a mesh over every process, the same number of
-                             shards in each
+                             shards in each, on one ``("map",)`` axis or on
+                             two, ``("host", "chip")``
+  host_local_batch()      -- a frame batch made of each process's own frame
+                             stack, split over the mesh
   globalize_sharded_ba()  -- this process's shards of a partitioned problem,
                              placed on its devices
   is_coordinator()        -- process 0
@@ -26,11 +29,11 @@ silently.  ``globalize_sharded_ba`` takes each process's own shards and
 their own plans (the JAX function still builds the problem's fields from
 before the plans were added).
 
-Not ported yet: the two-level ``("host", "chip")`` layout of
-``global_mesh`` and ``host_local_batch``.  In JAX they feed the sharded
-dense step (the surfel map's rows over hosts, the images' rows over
-chips); the port's local BA reads only the shard count, and they come
-with the port's sharded dense step.
+The two-level layout names the axes as JAX does (``host`` = the process
+count, ``chip`` = the shards of each process); the row-sharded dense state
+splits over an axis named ``"map"`` (``sharding.shard_state`` refuses a
+two-level mesh, as JAX's ``P("map")`` does), and the sharded dense step
+runs on a mesh of one process.
 """
 
 from __future__ import annotations
@@ -44,9 +47,10 @@ import time
 import torch
 import torch.distributed as dist
 
+from ..pipeline.slam import FrameInput
 from ..utils.tensors import device_or_card
 from .dist_ba import ShardedBA, place
-from .sharding import Mesh, concrete_device
+from .sharding import Mesh, ShardedRows, concrete_device, row_bounds
 
 
 # rendezvous and every collective give up after this long
@@ -79,12 +83,36 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
                             world_size=n, rank=pid, timeout=TIMEOUT)
 
 
-def global_mesh(local_shards: int = 1, device=None) -> Mesh:
+def global_mesh(local_shards: int = 1, device=None, two_level: bool = False) -> Mesh:
     """A mesh over every process, ``local_shards`` shards each on this
-    process's ``device`` (None: its CUDA card)."""
+    process's ``device`` (None: its CUDA card).  ``two_level=False``: the
+    flat ``("map",)`` axis; ``True``: ``("host", "chip")``, ``host`` the
+    process count and ``chip`` the shards of each process."""
     dev = concrete_device(device_or_card(device))
     group = dist.group.WORLD if dist.is_initialized() else None
-    return Mesh((dev,) * local_shards, group)
+    if not two_level:
+        return Mesh((dev,) * local_shards, group)
+    n_hosts = dist.get_world_size(group) if group is not None else 1
+    return Mesh((dev,) * local_shards, group, axis_names=("host", "chip"),
+                axis_sizes=(n_hosts, local_shards))
+
+
+def host_local_batch(mesh: Mesh, local_depth, local_rgb, axis: str = "map") -> FrameInput:
+    """A frame batch whose leading axis is the frames of every process in
+    process order (each process passes its own stack, all of one length),
+    split over the mesh's shards: this process's stack over its own
+    shards.  ``axis`` must name an axis of the mesh."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"the mesh has no axis {axis!r}: its axes are {mesh.axis_names}")
+    out = []
+    for x in (local_depth, local_rgb):
+        x = torch.as_tensor(x)
+        n = x.shape[0]
+        lo = mesh.rank * n
+        bounds = [(lo + a, lo + b) for a, b in row_bounds(n, len(mesh.devices))]
+        parts = [x[a - lo:b - lo].to(dev, copy=True) for (a, b), dev in zip(bounds, mesh.devices)]
+        out.append(ShardedRows(parts, bounds, n * mesh.n_ranks, mesh))
+    return FrameInput(*out)
 
 
 def globalize_sharded_ba(sb: ShardedBA, mesh: Mesh) -> ShardedBA:

@@ -30,13 +30,16 @@ Host syncs: ``process`` reads the pose back once per frame and the map
 count once (``ensure_capacity``); ``process_batch`` reads one packed vector
 per chunk (``slam.step_chunk``) and uses its count.
 
-``mesh`` (``parallel.sharding.Mesh``): local BA, sync or async, runs the
+``mesh`` (``parallel.sharding.Mesh``, its first device ``device``): the
+dense state and the frames go on the mesh at ``process`` and
+``process_batch`` (the surfel map's rows and the images' rows split, as
+the JAX system places them) and every dense step is the row-sharded one
+(``parallel/sharded_step``); local BA, sync or async, runs the
 landmark-sharded solver (``parallel/dist_ba``) on the mesh's shards.  The
-dense state and the frames stay whole on ``device``: splitting the surfel
-map's rows and the images' rows over the mesh is the next slice of the
-port.  The JAX package's sharded step gives its single-device step's
-result (``tests/test_aa_sharded_step.py``), so this system computes what
-the JAX system with a mesh computes; only the map's placement differs.
+keyframe inputs (``_kf_inputs``) and ``full_map`` read the frame and the
+map gathered (``sharding.gather_frame``, ``sharded_step.whole_map``), the
+active-window exchange and map growth gather, run whole and split the map
+again, and the corrections and the activity refresh run per shard.
 Not ported: the JAX package's device-placement options
 (``backend_on_cpu``, ``ba_on_chip``, ``plan_cache_path``).
 """
@@ -58,6 +61,7 @@ from ..config import CameraIntrinsics, SLAMConfig
 from ..core import lie
 from ..map import surfel_map as sm
 from ..ops import preprocess, pyramid
+from ..parallel import sharded_step, sharding
 from ..utils.tensors import const, device_or_card, host
 from . import slam
 
@@ -73,6 +77,11 @@ class FullSLAM:
                  loop_kwargs: dict | None = None, async_ba: bool = False,
                  mesh=None, async_queue_depth: int = 2, device=None):
         self.device = device_or_card(device)
+        if mesh is not None and not isinstance(mesh, sharding.Mesh):
+            raise TypeError(f"mesh must be a parallel.sharding.Mesh, not {type(mesh).__name__}")
+        if mesh is not None and sharding.concrete_device(self.device) != mesh.home:
+            raise ValueError(f"the mesh's first device {mesh.home} is not the system's "
+                             f"device {self.device}")
         self.mesh = mesh
         self.intr = intr
         self.cfg = cfg
@@ -248,7 +257,8 @@ class FullSLAM:
         mask_t = const(self._active_mask_host, self.device, torch.bool)
         if cfg.active_capacity <= 0:
             self.state = self.state._replace(
-                active_submaps=mask_t, map=sm.refresh_active_channel(self.state.map, mask_t))
+                active_submaps=mask_t,
+                map=sharded_step.refresh_active_channel(self.state.map, mask_t))
             return
         if self.archive is None:
             self.archive = sm.empty_map(max(cfg.archive_capacity, cfg.active_capacity),
@@ -262,8 +272,9 @@ class FullSLAM:
             while need > 0.75 * new_cap:
                 new_cap *= 2
             self.archive = sm.grow(self.archive, new_cap)
-        act2, arch2, stats = sm.exchange_active(self.state.map, self.archive, mask_t,
-                                                self.state.time, cfg)
+        exchange = (sharded_step.exchange_active if sharding.is_sharded(self.state)
+                    else sm.exchange_active)
+        act2, arch2, stats = exchange(self.state.map, self.archive, mask_t, self.state.time, cfg)
         self.state = self.state._replace(map=act2, active_submaps=mask_t)
         self.archive = arch2
         # one packed host read per exchange
@@ -276,10 +287,13 @@ class FullSLAM:
         self.archive_dropped += dropped
 
     def full_map(self) -> sm.SurfelMap:
-        """Merged active + archive map (exports / evaluation)."""
+        """Merged active + archive map (exports / evaluation), whole on the
+        system's device."""
+        active = (sharded_step.whole_map(self.state.map) if sharding.is_sharded(self.state)
+                  else self.state.map)
         if self.archive is None:
-            return self.state.map
-        merged = torch.cat([self.state.map.data[:int(self.state.map.count)],
+            return active
+        merged = torch.cat([active.data[:int(active.count)],
                             self.archive.data[:int(self.archive.count)]])
         data = torch.zeros((max(merged.shape[0], 1), sm.N_CHANNELS), dtype=torch.float32,
                            device=self.device)
@@ -291,13 +305,23 @@ class FullSLAM:
     def _kf_inputs(self, frame: slam.FrameInput):
         """Keyframe-side inputs: intensity and the re-filtered depth
         (PreProcessFrame, HRBFFusion.cpp:578-594), with the shader-form
-        bilateral filter as the JAX package's keyframe path."""
+        bilateral filter as the JAX package's keyframe path; a sharded frame
+        is gathered first."""
+        frame = sharding.gather_frame(frame)
         depth_f = (preprocess.bilateral_filter(frame.depth, self.cfg)
                    if self.cfg.use_bilateral_filter else frame.depth)
         return pyramid.rgb_to_intensity(frame.rgb), depth_f
 
     def _frame(self, frame: slam.FrameInput) -> slam.FrameInput:
-        return slam.FrameInput(const(frame.depth, self.device), const(frame.rgb, self.device))
+        """A frame (or a stack of frames) on the device, split over the
+        mesh when there is one."""
+        if sharding.is_sharded(frame):
+            return frame
+        frame = slam.FrameInput(const(frame.depth, self.device), const(frame.rgb, self.device))
+        if self.mesh is None:
+            return frame
+        split = sharding.shard_frame_batch if frame.depth.dim() == 3 else sharding.shard_frame
+        return split(frame, self.mesh, self.cfg)
 
     def _pose_host(self) -> np.ndarray:
         return host(lie.rt_to_mat(self.state.R, self.state.t))
@@ -469,7 +493,8 @@ class FullSLAM:
         pad = np.tile(_EYE4, (self.cfg.max_submaps, 1, 1))
         pad[:D] = deltas
         pad_dev = const(pad, self.device)
-        self.state = self.state._replace(map=sm.apply_submap_deltas(self.state.map, pad_dev))
+        self.state = self.state._replace(
+            map=sharded_step.apply_submap_deltas(self.state.map, pad_dev))
         if self.archive is not None and self._archive_count > 0:
             mask = self._active_mask_host
             arch_moved = nonid if mask is None else nonid & ~mask[:D]

@@ -8,6 +8,11 @@ ints, so every periodic branch (compaction, crowd rules, pixel-space
 remap, the HRBF ray cast every ``raycast_period``-th frame with splat
 prediction between) is a Python ``if``; everything else stays on the device, and a step
 reads nothing back to the host.
+
+A state (or frame) split over a mesh (``parallel.sharding.shard_state``)
+runs the row-sharded step (``parallel.sharded_step``): ``bootstrap``,
+``step``, ``step_many*``, ``step_chunk`` and ``ensure_capacity`` take it
+as they take a whole one.
 """
 
 from __future__ import annotations
@@ -79,7 +84,19 @@ def _state_from_prediction(m, R, t, time, submap_idx, intensity, filled,
 
 def bootstrap(frame: FrameInput, intr: CameraIntrinsics, cfg: SLAMConfig,
               init_pose=None) -> SLAMState:
-    """First-frame initialisation (HRBFFusion.cpp:1026-1059)."""
+    """First-frame initialisation (HRBFFusion.cpp:1026-1059).  A frame
+    split over a mesh gives a state split over it
+    (``parallel.sharded_step.bootstrap``)."""
+    if _sharded(frame):
+        from ..parallel import sharded_step
+
+        return sharded_step.bootstrap(frame, intr, cfg, init_pose)
+    return _bootstrap(frame, intr, cfg, init_pose)
+
+
+def _bootstrap(frame: FrameInput, intr: CameraIntrinsics, cfg: SLAMConfig,
+               init_pose=None) -> SLAMState:
+    """``bootstrap`` of a whole frame."""
     dev = frame.depth.device
     pose = (torch.eye(4, dtype=torch.float32, device=dev) if init_pose is None
             else const(init_pose, dev))
@@ -102,23 +119,18 @@ def step(state: SLAMState, frame: FrameInput, intr: CameraIntrinsics,
          cfg: SLAMConfig, fixed_pose: torch.Tensor | None = None) -> SLAMState:
     """One tracked + fused frame (HRBFFusion.cpp:991-1241, BA hooks
     excluded).  ``fixed_pose``: optional (4,4) camera-to-world pose; when
-    given, tracking is skipped (trajectory replay mode)."""
+    given, tracking is skipped (trajectory replay mode).  A state split
+    over a mesh runs the row-sharded step
+    (``parallel.sharded_step.step``)."""
+    if _sharded(state):
+        from ..parallel import sharded_step
+
+        return sharded_step.step(state, frame, intr, cfg, fixed_pose)
     time = state.time + 1
     depth_f, pre, curv, intensity = _preprocess(frame, intr, cfg)
 
     if fixed_pose is None:
-        inp = odometry.build_inputs(
-            next_depth=depth_f, next_intensity=intensity,
-            next_vmap=pre.vertex_filtered, next_nmap=pre.normal,
-            pred_vmap=state.pred_vertex, pred_nmap=state.pred_normal,
-            pred_intensity=state.pred_intensity, icp_weight=state.pred_icp_weight,
-            prev_R=state.R, prev_t=state.t, prev_intensity=state.prev_intensity,
-            cfg=cfg,
-            **({"next_k1": curv.k1, "next_k2": curv.k2,
-                "pred_k1": state.pred_k1, "pred_k2": state.pred_k2}
-               if cfg.icp_use_correspondence_search else {}),
-            **({"sal_k1": curv.k1, "sal_k2": curv.k2} if cfg.tracking_topk > 0 else {}))
-        tr = odometry.track(state.R, state.t, inp, intr, cfg)
+        tr = track_frame(state, depth_f, pre, curv, intensity, intr, cfg)
         new_R, new_t = tr.R, tr.t
         icp_error, icp_count = tr.icp_error, tr.icp_count
     else:
@@ -168,6 +180,32 @@ def step(state: SLAMState, frame: FrameInput, intr: CameraIntrinsics,
                                   filled, state.active_submaps, icp_error, icp_count)
 
 
+def _sharded(x) -> bool:
+    """Whether a state or frame is split over a mesh
+    (``parallel.sharding``)."""
+    from ..parallel.sharding import is_sharded
+
+    return is_sharded(x)
+
+
+def track_frame(state: SLAMState, depth_f, pre, curv, intensity,
+                intr: CameraIntrinsics, cfg: SLAMConfig) -> odometry.TrackResult:
+    """The step's tracking: the frame's pyramids against the state's
+    prediction, then ``odometry.track``."""
+    inp = odometry.build_inputs(
+        next_depth=depth_f, next_intensity=intensity,
+        next_vmap=pre.vertex_filtered, next_nmap=pre.normal,
+        pred_vmap=state.pred_vertex, pred_nmap=state.pred_normal,
+        pred_intensity=state.pred_intensity, icp_weight=state.pred_icp_weight,
+        prev_R=state.R, prev_t=state.t, prev_intensity=state.prev_intensity,
+        cfg=cfg,
+        **({"next_k1": curv.k1, "next_k2": curv.k2,
+            "pred_k1": state.pred_k1, "pred_k2": state.pred_k2}
+           if cfg.icp_use_correspondence_search else {}),
+        **({"sal_k1": curv.k1, "sal_k2": curv.k2} if cfg.tracking_topk > 0 else {}))
+    return odometry.track(state.R, state.t, inp, intr, cfg)
+
+
 def step_many(state: SLAMState, frames, intr: CameraIntrinsics, cfg: SLAMConfig):
     """Step over an iterable of FrameInput.  Returns (final state, list of
     per-frame translations)."""
@@ -179,10 +217,11 @@ def step_many(state: SLAMState, frames, intr: CameraIntrinsics, cfg: SLAMConfig)
 
 
 def _frames_of(frames):
-    """The frames of a stacked FrameInput (leading frame axis), or of an
-    iterable of FrameInput."""
-    if isinstance(frames, FrameInput) and frames.depth.dim() == 3:
-        return [FrameInput(d, c) for d, c in zip(frames.depth, frames.rgb)]
+    """The frames of a stacked FrameInput (leading frame axis; whole or
+    split by rows over a mesh), or of an iterable of FrameInput."""
+    if isinstance(frames, FrameInput) and len(frames.depth.shape) == 3:
+        return [FrameInput(frames.depth[i], frames.rgb[i])
+                for i in range(frames.depth.shape[0])]
     return list(frames)
 
 
@@ -233,8 +272,13 @@ def ensure_capacity(state: SLAMState, cfg: SLAMConfig, threshold: float = 0.75,
     new_cap = cap
     while count > threshold * new_cap:
         new_cap *= 2
-    return (state._replace(map=sm.grow(state.map, new_cap)),
-            dataclasses.replace(cfg, map_capacity=new_cap))
+    if _sharded(state):
+        from ..parallel import sharded_step
+
+        grown = sharded_step.grow(state.map, new_cap)
+    else:
+        grown = sm.grow(state.map, new_cap)
+    return state._replace(map=grown), dataclasses.replace(cfg, map_capacity=new_cap)
 
 
 def run_sequence(frames, intr: CameraIntrinsics, cfg: SLAMConfig, init_pose=None,

@@ -14,6 +14,18 @@ device as ``torch.where`` over the carry: once an iteration's increment is
 small enough, the later ones of that loop leave the carry unchanged, which
 is the result of the JAX package's early-exiting loop without its saving.
 Nothing is read back to the host.
+
+The Gauss-Newton systems are summed in float64 (``ops/icp._sums``) and the
+pose arithmetic between iterations (the increment, the current pose, the
+SO(3) image bases, the photometric warp) runs in float64 too; each is
+rounded to float32 once.  A float32 sum can differ in its last bit with
+the order it is taken in, and a float32 product of small matrices or a
+float32 sine from one device to another; one bit of pose moves a pixel's
+nearest-pixel association now and then, which the later iterations
+amplify.  Summed in float64, a system is the same over row shards
+(``parallel/sharded_step``), and with the pose arithmetic in float64 too
+the card's tracks stay closer to the CPU's (``scripts/torch_track_sums.py``
+measures both).
 """
 
 from __future__ import annotations
@@ -129,28 +141,78 @@ def _k_matrix(intr: CameraIntrinsics, device) -> tuple[torch.Tensor, torch.Tenso
     return const(K, device), const(Kinv, device)
 
 
-def _so3_prealign(inp: TrackingInputs, intr: CameraIntrinsics, cfg: SLAMConfig):
-    """Rotation pre-alignment at the coarsest level (RGBDOdometry.cpp:
-    827-914) with the reference's keep-best / divergence rule as a masked
-    carry."""
-    lvl = cfg.num_pyramid_levels - 1
-    last = inp.prev_intensity[lvl]
-    dev = last.device
-    K, Kinv = _k_matrix(intr.level(lvl), dev)
-    nxt = inp.next_intensity[lvl]
-    next_grad_rows = icp_ops.pack_so3(nxt)
-    last_gx, last_gy = icp_ops.central_gradients(last)
+def current_pose(prev_T: torch.Tensor, result_rt: torch.Tensor) -> torch.Tensor:
+    """currentT = prevT * resultRt^-1, in float64, rounded once."""
+    return (prev_T.double() @ lie.se3_inverse(result_rt.double())).to(torch.float32)
 
-    eye = torch.eye(3, dtype=torch.float32, device=dev)
+
+def apply_increment(result_rt: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """computeUpdateSE3: [rodrigues(x[3:]) | x[:3]] composed on the left of
+    ``result_rt``, in float64, rounded once."""
+    x = x.double()
+    inc = torch.eye(4, dtype=torch.float64, device=x.device)
+    inc[:3, :3] = lie.so3_exp(x[3:])
+    inc[:3, 3] = x[:3]
+    return (inc @ result_rt.double()).to(torch.float32)
+
+
+def so3_bases(K: torch.Tensor, R_lr: torch.Tensor, Kinv: torch.Tensor):
+    """(K R K^-1, K R) of the SO(3) pre-alignment, in float64, rounded
+    once."""
+    KR = K.double() @ R_lr.double()
+    return (KR @ Kinv.double()).to(torch.float32), KR.to(torch.float32)
+
+
+def so3_update(w: torch.Tensor, R_lr: torch.Tensor) -> torch.Tensor:
+    """rodrigues(w) R_lr, in float64, rounded once."""
+    return (lie.so3_exp(w.double()) @ R_lr.double()).to(torch.float32)
+
+
+def rgb_warp(K: torch.Tensor, Kinv: torch.Tensor, result_rt: torch.Tensor):
+    """(K R K^-1, K t) of resultRt^-1, the photometric warp, in float64,
+    rounded once."""
+    rt_inv = lie.se3_inverse(result_rt.double())
+    K64 = K.double()
+    return ((K64 @ rt_inv[:3, :3] @ Kinv.double()).to(torch.float32),
+            (K64 @ rt_inv[:3, 3]).to(torch.float32))
+
+
+def robust_sigma(count: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """The photometric robustifier's scale: sigmaVal = sqrt(count) (the
+    reference's quirk, RGBDOdometry.cpp:1017) times ``scale``."""
+    return torch.sqrt(torch.clamp(count, min=1.0)) * scale
+
+
+def joint_system(icp_res: icp_ops.StepResult, rgb_res: icp_ops.StepResult,
+                 rgb_sigma_sum: torch.Tensor, rgb_count: torch.Tensor, w: float):
+    """One Gauss-Newton iteration's joint system from its float64 ICP and
+    photometric sums, the ICP term weighted by ``w``: (A, b) rounded to
+    float32 once, and the iteration's stats."""
+    A = (rgb_res.A + (w * w) * icp_res.A).to(torch.float32)
+    b = (rgb_res.b + w * icp_res.b).to(torch.float32)
+    st = {"rgb_e": torch.sqrt(rgb_sigma_sum) / torch.clamp(rgb_count, min=1.0),
+          "rgb_c": rgb_count,
+          "icp_e": torch.sqrt(icp_res.residual2.to(torch.float32))
+          / torch.clamp(icp_res.count, min=1.0),
+          "icp_c": icp_res.count}
+    return A, b, st
+
+
+def so3_loop(sums, K: torch.Tensor, Kinv: torch.Tensor, n_iters: int) -> torch.Tensor:
+    """The SO(3) pre-alignment's iterations with the reference's keep-best /
+    divergence rule as a masked carry; ``sums(basis, krlr)`` gives an
+    iteration's (A, b, r2, count), A, b and r2 float64 sums, at the image
+    bases (K R K^-1, K R)."""
+    eye = torch.eye(3, dtype=torch.float32, device=K.device)
     R_lr, best_R = eye, eye
-    last_err = torch.full((), 3.4e37, dtype=torch.float32, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    for _ in range(cfg.so3_iterations):
-        A, b, r2, cnt = icp_ops.so3_step(last, nxt, next_grad_rows, last_gx, last_gy,
-                                         K @ R_lr @ Kinv, Kinv, K @ R_lr)
+    last_err = torch.full((), 3.4e37, dtype=torch.float32, device=K.device)
+    done = torch.zeros((), dtype=torch.bool, device=K.device)
+    for _ in range(n_iters):
+        A, b, r2, cnt = sums(*so3_bases(K, R_lr, Kinv))
+        A, b, r2 = (x.to(torch.float32) for x in (A, b, r2))
         err = torch.sqrt(r2) / torch.clamp(cnt, min=1.0)
         diverged = err > last_err + 0.001
-        upd = lie.so3_exp(icp_ops.solve_system(A, b)) @ R_lr
+        upd = so3_update(icp_ops.solve_system(A, b), R_lr)
         new_done = done | diverged
         best_R = torch.where(diverged & ~done, best_R, R_lr)
         R_lr = torch.where(new_done, R_lr, upd)
@@ -159,6 +221,18 @@ def _so3_prealign(inp: TrackingInputs, intr: CameraIntrinsics, cfg: SLAMConfig):
     return torch.where(done, best_R, R_lr)
 
 
+def _so3_prealign(inp: TrackingInputs, intr: CameraIntrinsics, cfg: SLAMConfig):
+    """Rotation pre-alignment at the coarsest level (RGBDOdometry.cpp:
+    827-914)."""
+    lvl = cfg.num_pyramid_levels - 1
+    last = inp.prev_intensity[lvl]
+    K, Kinv = _k_matrix(intr.level(lvl), last.device)
+    nxt = inp.next_intensity[lvl]
+    next_grad_rows = icp_ops.pack_so3(nxt)
+    last_gx, last_gy = icp_ops.central_gradients(last)
+    return so3_loop(lambda basis, krlr: icp_ops.so3_step(
+        last, nxt, next_grad_rows, last_gx, last_gy, basis, Kinv, krlr),
+        K, Kinv, cfg.so3_iterations)
 
 
 def _where_carry(keep: torch.Tensor, old, new):
@@ -258,9 +332,7 @@ def track(prev_R: torch.Tensor, prev_t: torch.Tensor, inp: TrackingInputs,
 
         def body(it, carry, sub=None, patch=None, sv_scale=None):
             result_rt, _, _, st, extra = carry
-            rt_inv = lie.se3_inverse(result_rt)
-            # current pose estimate: currentT = prevT * resultRt^-1
-            cur = prev_T @ rt_inv
+            cur = current_pose(prev_T, result_rt)
             R_curr, t_curr = cur[:3, :3], cur[:3, 3]
             A = b = None
             if use_joint:
@@ -283,28 +355,21 @@ def track(prev_R: torch.Tensor, prev_t: torch.Tensor, inp: TrackingInputs,
                         do_gather=it % reassoc == 0 if reassoc > 1 else None,
                         nearest=cfg.tracking_rgb_nearest, cur_pack=cur_pack, sub=sub)
                 # subsampled iterations keep the full set's robustifier
-                # scale: sigmaVal = sqrt(count) (the reference's quirk,
-                # RGBDOdometry.cpp:1017) times the stride
+                # scale times the stride
                 if sv_scale is None:
                     sv_scale = float(cfg.tracking_subsample) if sub is not None else 1.0
-                sigma_val = torch.sqrt(torch.clamp(corres.count, min=1.0)) * sv_scale
-                rgb_res = icp_ops.rgb_step(corres, sigma_val,
+                rgb_res = icp_ops.rgb_step(corres, robust_sigma(corres.count, sv_scale),
                                            sub.gx if sub is not None else d_idx,
                                            sub.gy if sub is not None else d_idy, li, cfg)
-                w = cfg.icp_weight
-                A = rgb_res.A + (w * w) * icp_res.A
-                b = rgb_res.b + w * icp_res.b
-                st = {"rgb_e": torch.sqrt(corres.sigma_sum) / torch.clamp(corres.count, min=1.0),
-                      "rgb_c": corres.count,
-                      "icp_e": torch.sqrt(icp_res.residual2) / torch.clamp(icp_res.count, min=1.0),
-                      "icp_c": icp_res.count}
+                A, b, st = joint_system(icp_res, rgb_res, corres.sigma_sum, corres.count,
+                                        cfg.icp_weight)
             else:
                 if use_rgb:
                     corres = icp_ops.rgb_residual(
-                        K @ rt_inv[:3, :3] @ Kinv, K @ rt_inv[:3, 3], inp.next_depth[lvl],
+                        *rgb_warp(K, Kinv, result_rt), inp.next_depth[lvl],
                         next_int, last_rows, static_valid, cfg)
                     sigma_val = (torch.full((), -1.0, device=dev) if rgb_only
-                                 else torch.sqrt(torch.clamp(corres.count, min=1.0)))
+                                 else robust_sigma(corres.count))
                     rgb_res = icp_ops.rgb_step(corres, sigma_val, d_idx, d_idy, li, cfg)
                     A, b = rgb_res.A, rgb_res.b
                     st = {**st, "rgb_e": torch.sqrt(corres.sigma_sum)
@@ -322,19 +387,17 @@ def track(prev_R: torch.Tensor, prev_t: torch.Tensor, inp: TrackingInputs,
                     w = cfg.icp_weight if use_rgb else 1.0
                     A = (w * w) * icp_res.A if A is None else A + (w * w) * icp_res.A
                     b = w * icp_res.b if b is None else b + w * icp_res.b
-                    st = {**st, "icp_e": torch.sqrt(icp_res.residual2)
+                    st = {**st, "icp_e": torch.sqrt(icp_res.residual2.to(torch.float32))
                           / torch.clamp(icp_res.count, min=1.0), "icp_c": icp_res.count}
+                # the float64 sums rounded once
+                A, b = A.to(torch.float32), b.to(torch.float32)
 
             x = icp_ops.solve_system(A, b)
-            # computeUpdateSE3: [rodrigues(x[3:]) | x[:3]] composed on the left
-            inc = torch.eye(4, dtype=torch.float32, device=dev)
-            inc[:3, :3] = lie.so3_exp(x[3:])
-            inc[:3, 3] = x[:3]
-            result_rt = inc @ result_rt
+            result_rt = apply_increment(result_rt, x)
             if use_sparse:
                 # ADMM dual update with the post-solve pose
                 # (RGBDOdometry.cpp:1209-1224 -> updateLambdaMapKernel)
-                cur2 = prev_T @ lie.se3_inverse(result_rt)
+                cur2 = current_pose(prev_T, result_rt)
                 extra = icp_ops.sparse_icp_lambda_update(
                     extra, extras, cur2[:3, :3], cur2[:3, 3], prev_R_inv, prev_t,
                     inp.next_vmap[lvl], cfg.sparse_icp_mu)
@@ -367,7 +430,7 @@ def track(prev_R: torch.Tensor, prev_t: torch.Tensor, inp: TrackingInputs,
                     cfg.tracking_patch_radius)
 
             def anchor(rt, vcurr_rows):
-                cur = prev_T @ lie.se3_inverse(rt)
+                cur = current_pose(prev_T, rt)
                 return icp_ops.patch_anchor(cur[:3, :3], cur[:3, 3], prev_R_inv, prev_t,
                                             vcurr_rows, table, li)
 
@@ -413,8 +476,17 @@ def track(prev_R: torch.Tensor, prev_t: torch.Tensor, inp: TrackingInputs,
         carry, k = _gn_loop(body, iters[lvl] - n_sub, carry, eps)
         live[lvl] += k
 
+    return track_result(carry, prev_R, prev_t, live, cfg)
+
+
+def track_result(carry, prev_R: torch.Tensor, prev_t: torch.Tensor, live: dict,
+                 cfg: SLAMConfig) -> TrackResult:
+    """The tracked pose from the Gauss-Newton carry (result_rt, A, b,
+    stats, _), behind the divergence guard; ``live`` the iterations that
+    changed it per level."""
+    dev = prev_R.device
     result_rt, lastA, lastb, stats, _ = carry
-    cur = prev_T @ lie.se3_inverse(result_rt)
+    cur = current_pose(lie.rt_to_mat(prev_R, prev_t), result_rt)
     R_new = lie.orthonormalise(cur[:3, :3])
     t_new = cur[:3, 3]
     # divergence guard (RGBDOdometry.cpp:1232-1236)

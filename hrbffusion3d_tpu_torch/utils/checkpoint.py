@@ -17,7 +17,9 @@ intrinsics and config) resumes mid-sequence bit for bit:
   - the CRC of the BRIEF test pattern (descriptors from another pattern
     are incompatible: loading warns).
 The BoW database is rebuilt on load from the keyframes' descriptors (the
-vocabulary is deterministic).  ``save`` first joins the async keyframe
+vocabulary is deterministic).  A state split over a mesh is saved whole
+(``sharding.gather_state``) and split again on load when the system has a
+mesh.  ``save`` first joins the async keyframe
 worker, so nothing is in flight.
 
 Layout: 8 bytes little-endian length, an ``np.savez`` archive of the
@@ -40,6 +42,7 @@ import torch
 from ..backend import bow, features
 from ..backend.keyframes import Keyframe
 from ..map import surfel_map as sm
+from ..parallel import sharding
 from .convert import state_from_numpy, state_to_numpy
 from .tensors import const, host
 
@@ -54,7 +57,8 @@ def save(path: str, system) -> None:
     if system.state is None:
         raise ValueError("nothing to save: the system has processed no frame")
     system.join_backend()
-    arrays = {f"state.{k}": v for k, v in state_to_numpy(system.state).items()}
+    state = sharding.gather_state(system.state)
+    arrays = {f"state.{k}": v for k, v in state_to_numpy(state).items()}
     if system.archive is not None:
         arrays["archive.data"] = host(system.archive.data)
         arrays["archive.count"] = host(system.archive.count)
@@ -100,6 +104,8 @@ def load(path: str, system):
     dev = system.device
     system.state = state_from_numpy(
         {k[len("state."):]: v for k, v in arrays.items() if k.startswith("state.")}, dev)
+    if system.mesh is not None:
+        system.state = sharding.shard_state(system.state, system.mesh, system.cfg)
     system.cfg = dataclasses.replace(system.cfg, map_capacity=data["map_capacity"])
     if "archive.data" in arrays:
         system.archive = sm.SurfelMap(data=torch.from_numpy(arrays["archive.data"]).to(dev),

@@ -1,13 +1,14 @@
 """The port's full system with a mesh (``FullSLAM(mesh=)``):
 ``tests/test_ab_sharded_full_system.py``'s protocol (13 frames of the orbit
 at 128x96, a keyframe every 4 frames, ``process_batch``) on an 8-shard CPU
-mesh, on the JAX test's own frames (JAX's renderer).  Every local BA that
-has a problem runs the landmark-sharded solver, and the first one gives
-the unsharded solver's cameras and landmarks (``ba.optimize`` on the same
-problem) within 1e-4; at least three keyframes; finite poses; ATE under 2
-cm, JAX's bound, kept as a sanity check only (see below).  The dense
-state stays whole on the device: its row sharding (the JAX test's "state
-really sharded" assertion) is the next slice of the port.
+mesh, on the JAX test's own frames (JAX's renderer).  The dense state
+really is sharded (the JAX test's assertion): the surfel map's rows and
+the prediction images' rows lie on the 8 shards, and every dense step ran
+the row-sharded step.  Every local BA that has a problem runs the
+landmark-sharded solver, and the first one gives the unsharded solver's
+cameras and landmarks (``ba.optimize`` on the same problem) within 1e-4;
+at least three keyframes; finite poses; ATE under 2 cm, JAX's bound, kept
+as a sanity check only (see below).
 
 The protocol is chaotic at this size: with 4/3/2 tracking iterations a
 change in the last bits of a frame moves the first tracked pose by ~20 mm
@@ -29,7 +30,7 @@ from hrbffusion3d_tpu.config import CameraIntrinsics, small_test_config
 from hrbffusion3d_tpu.eval import synth as jsynth
 from hrbffusion3d_tpu_torch.backend import ba
 from hrbffusion3d_tpu_torch.eval import ate, synth
-from hrbffusion3d_tpu_torch.parallel import dist_ba, sharding
+from hrbffusion3d_tpu_torch.parallel import dist_ba, sharded_step, sharding
 from hrbffusion3d_tpu_torch.pipeline import slam
 from hrbffusion3d_tpu_torch.pipeline.full_slam import FullSLAM
 
@@ -60,6 +61,14 @@ def test_full_system_sharded_end_to_end():
         return recorded_run
 
     dist_ba.make_optimizer = counted
+    sharded_steps = []
+    step = sharded_step.step
+
+    def counted_step(*args, **kw):
+        sharded_steps.append(1)
+        return step(*args, **kw)
+
+    sharded_step.step = counted_step
     try:
         sys_ = FullSLAM(INTR, CFG, init_pose=gt[0], mesh=sharding.make_mesh(8, devices=["cpu"]),
                         backend_kwargs=dict(fast_threshold=8.0), device="cpu")
@@ -77,7 +86,16 @@ def test_full_system_sharded_end_to_end():
         sys_.process_batch(batch)
     finally:
         dist_ba.make_optimizer = make_optimizer
+        sharded_step.step = step
 
+    # the dense state really is sharded over the mesh
+    mesh = sys_.mesh
+    assert isinstance(sys_.state.map.data, sharding.ShardedRows)
+    assert len(sys_.state.map.data.parts) == 8 == mesh.size
+    assert sys_.state.map.data.bounds == tuple(sharding.row_bounds(CFG.map_capacity, 8))
+    assert [p.device for p in sys_.state.map.data.parts] == list(mesh.devices)
+    assert len(sys_.state.pred_vertex.parts) == 8
+    assert len(sharded_steps) == 12
     assert len(sys_.backend.keyframes) >= 3
     # every local BA with a problem went through the sharded solver
     built = [b for b in problems if b is not None]

@@ -1,10 +1,13 @@
-"""The port's multi-process setup (``parallel/multihost.py``): JAX's flat
-``global_mesh`` case of ``tests/test_multihost.py`` on the port (one
-process, an 8-shard CPU mesh), the mesh's ``psum`` and the one-process
-``globalize_sharded_ba``, and a real 2-process ``gloo`` solve of the
-landmark-sharded BA, 4 shards per process, held to the in-process 8-shard
-solve of the same problem within 2e-5 (``tests/test_multihost_2proc.py``'s
-bound; the two add the 8 shards' systems in different orders).
+"""The port's multi-process setup (``parallel/multihost.py``): JAX's cases
+of ``tests/test_multihost.py`` on the port (one process, an 8-shard CPU
+mesh: the flat and the two-level ``global_mesh``, ``host_local_batch``),
+the mesh's ``psum`` and the one-process ``globalize_sharded_ba``, a real
+2-process ``gloo`` solve of the landmark-sharded BA, 4 shards per process,
+held to the in-process 8-shard solve of the same problem within 2e-5
+(``tests/test_multihost_2proc.py``'s bound; the two add the 8 shards'
+systems in different orders), and the mesh's other collectives
+(``pmin``, ``all_gather`` of blocks of unequal length, the exclusive scan)
+over a 2-process ``gloo`` group, equal to the one-process results.
 
 The children run ``tests/torch_dist_child.py`` (no JAX), meet at a file
 rendezvous in a fresh temporary directory (no port to collide with other
@@ -22,12 +25,32 @@ torch.set_num_threads(1)
 
 
 def test_global_mesh_flat_and_two_level():
-    """JAX's case for the flat mesh: one process gives a mesh of its own
-    shards.  The two-level ``("host", "chip")`` layout is not ported: only
-    the sharded dense step would read it."""
+    """JAX's case: one process gives a mesh of its own shards, on the flat
+    ``("map",)`` axis or on ``("host", "chip")`` with ``host`` the process
+    count."""
     mesh = multihost.global_mesh(local_shards=8, device="cpu")
     assert mesh.size == 8 and mesh.devices == (torch.device("cpu"),) * 8
     assert mesh.group is None and mesh.first_shard == 0
+    assert mesh.axis_names == ("map",)
+    mesh2 = multihost.global_mesh(local_shards=8, device="cpu", two_level=True)
+    assert mesh2.axis_names == ("host", "chip")
+    assert mesh2.size == 8 and mesh2.shape["host"] == 1 and mesh2.shape["chip"] == 8
+
+
+def test_host_local_batch_single_process():
+    """JAX's case: one process's frame stack is the whole batch, its frames
+    split over the mesh's shards."""
+    mesh = multihost.global_mesh(local_shards=8, device="cpu")
+    n = mesh.size
+    depth = np.random.RandomState(0).rand(n, 8, 16).astype(np.float32)
+    rgb = np.random.RandomState(1).rand(n, 8, 16, 3).astype(np.float32)
+    fi = multihost.host_local_batch(mesh, depth, rgb)
+    assert fi.depth.shape == (n, 8, 16) and len(fi.depth.parts) == 8
+    np.testing.assert_allclose(fi.depth.gather().numpy(), depth)
+    np.testing.assert_allclose(fi.rgb.gather().numpy(), rgb)
+    assert multihost.is_coordinator()
+    with pytest.raises(ValueError, match="no axis 'pix'"):
+        multihost.host_local_batch(mesh, depth, rgb, axis="pix")
 
 
 def test_make_mesh_layout_and_setup_errors(monkeypatch):
@@ -93,3 +116,19 @@ def test_two_process_dist_ba_matches_single_process(tmp_path):
     np.testing.assert_allclose(got["points"],
                                dist_ba.gather_points(points, prob.points.shape[0]), atol=2e-5)
     np.testing.assert_allclose(float(got["chi"]), float(chi), rtol=1e-4)
+
+
+def test_two_process_collectives_match_single_process(tmp_path):
+    out = tmp_path / "proc0.npz"
+    multihost.launch_local(torch_dist_child.collectives_rank, 2, args=(3, str(out)),
+                           timeout_s=90.0)
+    got = np.load(out)
+    mesh = sharding.make_mesh(6, devices=["cpu"])
+    vals = [torch_dist_child.shard_values(k) for k in range(6)]
+    np.testing.assert_array_equal(got["psum"],
+                                  mesh.psum([[v[1].to(torch.float32)] for v in vals])[0][0])
+    np.testing.assert_array_equal(got["pmin"], mesh.pmin([[v[1]] for v in vals])[0][0])
+    np.testing.assert_array_equal(got["gathered"], torch.cat([v[0] for v in vals]))
+    counts = [int(v[2]) for v in vals]
+    assert int(got["total"]) == sum(counts)
+    np.testing.assert_array_equal(got["offsets"], np.cumsum([0] + counts)[:3])

@@ -62,3 +62,38 @@ def solve_rank(addr, n_processes, rank, local_shards, out_path):
             np.savez(out_path, cams=cams.numpy(), points=pts, chi=chi.numpy())
     finally:
         torch.distributed.destroy_process_group()
+
+
+def shard_values(k: int):
+    """Global shard k's inputs to the collectives test: a float block of
+    k + 1 rows, an int vector and an int count, all from a seed."""
+    rng = np.random.default_rng(100 + k)
+    return (torch.from_numpy(rng.standard_normal((k + 1, 3)).astype(np.float32)),
+            torch.from_numpy(rng.integers(-50, 50, (6,)).astype(np.int32)),
+            torch.tensor(int(rng.integers(0, 20)), dtype=torch.int32))
+
+
+def collectives_rank(addr, n_processes, rank, local_shards, out_path):
+    """One process of a ``gloo`` run of the mesh's collectives on the CPU,
+    ``local_shards`` shards per process; process 0 writes what its first
+    shard got to ``out_path`` (.npz), and every process checks that its
+    shards got the same."""
+    torch.set_num_threads(1)
+    multihost.initialize(addr, n_processes, rank, backend="gloo")
+    try:
+        mesh = multihost.global_mesh(local_shards=local_shards, device="cpu")
+        vals = [shard_values(mesh.first_shard + i) for i in range(local_shards)]
+        psum = mesh.psum([[v[1].to(torch.float32)] for v in vals])
+        pmin = mesh.pmin([[v[1]] for v in vals])
+        gathered = mesh.all_gather([v[0] for v in vals])
+        offs, total = mesh.exclusive_scan([v[2] for v in vals])
+        for i in range(local_shards):
+            assert torch.equal(psum[i][0], psum[0][0]) and torch.equal(pmin[i][0], pmin[0][0])
+            assert torch.equal(gathered[i], gathered[0]) and torch.equal(total[i], total[0])
+        if multihost.is_coordinator():
+            np.savez(out_path, psum=psum[0][0].numpy(), pmin=pmin[0][0].numpy(),
+                     gathered=gathered[0].numpy(), total=total[0].numpy(),
+                     offsets=torch.stack(offs).numpy())
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
