@@ -72,8 +72,9 @@ and prints:
     difference normals, ICP only and RGB only, each bootstrap + 7 steps of
     the orbit beside the default mode's in one call: ATE (gated but for
     the one-term modes), 0 host syncs in every step, the kernels' launches
-    (PCA none with central differences), the median step, and the last
-    step's ``track`` repeated on the CPU (within 1e-4 rad and 1e-4 m, the
+    (PCA none with central differences), the median step, and every
+    step's ``track`` repeated on the CPU (within 1e-4 rad and 1e-4 m; the
+    largest gap per mode printed; for the default mode's last track the
     CPU's own 1-thread spread beside it); one ``track(rgb_only=True)``
     the same way within 1e-3 (its float32 spread is ~1e-4); a JSON line
     ``{"tracking_modes": {...}}``;
@@ -100,14 +101,21 @@ and prints:
     tracked pose bit for bit; ATE under 2.5 cm); (c) each kernel launched
     on one shard's slab against its plain version and against its
     whole-image launch on the slab's rows (bit for bit); (d) 0 host syncs
-    in a sharded step; (e) distributed (c); ms per step beside the
-    unsharded step, launches per shard per step, bytes per shard; a JSON
-    line ``{"sharded_step": {...}}``;
+    in a sharded step; (e) distributed (c); (f) every tracking mode of
+    ``phase_tracking_modes`` tracked on ``make_mesh(4)`` over its frames,
+    bit for bit to that phase's unsharded run after every step, 0 host
+    syncs per step; (g) 2 spawned ``gloo`` processes x 4 shards on the
+    card (the dense-step cell's 16 frames from the sharded bootstrap:
+    replayed, tracked, and tracked with the correspondence search), every
+    step's pose and count and the last state bit for bit to the in-process
+    ``make_mesh(8)`` run; ms per step beside the unsharded step, launches
+    per shard per step, bytes per shard, bytes put into the collectives
+    per step in (g); a JSON line ``{"sharded_step": {...}}``;
   - a JSON line ``{"kernels": [...]}``: per kernel its launches on the main
     path (the bilateral kernel's keyframe call site apart, and the
     launches of each ``phase_run_tum`` path, each tracking mode,
-    ``phase_distributed`` (c) and each ``phase_sharded_step`` run beside
-    them, with its slab check), max abs error
+    ``phase_distributed`` (c) and each ``phase_sharded_step`` run, (f)'s
+    modes and (g)'s runs beside them, with its slab check), max abs error
     against the plain version, both times and the bound (the least time
     the card could take for the same work);
   - last, ``{"ok": true, "device": {...}}``.
@@ -329,10 +337,15 @@ def phase_build() -> dict:
     return attrs
 
 
-def phase_frames(dev):
+def _render_frames(dev):
+    """The dense-step cell's orbit and its frames, rendered on ``dev``."""
     scene = synth.default_room(dev)
     poses = synth.orbit_trajectory(N_FRAMES, angle_per_frame=0.004)
-    frames = [slam.FrameInput(*synth.render_frame(scene, p, TUM1)) for p in poses]
+    return poses, [slam.FrameInput(*synth.render_frame(scene, p, TUM1)) for p in poses]
+
+
+def phase_frames(dev):
+    poses, frames = _render_frames(dev)
     torch.cuda.synchronize()
     d = frames[0].depth
     if not (d.device.type == "cuda" and torch.isfinite(d).all()
@@ -1955,44 +1968,52 @@ def _rot_gap(Ra: torch.Tensor, Rb: torch.Tensor) -> float:
     return 2.0 * float(np.arcsin(min(chord / (2.0 * np.sqrt(2.0)), 1.0)))
 
 
-def _track_card_vs_cpu(label, args, cfg, rgb_only=False, tol=(MODE_R_TOL, MODE_T_TOL)) -> dict:
+def _track_card_vs_cpu(label, args, cfg, rgb_only=False, tol=(MODE_R_TOL, MODE_T_TOL),
+                       one_thread=True) -> dict:
     """One ``track`` on the card and on the CPU from the same inputs (a
-    step's own), and on the CPU again on one thread (another float32
-    summation order: the CPU's own spread, printed beside); fails when
-    the card is more than ``tol`` (rad, m) from the CPU."""
+    step's own), and (``one_thread``) on the CPU again on one thread
+    (another float32 summation order: the CPU's own spread, printed
+    beside); fails when the card is more than ``tol`` (rad, m) from the
+    CPU."""
     prev_R, prev_t, inp, intr = args[:4]
     card = odometry.track(prev_R, prev_t, inp, intr, cfg, rgb_only=rgb_only)
     cpu_inp = odometry.TrackingInputs(*(tuple(x.cpu() for x in f) for f in inp))
     t0 = time.perf_counter()
     cpu = odometry.track(prev_R.cpu(), prev_t.cpu(), cpu_inp, intr, cfg, rgb_only=rgb_only)
     cpu_s = time.perf_counter() - t0
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        cpu1 = odometry.track(prev_R.cpu(), prev_t.cpu(), cpu_inp, intr, cfg, rgb_only=rgb_only)
-    finally:
-        torch.set_num_threads(threads)
     d_r = _rot_gap(card.R, cpu.R)
     d_t = float((card.t.cpu() - cpu.t).abs().max())
     if not (d_r <= tol[0] and d_t <= tol[1]):
         raise RuntimeError(f"{label}: track card vs CPU {d_r} rad, {d_t} m")
-    return dict(card_vs_cpu_rad=d_r, card_vs_cpu_m=d_t, cpu_track_s=cpu_s,
-                cpu_threads=threads, cpu_1_thread_rad=_rot_gap(cpu1.R, cpu.R),
-                cpu_1_thread_m=float((cpu1.t - cpu.t).abs().max()),
-                moved_m=float(torch.linalg.norm(cpu.t - prev_t.cpu())))
+    out = dict(card_vs_cpu_rad=d_r, card_vs_cpu_m=d_t, cpu_track_s=cpu_s,
+               moved_m=float(torch.linalg.norm(cpu.t - prev_t.cpu())))
+    if one_thread:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            cpu1 = odometry.track(prev_R.cpu(), prev_t.cpu(), cpu_inp, intr, cfg,
+                                  rgb_only=rgb_only)
+        finally:
+            torch.set_num_threads(threads)
+        out.update(cpu_threads=threads, cpu_1_thread_rad=_rot_gap(cpu1.R, cpu.R),
+                   cpu_1_thread_m=float((cpu1.t - cpu.t).abs().max()))
+    return out
 
 
-def _mode_run(name, cfg, poses, frames) -> tuple[dict, list]:
+def _mode_run(name, cfg, poses, frames) -> tuple[dict, list, list]:
     """bootstrap + MODE_STEPS steps under ``cfg``: every step counted in
     sync-debug mode and timed, the kernels' launches counted over the run,
-    the trajectory gated (but for the one-term modes), and the last step's
-    track repeated on the CPU."""
+    the trajectory gated (but for the one-term modes), and every step's
+    track repeated on the CPU (the default mode's last also on one CPU
+    thread).  Returns (results, the tracks' calls, the states from the
+    bootstrap on)."""
     torch.cuda.synchronize()
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
     calls, step_ms, syncs = [], [], 0
     with _tracks(calls):
         state = slam.bootstrap(frames[0], TUM1, cfg, init_pose=poses[0])
+        states = [state]
         est = [lie.rt_to_mat(state.R, state.t)]
         for f in frames[1:MODE_STEPS + 1]:
             torch.cuda.synchronize()
@@ -2001,6 +2022,7 @@ def _mode_run(name, cfg, poses, frames) -> tuple[dict, list]:
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
             syncs += s
+            states.append(state)
             est.append(lie.rt_to_mat(state.R, state.t))
     launches = dict(kernels.LAUNCHES)
     label = f"tracking mode {name}"
@@ -2025,26 +2047,37 @@ def _mode_run(name, cfg, poses, frames) -> tuple[dict, list]:
                launches=launches, step_ms=step_ms,
                median_step_ms=float(np.median(step_ms[1:])),
                live_iters=live.tolist(), budget=list(cfg.pyramid_iterations))
-    out.update(_track_card_vs_cpu(label, calls[-1][0], cfg))
+    every = [_track_card_vs_cpu(f"{label} track {i + 1}", c[0], cfg,
+                                one_thread=name == "default" and i == len(calls) - 1)
+             for i, c in enumerate(calls)]
+    out.update(every[-1])
+    out["tracks_card_vs_cpu_rad"] = [g["card_vs_cpu_rad"] for g in every]
+    out["tracks_card_vs_cpu_m"] = [g["card_vs_cpu_m"] for g in every]
+    out["largest_card_vs_cpu"] = [max(out["tracks_card_vs_cpu_rad"]),
+                                  max(out["tracks_card_vs_cpu_m"])]
     print(f"{label}: ATE {out['ate_mm']:.3f} mm{' (not gated)' if name in UNGATED_MODES else ''}, "
           f"dense_frac {dense:.4f}, last_icp_count {icp:.0f}, median step "
           f"{out['median_step_ms']:.2f} ms (steps 2-{MODE_STEPS}), host syncs {syncs}, "
-          f"launches {json.dumps(launches)}; last track card vs CPU "
-          f"{out['card_vs_cpu_rad']:.3g} rad, {out['card_vs_cpu_m']:.3g} m "
-          f"(CPU track {out['cpu_track_s']:.1f} s; the CPU on 1 vs {out['cpu_threads']} threads "
-          f"{out['cpu_1_thread_rad']:.3g} rad, {out['cpu_1_thread_m']:.3g} m)")
-    return out, calls
+          f"launches {json.dumps(launches)}; every track ({len(every)}) card vs CPU: largest "
+          f"{out['largest_card_vs_cpu'][0]:.3g} rad, {out['largest_card_vs_cpu'][1]:.3g} m "
+          f"(last CPU track {out['cpu_track_s']:.1f} s"
+          + (f"; the CPU on 1 vs {out['cpu_threads']} threads {out['cpu_1_thread_rad']:.3g} rad, "
+             f"{out['cpu_1_thread_m']:.3g} m)" if "cpu_threads" in out else ")"))
+    return out, calls, states
 
 
-def phase_tracking_modes(poses, frames, smi) -> dict:
+def phase_tracking_modes(poses, frames, smi) -> tuple[dict, dict]:
     """The dense step under each tracking and normal setting (13 modes) and
     the default beside them, each bootstrap + MODE_STEPS steps on the
-    card in one call; then one ``track(rgb_only=True)`` from the default
-    run's last inputs, card against CPU."""
+    card in one call, every track held to the CPU's; then one
+    ``track(rgb_only=True)`` from the default run's last inputs, card
+    against CPU.  Returns (results, per mode: its config, its states and
+    step ms, for phase_sharded_step (f))."""
     t_phase = time.perf_counter()
-    out = {}
-    default, calls = _mode_run("default", BENCH_CFG, poses, frames)
+    out, runs = {}, {}
+    default, calls, states = _mode_run("default", BENCH_CFG, poses, frames)
     out["default"] = default
+    runs["default"] = (BENCH_CFG, states, default["step_ms"])
     r = out["rgb_only_track"] = _track_card_vs_cpu(
         "track(rgb_only=True)", calls[-1][0], BENCH_CFG, rgb_only=True, tol=RGB_ONLY_TOL)
     print(f"tracking modes: track(rgb_only=True) from the default run's last inputs: moved "
@@ -2053,7 +2086,8 @@ def phase_tracking_modes(poses, frames, smi) -> dict:
           f"{r['cpu_1_thread_rad']:.3g} rad, {r['cpu_1_thread_m']:.3g} m)")
     for name, fields in TRACKING_MODES.items():
         cfg = dataclasses.replace(BENCH_CFG, **fields)
-        out[name], _ = _mode_run(name, cfg, poses, frames)
+        out[name], _, states = _mode_run(name, cfg, poses, frames)
+        runs[name] = (cfg, states, out[name]["step_ms"])
     live = np.array(out["converge_eps"]["live_iters"])
     print(f"tracking modes: converge_eps {MODE_EPS}: live iterations per step and level "
           f"(finest first) {live.tolist()} of {out['converge_eps']['budget']}")
@@ -2062,9 +2096,12 @@ def phase_tracking_modes(poses, frames, smi) -> dict:
     print(f"tracking modes: median step ms (steps 2-{MODE_STEPS}, sync-debug mode on, {smi}): "
           + ", ".join(f"{k} {v['median_step_ms']:.2f}" for k, v in out.items()
                       if "median_step_ms" in v))
+    print("tracking modes: largest card vs CPU gap over every track (rad, m): "
+          + ", ".join(f"{k} {v['largest_card_vs_cpu'][0]:.3g} / {v['largest_card_vs_cpu'][1]:.3g}"
+                      for k, v in out.items() if "largest_card_vs_cpu" in v))
     out["seconds"] = time.perf_counter() - t_phase
     print(f"tracking modes: phase {out['seconds']:.1f} s")
-    return out
+    return out, runs
 
 
 # phase_distributed: the landmark-sharded local BA (parallel/dist_ba) on
@@ -2418,7 +2455,8 @@ def _lockstep(label, mesh, frames, poses, fixed):
     tracked, each sharded step also held to the unsharded step from its
     own previous state); each step synchronised and timed; the kernels'
     launches counted in the sharded steps alone; the host syncs of the
-    last sharded step counted."""
+    last sharded step counted.  Returns (results, the sharded run's
+    ``_run_record``)."""
     cfg = BENCH_CFG
     ref = slam.bootstrap(frames[0], TUM1, cfg, init_pose=poses[0])
     got = sharding.shard_state(ref, mesh, cfg)
@@ -2427,6 +2465,7 @@ def _lockstep(label, mesh, frames, poses, fixed):
     launches = dict.fromkeys(kernels.LAUNCHES, 0)
     est = [lie.rt_to_mat(got.R, got.t)]
     syncs = None
+    record = []
     for i in range(1, len(frames)):
         pose = None if fixed is None else fixed[i]
         prev = sharding.gather_state(got) if fixed is None else None
@@ -2448,6 +2487,7 @@ def _lockstep(label, mesh, frames, poses, fixed):
             launches[k] += v - before[k]
         ms_ref.append(1e3 * (t1 - t0))
         ms_got.append(1e3 * (t2 - t1))
+        record.append((got.R, got.t, got.map.count))
         est.append(lie.rt_to_mat(got.R, got.t))
         if fixed is not None:
             diffs.append(_state_diff(ref, got))
@@ -2500,7 +2540,19 @@ def _lockstep(label, mesh, frames, poses, fixed):
                                f"times, expected {n_steps * mesh.size} (one per shard per step)")
     if syncs != 0:
         raise RuntimeError(f"sharded step {label}: {syncs} host syncs in a step")
-    return out
+    return out, _run_record(record, got)
+
+
+def _run_record(steps, last: slam.SLAMState) -> dict:
+    """A sharded run's record for (g): each step's (R, t, count) and the
+    last state whole (numpy)."""
+    last = sharding.gather_state(last)
+    rec = {k: np.stack([x.cpu().numpy() for x in col])
+           for k, col in zip(("R", "t", "count"), zip(*steps))}
+    rec["map"] = last.map.data.cpu().numpy()
+    for name in GROUP_IMAGES:
+        rec[name] = getattr(last, name).cpu().numpy()
+    return rec
 
 
 def _slab_checks(frames, state, mesh) -> dict:
@@ -2556,19 +2608,209 @@ def _slab_checks(frames, state, mesh) -> dict:
     return {k: {"max_abs_err": v, "rows": [a, b]} for k, v in out.items()}
 
 
-def phase_sharded_step(poses, frames, est, state, smi, full_system) -> dict:
+# (f): every tracking setting of TRACKING_MODES on make_mesh(SHARD_MODE_MESH),
+# tracked over phase_tracking_modes' frames, each state bit for bit to that
+# phase's unsharded run of the mode after every step, 0 host syncs per step
+SHARD_MODE_MESH = 4
+# (g): GROUP_PROCESSES gloo processes x GROUP_SHARDS shards on the one card
+# (NCCL refuses two ranks on one card) run the dense-step cell's frames:
+# replayed at the main path's poses, tracked, and tracked with the
+# correspondence search; every step's pose and count and the last state
+# bit for bit to the in-process make_mesh(GROUP_PROCESSES * GROUP_SHARDS)
+# run of the same frames
+GROUP_PROCESSES, GROUP_SHARDS = 2, 4
+GROUP_TIMEOUT_S = 480.0
+GROUP_RUNS = ("replay", "tracked", "corr_search")
+GROUP_IMAGES = ("pred_vertex", "pred_normal", "pred_intensity", "pred_icp_weight", "pred_k1",
+                "pred_k2", "prev_intensity")
+
+
+def _group_cfg(run: str) -> SLAMConfig:
+    return (dataclasses.replace(BENCH_CFG, **TRACKING_MODES["corr_search"])
+            if run == "corr_search" else BENCH_CFG)
+
+
+def _sharded_modes(mode_runs, frames) -> dict:
+    """(f) Each mode of phase_tracking_modes tracked on make_mesh(
+    SHARD_MODE_MESH) from its unsharded bootstrap: after every step the
+    state bit for bit to the unsharded run's, every step's host syncs
+    counted (CUDA sync-debug mode, as the unsharded steps were) and timed,
+    the kernels launched once per shard per step."""
+    out = {}
+    dev = frames[0].depth.device
+    for name, (cfg, states, unsharded_ms) in mode_runs.items():
+        mesh = sharding.make_mesh(SHARD_MODE_MESH, devices=[dev])
+        got = sharding.shard_state(states[0], mesh, cfg)
+        torch.cuda.synchronize()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        ms, syncs, differing = [], 0, []
+        for i, f in enumerate(frames[1:len(states)], start=1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, n = _count_syncs(lambda: slam.step(got, f, TUM1, cfg))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            syncs += n
+            bad = _state_diff(states[i], got)
+            if bad:
+                differing.append((i, bad))
+        launches = dict(kernels.LAUNCHES)
+        n_steps = len(states) - 1
+        want = dict.fromkeys(launches, n_steps * mesh.size)
+        if not cfg.normal_pca:
+            want["normal_pca"] = 0
+        r = out[name] = dict(steps=n_steps, bit_for_bit_steps=n_steps - len(differing),
+                             differing=differing, host_syncs=syncs, launches=launches,
+                             step_ms=ms, median_step_ms=float(np.median(ms[1:])),
+                             median_unsharded_ms=float(np.median(unsharded_ms[1:])))
+        print(f"sharded step (f) {name} on make_mesh({mesh.size}): bit for bit after "
+              f"{r['bit_for_bit_steps']} of {n_steps} steps, host syncs {syncs}, median "
+              f"{r['median_step_ms']:.2f} ms per step (unsharded {r['median_unsharded_ms']:.2f}; "
+              f"steps 2-{n_steps}, sync-debug mode on), launches {json.dumps(launches)}")
+        if differing or syncs or launches != want:
+            raise RuntimeError(f"sharded step (f) {name}: differing {differing}, host syncs "
+                               f"{syncs}, launches {launches} (expected {want})")
+        del got
+    return out
+
+
+def _group_rank(addr, n_processes, rank, local_shards, est, device, out_dir):
+    """One process of (g): the GROUP_RUNS on ``global_mesh(local_shards)``
+    of ``device``, from the sharded bootstrap; writes per run each step's
+    pose, count, ms, bytes put into the collectives and rows that
+    ``move_rows`` brought from the other process, its kernels' launches
+    and its own rows of the last state to ``out_dir/<run>_<rank>.npz``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(addr, n_processes, rank, backend="gloo")
+    try:
+        dev = torch.device(device)
+        mesh = multihost.global_mesh(local_shards=local_shards, device=dev)
+        poses, frames = _render_frames(dev)
+        for run in GROUP_RUNS:
+            cfg = _group_cfg(run)
+            torch.cuda.synchronize()
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            st = slam.bootstrap(sharding.shard_frame(frames[0], mesh, cfg), TUM1, cfg,
+                                init_pose=poses[0])
+            steps, ms, sent, came = [], [], [], []
+            for i in range(1, len(frames)):
+                torch.cuda.synchronize()
+                b0, r0, t0 = mesh.sent_bytes, mesh.received_rows, time.perf_counter()
+                st = slam.step(st, frames[i], TUM1, cfg,
+                               fixed_pose=est[i] if run == "replay" else None)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                sent.append(mesh.sent_bytes - b0)
+                came.append(mesh.received_rows - r0)
+                steps.append((st.R, st.t, st.map.count))
+            rows = {k: np.stack([x.cpu().numpy() for x in col])
+                    for k, col in zip(("R", "t", "count"), zip(*steps))}
+            rows["map"] = torch.cat(st.map.data.parts).cpu().numpy()
+            for name in GROUP_IMAGES:
+                rows[name] = torch.cat(getattr(st, name).parts).cpu().numpy()
+            np.savez(f"{out_dir}/{run}_{rank}.npz", **rows, ms=np.array(ms),
+                     sent=np.array(sent), came=np.array(came),
+                     launches=json.dumps(dict(kernels.LAUNCHES)),
+                     devices=json.dumps([str(p.device) for p in st.map.data.parts]))
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _group(records, est, frames) -> dict:
+    """(g) GROUP_PROCESSES gloo processes x GROUP_SHARDS shards on the card
+    against the in-process make_mesh(GROUP_PROCESSES * GROUP_SHARDS) runs
+    (records of (a) and (b); the correspondence search's run here), every
+    step's pose and count and the last state bit for bit; the sharded
+    bootstrap in-process first held to the unsharded one bit for bit (the
+    ranks start from it, the in-process runs from the unsharded one)."""
+    n = GROUP_PROCESSES * GROUP_SHARDS
+    dev = frames[0].depth.device
+    mesh = sharding.make_mesh(n, devices=[dev])
+    boot = slam.bootstrap(frames[0], TUM1, BENCH_CFG, init_pose=est[0])
+    sboot = slam.bootstrap(sharding.shard_frame(frames[0], mesh, BENCH_CFG), TUM1, BENCH_CFG,
+                           init_pose=est[0])
+    bad = _state_diff(boot, sboot)
+    print(f"sharded step (g): the sharded bootstrap on make_mesh({n}) equals the unsharded one "
+          f"bit for bit: {not bad} {bad or ''}")
+    if bad:
+        raise RuntimeError(f"sharded step (g): the sharded bootstrap differs in {bad}")
+    cfg = _group_cfg("corr_search")
+    st = sharding.shard_state(slam.bootstrap(frames[0], TUM1, cfg, init_pose=est[0]), mesh, cfg)
+    steps = []
+    for f in frames[1:]:
+        st = slam.step(st, f, TUM1, cfg)
+        steps.append((st.R, st.t, st.map.count))
+    refs = {"replay": records[("replay", n)], "tracked": records[("tracked", n)],
+            "corr_search": _run_record(steps, st)}
+    del st, boot, sboot
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        multihost.launch_local(_group_rank, GROUP_PROCESSES,
+                               args=(GROUP_SHARDS, torch.stack(est).cpu(), str(dev), tmp),
+                               timeout_s=GROUP_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        for run in GROUP_RUNS:
+            ranks = [np.load(f"{tmp}/{run}_{r}.npz") for r in range(GROUP_PROCESSES)]
+            ref = refs[run]
+            differing = [k for k in ("R", "t", "count") if not all(
+                np.array_equal(g[k], ref[k]) for g in ranks)]
+            differing += [k for k in ("map",) + GROUP_IMAGES if not np.array_equal(
+                np.concatenate([g[k] for g in ranks]), ref[k])]
+            launches = [json.loads(str(g["launches"])) for g in ranks]
+            ms = np.median(np.stack([g["ms"] for g in ranks]), axis=0)
+            sent = np.sum(np.stack([g["sent"] for g in ranks]), axis=0)
+            r = out[run] = dict(
+                differing=differing, steps=len(ref["count"]),
+                devices=[json.loads(str(g["devices"])) for g in ranks],
+                map_rows_per_process=[int(g["map"].shape[0]) for g in ranks],
+                launches={k: sum(x[k] for x in launches) for k in launches[0]},
+                step_ms=ms.tolist(), median_step_ms=float(np.median(ms[3:])),
+                bytes_per_step=sent.tolist(), median_bytes_per_step=float(np.median(sent)),
+                moved_in_rows_per_step=[g["came"].tolist() for g in ranks])
+            print(f"sharded step (g) {run}: {GROUP_PROCESSES} gloo processes x {GROUP_SHARDS} "
+                  f"shards on {r['devices'][0][0]} vs in-process make_mesh({n}): every step's "
+                  f"pose and count and the last state bit for bit: {not differing} "
+                  f"{differing or ''}; median {r['median_step_ms']:.1f} ms per step (steps "
+                  f"4-{r['steps']}), {r['median_bytes_per_step'] / 1e6:.2f} MB put into the "
+                  f"collectives per step by both processes; map rows per process "
+                  f"{r['map_rows_per_process']}, rows moved in from the other process per "
+                  f"step, most / median: {[int(g['came'].max()) for g in ranks]} / "
+                  f"{[float(np.median(g['came'])) for g in ranks]}; launches "
+                  f"{json.dumps(r['launches'])}")
+            if differing:
+                raise RuntimeError(f"sharded step (g) {run}: differs from the in-process mesh "
+                                   f"in {differing}")
+            want = N_FRAMES * n
+            if any(v != want for v in r["launches"].values()):
+                raise RuntimeError(f"sharded step (g) {run}: launches {r['launches']}, "
+                                   f"expected {want}")
+    out["seconds_with_start_up"] = secs
+    return out
+
+
+def phase_sharded_step(poses, frames, est, state, smi, full_system, mode_runs) -> dict:
     """The row-sharded dense step on 4- and 8-shard meshes of the card:
     (a) replay bit for bit, (b) tracked, (c) the kernels' slab launches,
-    (d) host syncs; (e) phase_distributed (c)'s sharded FullSLAM."""
+    (d) host syncs; (e) phase_distributed (c)'s sharded FullSLAM; (f) every
+    tracking mode on 4 shards; (g) 2 gloo processes x 4 shards."""
     t_phase = time.perf_counter()
     out = {"replay": {}, "tracked": {}}
+    records = {}
     for n in SHARD_MESHES:
         mesh = sharding.make_mesh(n, devices=[frames[0].depth.device])
-        r = out["replay"][str(n)] = _lockstep("(a) replay", mesh, frames, poses, est)
+        r, records[("replay", n)] = _lockstep("(a) replay", mesh, frames, poses, est)
+        out["replay"][str(n)] = r
         if r["differing_fields"] or r["steps_bit_for_bit"] != N_FRAMES - 1:
             raise RuntimeError(f"sharded replay on {n} shards differs from the unsharded step: "
                                f"{r['differing_fields']}")
-        r = out["tracked"][str(n)] = _lockstep("(b) tracked", mesh, frames, poses, None)
+        r, records[("tracked", n)] = _lockstep("(b) tracked", mesh, frames, poses, None)
+        out["tracked"][str(n)] = r
         if not (max(r["pose_gaps"] + r["anchored_pose_gaps"]) <= SHARD_POSE_TOL
                 and r["counts_equal"] and r["anchored_counts_equal"] == N_FRAMES - 1
                 and r["replayed_at_pose_bit_for_bit"] == N_FRAMES - 1
@@ -2583,6 +2825,10 @@ def phase_sharded_step(poses, frames, est, state, smi, full_system) -> dict:
     out["full_system"] = {k: full_system[k] for k in (
         "shards", "map_row_shards", "fps", "ate_mm", "keyframes", "local_ba_problems",
         "sharded_solves", "keyframe_pose_gap", "keyframe_gap_mm")}
+    out["modes"] = _sharded_modes(mode_runs, frames)
+    mode_runs.clear()
+    torch.cuda.empty_cache()
+    out["group"] = _group(records, est, frames)
     print("sharded step: median ms per step, sharded (unsharded in the same run), bytes per "
           "shard: " + "; ".join(
               f"{m} {n} shards {r['median_step_ms']:.2f} ({r['median_unsharded_ms']:.2f}), "
@@ -2592,6 +2838,13 @@ def phase_sharded_step(poses, frames, est, state, smi, full_system) -> dict:
     print(f"sharded step (e) = distributed (c): FullSLAM(mesh=make_mesh("
           f"{full_system['shards']})), map rows on {full_system['map_row_shards']} shards, "
           f"ATE {full_system['ate_mm']:.2f} mm; {smi}")
+    print("sharded step (f): median ms per step on make_mesh(4) (unsharded): " + ", ".join(
+        f"{k} {v['median_step_ms']:.2f} ({v['median_unsharded_ms']:.2f})"
+        for k, v in out["modes"].items()) + f"; {smi}")
+    print("sharded step (g): median ms per step, MB into the collectives per step: " + ", ".join(
+        f"{k} {out['group'][k]['median_step_ms']:.1f}, "
+        f"{out['group'][k]['median_bytes_per_step'] / 1e6:.2f}" for k in GROUP_RUNS)
+        + f"; {smi}")
     print(f"sharded step: phase {out['seconds']:.1f} s")
     return out
 
@@ -2614,13 +2867,14 @@ def main() -> None:
     real = phase_run_tum(dev)
     real["device"] = smi
     print(json.dumps({"run_tum": real}, default=float))
-    modes = phase_tracking_modes(poses, frames, smi)
+    modes, mode_runs = phase_tracking_modes(poses, frames, smi)
     modes["device"] = smi
     print(json.dumps({"tracking_modes": modes}, default=float))
     distributed = phase_distributed(last_problem, dev, smi)
     distributed["device"] = smi
     print(json.dumps({"distributed": distributed}, default=float))
-    sharded = phase_sharded_step(poses, frames, est, state, smi, distributed["full_system"])
+    sharded = phase_sharded_step(poses, frames, est, state, smi, distributed["full_system"],
+                                 mode_runs)
     sharded["device"] = smi
     print(json.dumps({"sharded_step": sharded}, default=float))
 
@@ -2645,6 +2899,9 @@ def main() -> None:
         row["sharded_step_launches"] = {f"{m} {n}": sharded[m][str(n)]["launches"][kname]
                                         for m in ("replay", "tracked") for n in SHARD_MESHES}
         row["sharded_slab"] = sharded["slabs"][kname]
+        row["sharded_modes_launches"] = {k: v["launches"][kname]
+                                         for k, v in sharded["modes"].items()}
+        row["group_launches"] = {k: sharded["group"][k]["launches"][kname] for k in GROUP_RUNS}
         if kname == "bilateral_filter":
             row["keyframe_launches"] = full["tracked"]["keyframe_bilateral_launches"]
         if kname == "raycast_core":

@@ -18,7 +18,16 @@ per Gauss-Newton iteration fetches a pixel's correspondence: 9 channels
 nearest-pixel photometric lookup), 36 channels for the 2x2 bilinear
 footprint (``pack_joint``), or the separate pair ``pack_model`` /
 ``pack_last`` of the ICP and photometric terms.  Everything here is plain
-PyTorch; matrix products assume full float32 (TF32 off on the card).
+PyTorch.  The per-pixel arithmetic (the 3x3 rotations of points and
+normals, 3-vector dot and cross products and norms) is written out
+elementwise, one tensor op per IEEE operation (``mat3_apply``, ``_dot``,
+``_cross``, ``_norm``): no matrix product, ``einsum`` or reduction over a
+3-vector, so each op is rounded alone, with no fused multiply-add and no
+blocked summation order, and the card and the CPU compute the same
+values; a division by a constant is a multiplication by its reciprocal
+(on the card PyTorch turns ``x / c`` into ``x * (1 / c)``, on the CPU it
+divides).  ``sparse_icp_lambda_update`` keeps its matrix products (JAX's
+lambda values are matched to 1e-6 there).
 """
 
 from __future__ import annotations
@@ -54,12 +63,33 @@ def _gram(rows: torch.Tensor, weight: torch.Tensor):
     return S[:6, :6], S[:6, 6], S[6, 6]
 
 
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 3) . (..., 3) as (a0 b0 + a1 b1) + a2 b2."""
+    p = a * b
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.cross(a, b, dim=-1)
+    """a x b of (..., 3) vectors, each component a product difference."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.vector_norm(x, dim=-1)
+    return torch.sqrt(_dot(x, x))
+
+
+def mat3_apply(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """``v @ M.T`` for (..., 3) vectors and a 3x3 ``M``: component i is
+    (M[i,0] v0 + M[i,1] v1) + M[i,2] v2."""
+    p = v[..., None, :] * M
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
+def mat3_mul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` of 3x3 matrices, written out as ``mat3_apply``."""
+    return mat3_apply(B.T, A).T
 
 
 def _project(vcurr_cp: torch.Tensor, intr: CameraIntrinsics):
@@ -73,7 +103,7 @@ def _project(vcurr_cp: torch.Tensor, intr: CameraIntrinsics):
 def _icp_rows(found, s_cp, d_cp, n_cp, wp, cfg: SLAMConfig):
     """Point-to-plane rows [n | s x n | n.(s - d)] in the previous camera
     frame (reduce.cu:474-507) -> StepResult."""
-    r = torch.sum(n_cp * (s_cp - d_cp), dim=-1)
+    r = _dot(n_cp, s_cp - d_cp)
     rows = torch.cat([n_cp, _cross(s_cp, n_cp), r[:, None]], dim=-1)
     rows = torch.where(found[:, None], rows, 0.0)
     if cfg.icp_use_weighted:
@@ -193,8 +223,14 @@ def pack_joint(vmap_g: torch.Tensor, nmap_g: torch.Tensor, icp_weight: torch.Ten
     target (rounded pixel) and the bilinear photometric footprint (floor
     pixel) lie in one 2x2 window, so one row gather serves both terms."""
     h, w = icp_weight.shape
-    base = pack_joint_nearest(vmap_g, nmap_g, icp_weight, last_depth,
-                              last_intensity).reshape(h, w, 9)
+    return joint_footprint(pack_joint_nearest(vmap_g, nmap_g, icp_weight, last_depth,
+                                              last_intensity).reshape(h, w, 9))
+
+
+def joint_footprint(base: torch.Tensor) -> torch.Tensor:
+    """(H,W,9) ``pack_joint_nearest`` rows of a whole image -> the (H*W,
+    36) ``pack_joint`` table."""
+    h, w = base.shape[:2]
     return torch.cat([_shift(base, dy, dx).reshape(h * w, 9)
                       for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1))], dim=-1)
 
@@ -235,8 +271,8 @@ def build_patch_table(base6: torch.Tensor, radius: int) -> torch.Tensor:
 
 def _warp_cp(R_curr, t_curr, R_prev_inv, t_prev, vcurr):
     """Current-frame points -> (world, previous camera frame)."""
-    vcurr_g = vcurr @ R_curr.T + t_curr
-    return vcurr_g, (vcurr_g - t_prev) @ R_prev_inv.T
+    vcurr_g = mat3_apply(vcurr, R_curr) + t_curr
+    return vcurr_g, mat3_apply(vcurr_g - t_prev, R_prev_inv)
 
 
 def patch_anchor(R_curr: torch.Tensor, t_curr: torch.Tensor,
@@ -270,7 +306,7 @@ def joint_step_patch(R_curr: torch.Tensor, t_curr: torch.Tensor,
     _, vcurr_cp = _warp_cp(R_curr, t_curr, R_prev_inv, t_prev, vcurr)
     # normals straight into the previous camera frame (|cross| is rotation
     # invariant, so the angle gate is unchanged)
-    ncurr_cp = ncurr @ (R_prev_inv @ R_curr).T
+    ncurr_cp = mat3_apply(ncurr, mat3_mul(R_prev_inv, R_curr))
     z, u0f, v0f = _project(vcurr_cp, intr)
     ui = torch.round(u0f).to(torch.int32)
     vi = torch.round(v0f).to(torch.int32)
@@ -285,7 +321,7 @@ def joint_step_patch(R_curr: torch.Tensor, t_curr: torch.Tensor,
     d_cp = torch.stack([(ui.to(torch.float32) - intr.cx) * d0 * (1.0 / intr.fx),
                         (vi.to(torch.float32) - intr.cy) * d0 * (1.0 / intr.fy), d0], dim=-1)
     in_img = (ui >= 0) & (vi >= 0) & (ui < w) & (vi < h) & (z > 0)
-    ok = in_img & inwin & valid_curr & (d0 > 0) & (torch.sum(n_cp * n_cp, dim=-1) > 1e-6)
+    ok = in_img & inwin & valid_curr & (d0 > 0) & (_dot(n_cp, n_cp) > 1e-6)
     dist = _norm(d_cp - vcurr_cp)
     sine = _norm(_cross(ncurr_cp, n_cp))
     found = ok & (sine <= cfg.angle_threshold) & (dist <= cfg.dist_threshold)
@@ -316,34 +352,91 @@ class SubPixels(NamedTuple):
 
 def _valid_curr(vmap_curr: torch.Tensor, ncurr: torch.Tensor) -> torch.Tensor:
     """The live frame's ICP gate: depth and a unit-ish normal."""
-    return (vmap_curr.reshape(-1, 3)[:, 2] > 0) & (torch.sum(ncurr * ncurr, dim=-1) > 0.25)
+    return (vmap_curr.reshape(-1, 3)[:, 2] > 0) & (_dot(ncurr, ncurr) > 0.25)
 
 
-def _sub_pixels_at(ids: torch.Tensor, vmap_curr, nmap_curr, next_depth, next_image,
-                   static_valid, d_idx, d_idy, intr: CameraIntrinsics) -> SubPixels:
-    """The SubPixels bundle at flat pixel ids, with one (M, 11) row gather."""
-    P = intr.height * intr.width
-    vcurr = camera.unproject(next_depth, intr).reshape(P, 3)
-    ncurr = nmap_curr.reshape(P, 3)
-    tbl = torch.cat([
-        vcurr, ncurr, _valid_curr(vmap_curr, ncurr)[:, None].to(torch.float32),
-        next_image.reshape(P, 1), static_valid.reshape(P, 1).to(torch.float32),
-        d_idx.reshape(P, 1), d_idy.reshape(P, 1)], dim=-1)
-    r = tbl[ids.long()]
-    return SubPixels(vcurr=r[:, 0:3], ncurr=r[:, 3:6], valid=r[:, 6] > 0.5, i_next=r[:, 7],
-                     static_valid=r[:, 8] > 0.5, gx=r[:, 9], gy=r[:, 10])
+def select_pixels(pix: SubPixels, ids: torch.Tensor) -> SubPixels:
+    """The SubPixels bundle at (local) flat ids of another one."""
+    ids = ids.long()
+    return SubPixels(*(f[ids] for f in pix))
+
+
+def subsample_ids(stride: int, row0: int, rows: int, w: int, device) -> torch.Tensor:
+    """Flat ids, within image rows [row0, row0 + rows), of the stride grid
+    on the image's own rows and columns (rows that are multiples of
+    ``stride``)."""
+    first = -(-row0 // stride) * stride
+    yy = torch.arange(first - row0, rows, stride, dtype=torch.int64, device=device)
+    xx = torch.arange(0, w, stride, dtype=torch.int64, device=device)
+    return (yy[:, None] * w + xx[None, :]).reshape(-1)
 
 
 def pack_sub_pixels(stride: int, vmap_curr, nmap_curr, next_depth, next_image,
                     static_valid, d_idx, d_idy, intr: CameraIntrinsics) -> SubPixels:
     """The SubPixels bundle at the stride-decimated pixel grid."""
-    h, w = intr.height, intr.width
-    dev = next_depth.device
-    yy = torch.arange(0, h, stride, dtype=torch.int64, device=dev)
-    xx = torch.arange(0, w, stride, dtype=torch.int64, device=dev)
-    ids = (yy[:, None] * w + xx[None, :]).reshape(-1)
-    return _sub_pixels_at(ids, vmap_curr, nmap_curr, next_depth, next_image,
-                          static_valid, d_idx, d_idy, intr)
+    P = intr.height * intr.width
+    full = SubPixels(*joint_cur_pack(vmap_curr, nmap_curr, next_depth, intr),
+                     i_next=next_image.reshape(P), static_valid=static_valid.reshape(P),
+                     gx=d_idx.reshape(P), gy=d_idy.reshape(P))
+    return select_pixels(full, subsample_ids(stride, 0, intr.height, intr.width,
+                                             next_depth.device))
+
+
+def saliency_sums(pix: SubPixels, k1=None, k2=None) -> list:
+    """The partial sums of ``saliency_ids``' two image-wide normalisers
+    over a set of pixels, in float64: [sum |grad I|^2 over the static-
+    valid pixels, their count] and, with the curvature maps, [sum clipped
+    |k1| + |k2| over the valid pixels, their count]."""
+    sv = pix.static_valid
+    g2 = torch.where(sv, pix.gx * pix.gx + pix.gy * pix.gy, 0.0)
+    out = [torch.sum(g2.double()), sv.sum(dtype=torch.float64)]
+    if k1 is not None:
+        c = _clipped_curv(pix.valid, k1, k2)
+        out += [torch.sum(c.double()), pix.valid.sum(dtype=torch.float64)]
+    return out
+
+
+def _clipped_curv(valid, k1, k2):
+    return torch.where(valid, torch.clamp(torch.abs(k1.reshape(-1)) + torch.abs(k2.reshape(-1)),
+                                          max=50.0), 0.0)
+
+
+def _mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """A float64 sum over a float64 count, rounded to float32 once."""
+    return (total / torch.clamp(count, min=1.0)).to(torch.float32)
+
+
+def saliency_select(k: int, sums: list, pix: SubPixels, row0: int, height: int, w: int,
+                    k1=None, k2=None) -> torch.Tensor:
+    """``saliency_ids``' row-stratified choice within a block of whole
+    image rows from image row ``row0`` (``pix`` its pixels in row-major
+    order), given the image-wide ``saliency_sums``.  Returns the block's
+    flat ids of the chosen pixels, ascending."""
+    sv, valid = pix.static_valid, pix.valid
+    n = sv.shape[0]
+    g2 = torch.where(sv, pix.gx * pix.gx + pix.gy * pix.gy, 0.0)
+    score = torch.clamp(g2 / torch.clamp(_mean(sums[0], sums[1]), min=1e-12), max=8.0)
+    if k1 is not None:
+        c = _clipped_curv(valid, k1, k2)
+        score = score + torch.clamp(c / torch.clamp(_mean(sums[2], sums[3]), min=1e-12),
+                                    max=8.0)
+    # uniform dither in [0, 1): a Weyl sequence on the image's pixel id,
+    # the uint32 product modulo 2^32 taken in int64
+    ids_all = row0 * w + torch.arange(n, dtype=torch.int64, device=sv.device)
+    dither = (((ids_all * 2654435761) & 0xFFFFFFFF) >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    score = torch.where(valid | sv, score + dither, -1.0)
+    rows = n // w
+    k_row = max(1, k // height)
+    # a stable descending sort puts equal scores in column order: the
+    # first k_row are lax.top_k's choice
+    ci = torch.sort(score.reshape(rows, w), dim=1, descending=True, stable=True).indices[:, :k_row]
+    ci = torch.sort(ci, dim=1).values
+    return (torch.arange(rows, dtype=torch.int64, device=sv.device)[:, None] * w + ci).reshape(-1)
+
+
+def saliency_count(k: int, height: int, w: int) -> int:
+    """Pixels ``saliency_ids`` chooses in an image of ``height`` x ``w``."""
+    return height * min(max(1, k // height), w)
 
 
 def saliency_ids(k: int, vmap_curr, nmap_curr, next_image, static_valid, d_idx, d_idy,
@@ -351,35 +444,18 @@ def saliency_ids(k: int, vmap_curr, nmap_curr, next_image, static_valid, d_idx, 
     """The k most informative tracked pixels: score = normalised |grad I|^2
     + normalised clipped (|k1| + |k2|) + a pixel-hash dither that fills the
     remaining slots uniformly over the valid set; invalid pixels score -1.
-    Row-stratified: the k // h best of every scanline (effective k is
-    (k // h) * h), ties to the lower column as ``jax.lax.top_k`` breaks
-    them.  Returns (k_eff,) int64 flat ids, ascending."""
+    The normalisers are image-wide means, each summed in float64 and
+    rounded once.  Row-stratified: the k // h best of every scanline
+    (effective k is (k // h) * h), ties to the lower column as
+    ``jax.lax.top_k`` breaks them.  Returns (k_eff,) int64 flat ids,
+    ascending."""
     h, w = intr.height, intr.width
     P = h * w
-    dev = next_image.device
-    valid = _valid_curr(vmap_curr, nmap_curr.reshape(P, 3))
-    sv = static_valid.reshape(P)
-    g2 = torch.where(sv, d_idx.reshape(P) ** 2 + d_idy.reshape(P) ** 2, 0.0)
-    g2n = g2 / torch.clamp(torch.sum(g2) / torch.clamp(sv.sum(dtype=torch.float32), min=1.0),
-                           min=1e-12)
-    score = torch.clamp(g2n, max=8.0)
-    if k1 is not None:
-        c = torch.where(valid, torch.clamp(torch.abs(k1.reshape(P)) + torch.abs(k2.reshape(P)),
-                                           max=50.0), 0.0)
-        cn = c / torch.clamp(torch.sum(c) / torch.clamp(valid.sum(dtype=torch.float32),
-                                                        min=1.0), min=1e-12)
-        score = score + torch.clamp(cn, max=8.0)
-    # uniform dither in [0, 1): a Weyl sequence on the pixel id, the uint32
-    # product modulo 2^32 taken in int64
-    ids_all = torch.arange(P, dtype=torch.int64, device=dev)
-    dither = (((ids_all * 2654435761) & 0xFFFFFFFF) >> 8).to(torch.float32) * (1.0 / (1 << 24))
-    score = torch.where(valid | sv, score + dither, -1.0)
-    k_row = max(1, k // h)
-    # a stable descending sort puts equal scores in column order: the
-    # first k_row are lax.top_k's choice
-    ci = torch.sort(score.reshape(h, w), dim=1, descending=True, stable=True).indices[:, :k_row]
-    ci = torch.sort(ci, dim=1).values
-    return (torch.arange(h, dtype=torch.int64, device=dev)[:, None] * w + ci).reshape(-1)
+    ncurr = nmap_curr.reshape(P, 3)
+    pix = SubPixels(vcurr=None, ncurr=ncurr, valid=_valid_curr(vmap_curr, ncurr),
+                    i_next=next_image.reshape(P), static_valid=static_valid.reshape(P),
+                    gx=d_idx.reshape(P), gy=d_idy.reshape(P))
+    return saliency_select(k, saliency_sums(pix, k1, k2), pix, 0, h, w, k1, k2)
 
 
 def joint_cur_pack(vmap_curr, nmap_curr, next_depth, intr: CameraIntrinsics, row0: int = 0):
@@ -425,10 +501,10 @@ def joint_step(R_curr: torch.Tensor, t_curr: torch.Tensor,
     else:
         vcurr, ncurr, valid_curr = (cur_pack if cur_pack is not None else
                                     joint_cur_pack(vmap_curr, nmap_curr, next_depth, intr))
-        i_next = next_image.reshape(h * w)
+        i_next = next_image.reshape(-1)
 
     vcurr_g, vcurr_cp = _warp_cp(R_curr, t_curr, R_prev_inv, t_prev, vcurr)
-    ncurr_g = ncurr @ R_curr.T
+    ncurr_g = mat3_apply(ncurr, R_curr)
     z, u0f, v0f = _project(vcurr_cp, intr)
     ui = torch.round(u0f).to(torch.int32)
     vi = torch.round(v0f).to(torch.int32)
@@ -456,12 +532,12 @@ def joint_step(R_curr: torch.Tensor, t_curr: torch.Tensor,
     vp, np_, wp, d0, i_last = assoc[:, 0:3], assoc[:, 3:6], assoc[:, 6], assoc[:, 7], assoc[:, 8]
 
     in_img = (ui >= 0) & (vi >= 0) & (ui < w) & (vi < h) & (z > 0)
-    ok = in_img & valid_curr & (vp[:, 2] != 0) & (torch.sum(np_ * np_, dim=-1) > 1e-6)
+    ok = in_img & valid_curr & (vp[:, 2] != 0) & (_dot(np_, np_) > 1e-6)
     dist = _norm(vp - vcurr_g)
     sine = _norm(_cross(ncurr_g, np_))
     found = ok & (sine <= cfg.angle_threshold) & (dist <= cfg.dist_threshold)
-    icp_res = _icp_rows(found, vcurr_cp, (vp - t_prev) @ R_prev_inv.T, np_ @ R_prev_inv.T,
-                        wp, cfg)
+    icp_res = _icp_rows(found, vcurr_cp, mat3_apply(vp - t_prev, R_prev_inv),
+                        mat3_apply(np_, R_prev_inv), wp, cfg)
 
     in_last = (u0f >= 0) & (v0f >= 0) & (u0f <= w - 1) & (v0f <= h - 1) & (z > 0)
     corres = _rgb_corres(u0f, v0f, d0, i_last, z, i_next, static_valid, in_last, cfg)
@@ -514,14 +590,17 @@ def icp_step(R_curr: torch.Tensor, t_curr: torch.Tensor,
     lowest-scoring valid tap wins (the first in window order on a tie);
     else the nearest projective tap.  With ``sparse_lambda`` (sparse ICP,
     reduce.cu:479-492) the target moves to d' = d + z - lambda/mu and the
-    result is (StepResult, SparseICPExtras)."""
-    h, w = vmap_curr.shape[:2]
-    n_pix = h * w
-    vcurr = vmap_curr.reshape(n_pix, 3)
-    ncurr = nmap_curr.reshape(n_pix, 3)
-    valid_curr = (vcurr[:, 2] > 0) & (torch.sum(ncurr * ncurr, dim=-1) > 0.25)
+    result is (StepResult, SparseICPExtras).  The live maps may be a block
+    of the image's rows (its pixels are then the ones tracked; ``intr`` is
+    the whole image's, as ``model_rows`` and the previous curvature maps
+    are)."""
+    h, w = intr.height, intr.width
+    vcurr = vmap_curr.reshape(-1, 3)
+    ncurr = nmap_curr.reshape(-1, 3)
+    n_pix = vcurr.shape[0]
+    valid_curr = (vcurr[:, 2] > 0) & (_dot(ncurr, ncurr) > 0.25)
     vcurr_g, s_cp = _warp_cp(R_curr, t_curr, R_prev_inv, t_prev, vcurr)
-    ncurr_g = ncurr @ R_curr.T
+    ncurr_g = mat3_apply(ncurr, R_curr)
     z, uf, vf = _project(s_cp, intr)
     u = torch.round(uf).to(torch.int32)
     v = torch.round(vf).to(torch.int32)
@@ -538,7 +617,7 @@ def icp_step(R_curr: torch.Tensor, t_curr: torch.Tensor,
     rows = model_rows[flat]                                       # (T, N, 8)
     vp, np_, wp = rows[..., 0:3], rows[..., 3:6], rows[..., 6]
     ok = (in_img & (vi >= 0) & (vi < h) & (ui >= 0) & (ui < w)
-          & (vp[..., 2] != 0) & (torch.sum(np_ * np_, dim=-1) > 1e-6))
+          & (vp[..., 2] != 0) & (_dot(np_, np_) > 1e-6))
     dist = _norm(vp - vcurr_g)
     sine = _norm(_cross(ncurr_g.expand_as(np_), np_))
     ok = ok & (sine <= cfg.angle_threshold) & (dist <= cfg.dist_threshold)
@@ -549,13 +628,13 @@ def icp_step(R_curr: torch.Tensor, t_curr: torch.Tensor,
         if k1_curr is not None and k1_prev is not None:
             k1c = k1_curr.reshape(n_pix)
             k2c = k2_curr.reshape(n_pix)
-            k1p = k1_prev.reshape(n_pix)[flat]
-            k2p = k2_prev.reshape(n_pix)[flat]
+            k1p = k1_prev.reshape(h * w)[flat]
+            k2p = k2_prev.reshape(h * w)[flat]
             ckmax = torch.clamp(torch.maximum(torch.abs(k1p), torch.abs(k2p)), min=1e-6)
-            d_n = 1.0 - torch.sum(np_ * ncurr_g, dim=-1)
+            d_n = 1.0 - _dot(np_, ncurr_g)
             d_c = 1.0 - (torch.exp(-torch.abs(k1p - k1c) / ckmax)
                          * torch.exp(-torch.abs(k2p - k2c) / ckmax))
-            p = (p + d_n + d_c) / 3.0
+            p = (p + d_n + d_c) * (1.0 / 3.0)
         # the reference's running best with a strict '<' from 1e8: the
         # first tap of least score among the valid ones
         cand = ok & (p < 1e8)
@@ -568,17 +647,18 @@ def icp_step(R_curr: torch.Tensor, t_curr: torch.Tensor,
         best_v, best_n, best_w, found = vp[0], np_[0], wp[0], ok[0]
     found = found & valid_curr
 
-    d_cp = (best_v - t_prev) @ R_prev_inv.T
-    n_cp = best_n @ R_prev_inv.T
+    d_cp = mat3_apply(best_v - t_prev, R_prev_inv)
+    n_cp = mat3_apply(best_n, R_prev_inv)
     if sparse_lambda is None:
         return _icp_rows(found, s_cp, d_cp, n_cp, best_w, cfg)
     # sparse ICP: shift the target by the shrinkage variable z and the
     # scaled dual, d' = d + z - lambda/mu
     mu = cfg.sparse_icp_mu
-    zs = lp_shrink(s_cp - d_cp + sparse_lambda / mu, mu, cfg.sparse_icp_p,
+    inv_mu = 1.0 / mu
+    zs = lp_shrink(s_cp - d_cp + sparse_lambda * inv_mu, mu, cfg.sparse_icp_p,
                    cfg.sparse_icp_shrink_iters)
     zs = torch.where(found[:, None], zs, 0.0)
-    res = _icp_rows(found, s_cp, d_cp + zs - sparse_lambda / mu, n_cp, best_w, cfg)
+    res = _icp_rows(found, s_cp, d_cp + zs - sparse_lambda * inv_mu, n_cp, best_w, cfg)
     return res, SparseICPExtras(found=found, d_cp=d_cp, z=zs)
 
 
@@ -589,18 +669,21 @@ def icp_step(R_curr: torch.Tensor, t_curr: torch.Tensor,
 def rgb_residual(krkinv: torch.Tensor, kt: torch.Tensor,
                  next_depth: torch.Tensor, next_image: torch.Tensor,
                  last_rows: torch.Tensor, static_valid: torch.Tensor,
-                 cfg: SLAMConfig) -> RGBCorres:
+                 cfg: SLAMConfig, row0: int = 0, height: int | None = None) -> RGBCorres:
     """Photometric correspondences and residual statistics
     (reduce.cu:942-1154): NEXT pixels warped into the LAST image through
     (K R K^-1, K t); the last [depth | intensity] comes from one row gather
     of the ``pack_last`` table: at the rounded pixel with
     ``cfg.tracking_rgb_nearest`` (the reference), else over the 2x2
-    footprint (intensity bilinear, depth of the nearest corner)."""
-    h, w = next_image.shape
-    n_pix = h * w
+    footprint (intensity bilinear, depth of the nearest corner).  The
+    next maps may be a block of image rows from ``row0`` on (``height``
+    the image's; the last table is always the whole image's)."""
+    rows, w = next_image.shape
+    h = rows if height is None else height
+    n_pix = rows * w
     pix = torch.arange(n_pix, device=next_image.device)
     xf = (pix % w).to(torch.float32)
-    yf = (pix // w).to(torch.float32)
+    yf = (pix // w + row0).to(torch.float32)
     d1 = next_depth.reshape(n_pix)
     td1 = d1 * (krkinv[2, 0] * xf + krkinv[2, 1] * yf + krkinv[2, 2]) + kt[2]
     safe_td1 = torch.where(torch.abs(td1) > 1e-12, td1, 1e-12)
@@ -636,8 +719,8 @@ def rgb_step(corres: RGBCorres, sigma_val: torch.Tensor, d_idx: torch.Tensor,
     wgt = torch.where(wgt > 1.19209290e-07, 1.0 / wgt, 1.0)
     wgt = torch.where(sigma_val == -1.0, 1.0, wgt)
     d0 = corres.d0
-    cx = (torch.round(corres.u0f) - intr.cx) * d0 / intr.fx
-    cy = (torch.round(corres.v0f) - intr.cy) * d0 / intr.fy
+    cx = (torch.round(corres.u0f) - intr.cx) * d0 * (1.0 / intr.fx)
+    cy = (torch.round(corres.v0f) - intr.cy) * d0 * (1.0 / intr.fy)
     cz = d0
     invz = 1.0 / torch.clamp(cz, min=1e-12)
     dix = wgt * cfg.sobel_scale * d_idx.reshape(-1)
@@ -702,7 +785,7 @@ def so3_step(last_image: torch.Tensor, next_image: torch.Tensor,
     lp2 = ((pz * (f_ * gy + c_ * gx)) - (gy * i_ * yf) - (gx * i_ * xf)) / z2
     lp = torch.stack([lp0, lp1, lp2], dim=-1)
     pt = torch.stack([px, py, pz], dim=-1)
-    jac = torch.linalg.cross(lp, pt, dim=-1)
+    jac = _cross(lp, pt)
     res = -(i_next - last_image.reshape(n_pix))
     rows = torch.where(valid[:, None], torch.cat([jac, res[:, None]], dim=-1), 0.0)
     S = _sums(rows)

@@ -94,10 +94,12 @@ def resize_maps_fused(vmaps: list[torch.Tensor], nmaps: list[torch.Tensor],
 def sobel_derivatives(img: torch.Tensor):
     """3x3 Sobel as in computeDerivativeImages (cudafuncs.cu:956-993),
     including its negated x kernel [[1,0,-1],[2,0,-2],[1,0,-1]]."""
-    p = extract_patches(img, 1)
-    kx = const([1.0, 0.0, -1.0, 2.0, 0.0, -2.0, 1.0, 0.0, -1.0], img.device, img.dtype)
-    ky = const([1.0, 2.0, 1.0, 0.0, 0.0, 0.0, -1.0, -2.0, -1.0], img.device, img.dtype)
-    return torch.sum(p * kx, dim=-1), torch.sum(p * ky, dim=-1)
+    p = extract_patches(img, 1)    # tap (dy + 1) * 3 + (dx + 1)
+    # the taps' weighted sums written out in a fixed order (one op per
+    # IEEE operation), so that the card and the CPU round them alike
+    gx = ((p[..., 0] - p[..., 2]) + (p[..., 3] - p[..., 5]) * 2.0) + (p[..., 6] - p[..., 8])
+    gy = ((p[..., 0] + p[..., 1] * 2.0) + p[..., 2]) - ((p[..., 6] + p[..., 7] * 2.0) + p[..., 8])
+    return gx, gy
 
 
 def rgb_to_intensity(rgb: torch.Tensor) -> torch.Tensor:

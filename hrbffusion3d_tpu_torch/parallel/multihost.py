@@ -1,9 +1,11 @@
-"""Multi-process setup for the landmark-sharded bundle adjustment (port of
-``hrbffusion3d_tpu/parallel/multihost.py``).
+"""Multi-process setup for the landmark-sharded bundle adjustment and the
+row-sharded dense step (port of ``hrbffusion3d_tpu/parallel/multihost.py``).
 
 Each process runs the same engine; ``torch.distributed`` joins them, and a
 mesh over all of them (``global_mesh``) gives each process its own shards,
-whose partial camera systems ``Mesh.psum`` all-reduces over the group:
+whose collectives (``Mesh.psum`` of the partial camera systems and Gram
+matrices, the halo and owner exchanges of the dense step) run over the
+group:
 
   initialize()            -- ``torch.distributed.init_process_group`` with
                              the JAX module's environment fallbacks and an
@@ -30,10 +32,12 @@ their own plans (the JAX function still builds the problem's fields from
 before the plans were added).
 
 The two-level layout names the axes as JAX does (``host`` = the process
-count, ``chip`` = the shards of each process); the row-sharded dense state
-splits over an axis named ``"map"`` (``sharding.shard_state`` refuses a
-two-level mesh, as JAX's ``P("map")`` does), and the sharded dense step
-runs on a mesh of one process.
+count, ``chip`` = the shards of each process).  The row-sharded dense
+state (``sharding.shard_state``, ``parallel/sharded_step``) splits over
+the flat mesh's ``"map"`` axis or over both axes of the two-level one, in
+the global shard order; over a group each process holds only its own
+shards, and the step exchanges halos, owner-merged rows and moved rows
+through the group.
 """
 
 from __future__ import annotations
@@ -108,10 +112,11 @@ def host_local_batch(mesh: Mesh, local_depth, local_rgb, axis: str = "map") -> F
     for x in (local_depth, local_rgb):
         x = torch.as_tensor(x)
         n = x.shape[0]
-        lo = mesh.rank * n
-        bounds = [(lo + a, lo + b) for a, b in row_bounds(n, len(mesh.devices))]
+        every = [(r * n + a, r * n + b) for r in range(mesh.n_ranks)
+                 for a, b in row_bounds(n, len(mesh.devices))]
+        bounds, lo = mesh.local(every), mesh.rank * n
         parts = [x[a - lo:b - lo].to(dev, copy=True) for (a, b), dev in zip(bounds, mesh.devices)]
-        out.append(ShardedRows(parts, bounds, n * mesh.n_ranks, mesh))
+        out.append(ShardedRows(parts, bounds, n * mesh.n_ranks, mesh, all_bounds=every))
     return FrameInput(*out)
 
 

@@ -4,55 +4,63 @@ what ``jax.jit(slam.step, in_shardings=state_sharding(mesh), ...)`` does
 in ``tests/test_aa_sharded_step.py``, where GSPMD places the
 collectives; here the decomposition is written out).
 
-Each shard's part runs in turn, on its own device, and shards exchange
-data only through the mesh's collectives (``psum``, ``pmin``,
-``all_gather``, ``exclusive_scan``) and through merges by owner (a row
-read by global id takes the value of the one shard that owns it):
+Each shard's part runs in turn, on its own device; the mesh may span a
+process group (``multihost.global_mesh``), each process running its own
+shards.  Shards exchange data only through the mesh: its collectives
+(``psum``, ``pmin``, ``all_gather``, ``exclusive_scan``), its halo
+exchange (``Mesh.slabs``: within a process a direct read of the
+neighbouring shards' rows, across processes the edge rows others need),
+its merge by owner (``Mesh.gather_rows``: a row read by global id takes
+the value of the one shard that owns it) and its row move
+(``Mesh.move_rows``: a row sent to a new global position reaches only the
+shard, and the process, that owns it), so nothing here branches on
+whether a group exists:
   - preprocess: each image-row shard filters its rows plus a halo of
     ``preprocess_halo(cfg)`` rows (bilateral 6 + PCA 3 + curvature
-    ``curv_window``; every row of the halo within the image, taken from
-    as many neighbours as it spans), then keeps its own rows; pixel
-    coordinates are the image's (``row0``);
-  - tracking (the default joint nearest-pixel path: ``row_sharded_tracking``):
-    each shard builds its rows of every pyramid level (a 2-row halo at
-    each level for the 5x5 filters; rows split in units of
-    2^(levels-1)); the model's packed rows are all-gathered per level
-    (they are read at projected pixels anywhere); every Gauss-Newton
-    iteration sums each shard's Gram of its own pixels with ``psum``
-    (first the photometric count, which sets the robust weight, then the
-    systems), and the 6x6 solve, the SO(3) pre-alignment's 3x3 solve and
-    the early-exit flag run once, on the first device, from the reduced
-    system; every other tracking setting all-gathers its inputs and runs
-    ``odometry.track`` whole on the first device (the same kernels and
-    functions, so JAX's result);
+    ``curv_window``; every row of the halo within the image), then keeps
+    its own rows; pixel coordinates are the image's (``row0``);
+  - tracking (``odometry.track_levels``, every tracking setting): each
+    shard builds its rows of every pyramid level (a 2-row halo at each
+    level for the 5x5 filters; rows split in units of 2^(levels-1)),
+    evaluates its own pixels against the model tables all-gathered per
+    level, and every Gauss-Newton system is summed with ``psum``; the
+    solves run once, on the first device;
   - ``render_index``: each map shard scatter-mins its own rows by global
     id into a whole-image buffer, and ``pmin`` merges each pass (key; or
     z, then id);
   - ``fuse``: each image shard associates its checkerboard pixels (the
-    candidate rows gathered by owner); the winner scatter-min and the
-    merge run on the map shard that owns the target row; new surfels
+    candidate rows gathered by owner); each pixel's winner over the map
+    rows is a scatter-min merged by ``pmin``, each winning measurement
+    moves to the map shard that owns its row, which merges it; new surfels
     take ``count + rank`` with the rank of the pixel-order cumsum over the
-    frame (``exclusive_scan`` of the per-shard counts), each map shard
-    writing those that land in its rows;
+    frame (``exclusive_scan`` of the per-shard counts) and move to the map
+    shard that owns that row;
   - clean: the keep mask per map row (the crowd rules read the
-    all-gathered attr patches); a compaction moves every row to the map
-    shard that owns its new position (``exclusive_scan`` of the kept and
-    killed counts), in ``compact``'s order; the remap is a merged gather;
+    all-gathered attr patches); a compaction moves every row to its new
+    position (``exclusive_scan`` of the kept and killed counts), in
+    ``compact``'s order; the remap is a merged gather;
   - prediction: the ray cast (and its epilogue, ``fill_in``, splat
     prediction) per image shard on its rows plus a halo of
     ``predict_window_multiplier`` rows, launched with the slab's first
     image row, so the ray arithmetic is the whole image's.
-Everything but the Gram sums is exact (minima, owner merges, integer
-scans, per-pixel kernels on slabs with image rows), so a replay
+Everything but the Gram sums is exact (minima, owner selects, integer
+scans, per-pixel arithmetic on slabs with image rows), so a replay
 (``fixed_pose``) equals the unsharded step bit for bit; the Gram sums are
 float64, rounded to float32 once (``ops/icp._sums``), so a tracked step
 does too, but for a float64 sum within its own error of a float32
-rounding boundary.  A step reads nothing back to the host.  The mesh must be of one process (a mesh over a
-process group raises).
+rounding boundary.  Within a process a step reads nothing back to the
+host; across processes the collectives stage through host memory with
+``gloo``.
 
-The keyframe-boundary ops (``exchange_active``, ``grow``) gather the map,
-run whole, and split it again; ``refresh_active_channel`` and
-``apply_submap_deltas`` run per shard.
+``bootstrap`` runs the step's per-shard pieces on an empty map; ``grow``
+moves rows to their new owners as the compaction does; ``exchange_active``
+decides the rows that leave and enter per shard, places them with
+``exclusive_scan`` and all-gathers only the rows that leave for the
+archive (the archive is whole on every process, its rows past its count
+pristine: the unsharded exchange copies dead active rows there, which
+would take every active row onto every process);
+``refresh_active_channel`` and ``apply_submap_deltas`` run per shard.
+No path but ``whole_map`` gathers the whole map onto one process.
 """
 
 from __future__ import annotations
@@ -68,8 +76,8 @@ from ..ops.patches import extract_patches
 from ..pipeline import slam
 from ..tracking import odometry
 from ..utils.tensors import const
-from .sharding import (Mesh, ShardedRows, gather, gather_frame, is_sharded, row_unit,
-                       shard_state)
+from .mesh import Mesh, On
+from .sharding import ShardedRows, gather, is_sharded, row_bounds, row_unit
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
@@ -85,56 +93,9 @@ def preprocess_halo(cfg: SLAMConfig) -> int:
             + cfg.curv_window)
 
 
-def _mesh(state: slam.SLAMState) -> Mesh:
-    mesh = state.map.data.mesh
-    if mesh.group is not None:
-        raise NotImplementedError("the sharded dense step runs on a mesh of one process; "
-                                  "this mesh spans a process group")
-    return mesh
-
-
-class _On:
-    """A replicated value's copy on each device (made once)."""
-
-    def __init__(self, x):
-        self.x = x
-        self.copies = {x.device: x}
-
-    def __call__(self, dev):
-        if dev not in self.copies:
-            self.copies[dev] = self.x.to(dev)
-        return self.copies[dev]
-
-
-def _slab(x: ShardedRows, dev, lo: int, hi: int):
-    """(rows [lo, hi) of the image ``x`` clipped to it, on ``dev``; the
-    first row's image row), taken from every shard they span."""
-    lo, hi = max(lo, 0), min(hi, x.total)
-    pieces = [p[max(lo, a) - a:min(hi, b) - a].to(dev)
-              for p, (a, b) in zip(x.parts, x.bounds) if a < hi and b > lo]
-    return (pieces[0] if len(pieces) == 1 else torch.cat(pieces)), lo
-
-
 def _rows(t, i0: int, i1: int):
     """Rows [i0, i1) of every field of a NamedTuple of images."""
     return type(t)(*(x[i0:i1] for x in t))
-
-
-def _gather_rows(table: ShardedRows, ids: torch.Tensor) -> torch.Tensor:
-    """``whole_table[clamp(ids, 0, N - 1)]`` on ``ids``' device, each row
-    taken from the shard that owns it (an id owned by none takes the first
-    shard's row 0, as the clamp does)."""
-    dev = ids.device
-    out = None
-    for part, (lo, hi) in zip(table.parts, table.bounds):
-        local = ids.to(part.device)
-        got = part[torch.clamp(local - lo, 0, hi - lo - 1).long()].to(dev)
-        if out is None:
-            out = got
-        else:
-            own = ((ids >= lo) & (ids < hi)).reshape(ids.shape + (1,) * (got.dim() - ids.dim()))
-            out = torch.where(own, got, out)
-    return out
 
 
 def _check_bounds(bounds, intr: CameraIntrinsics, cfg: SLAMConfig) -> None:
@@ -151,25 +112,131 @@ def split_like(x: torch.Tensor, like: ShardedRows) -> ShardedRows:
                       for p, (a, b) in zip(like.parts, like.bounds)])
 
 
+def _ids(bounds, devices):
+    """Each local shard's global row ids (int32) on its device."""
+    return [torch.arange(lo, hi, dtype=torch.int32, device=d) for (lo, hi), d in
+            zip(bounds, devices)]
+
+
+def _order(mesh: Mesh, keep: list):
+    """``compact``'s order across shards: (per local shard its rows' new
+    positions, kept rows first then the killed ones, each in the old
+    order; per local shard its kept rows' ranks; the kept count)."""
+    kept = [k.sum(dtype=torch.int32) for k in keep]
+    off_keep, n_keep = mesh.exclusive_scan(kept)
+    off_kill, _ = mesh.exclusive_scan([k.shape[0] - c for k, c in zip(keep, kept)])
+    pos, rank = [], []
+    for k, ok, ol, nk in zip(keep, off_keep, off_kill, n_keep):
+        r_keep = ok + torch.cumsum(k.to(torch.int32), dim=0, dtype=torch.int32) - 1
+        r_kill = ol + torch.cumsum((~k).to(torch.int32), dim=0, dtype=torch.int32) - 1
+        rank.append(r_keep)
+        pos.append(torch.where(k, r_keep, nk + r_kill))
+    return pos, rank, n_keep[0]
+
+
+def _append(parts: list, data: ShardedRows, count: torch.Tensor, rows: ShardedRows,
+            new_mask: list, S: int):
+    """``surfel_map._append`` over shards: the rows of ``rows`` (split as
+    the image shards' pixels) where ``new_mask`` holds, in global order,
+    written as a block of S rows at clamp(count, 0, capacity - S) over the
+    map rows ``parts`` (split as ``data``), its unused tail emptied.
+    Returns (map rows, count, per image shard: whether each pixel was
+    appended, its new row id).  Each appended row moves to the map shard
+    that owns its new id."""
+    mesh = data.mesh
+    n_cap = data.total
+    start = On(torch.clamp(count, 0, n_cap - S))
+    offs, total = mesh.exclusive_scan([m.sum(dtype=torch.int32) for m in new_mask])
+    n_new = On(torch.clamp(total[0], max=S))
+    appended, new_id, pos = [], [], []
+    for m, off in zip(new_mask, offs):
+        rank = off + torch.cumsum(m.to(torch.int32), dim=0, dtype=torch.int32) - 1
+        app = m & (rank < S)
+        appended.append(app)
+        new_id.append(start(m.device) + rank)
+        pos.append(torch.where(app, new_id[-1], -1))
+    out = []
+    for (lo, hi), g in zip(data.bounds, rows.move_rows(pos, data.like(parts)).parts):
+        dev = g.device
+        slot = torch.arange(lo, hi, dtype=torch.int32, device=dev) - start(dev)
+        stale = (slot >= n_new(dev)) & (slot < S)
+        out.append(torch.where(stale[:, None], sm._empty_rows(1, dev), g))
+    count = torch.clamp(start.x + n_new.x, max=n_cap).to(torch.int32)
+    return out, count, appended, new_id
+
+
+def _map_layout(mesh: Mesh, capacity: int):
+    """(every shard's map rows, this process's) for ``capacity`` rows."""
+    every = row_bounds(capacity, mesh.size)
+    return every, mesh.local(every)
+
+
 # --------------------------------------------------------------------------- #
 # bootstrap, step
 # --------------------------------------------------------------------------- #
 
 def bootstrap(frame: slam.FrameInput, intr: CameraIntrinsics, cfg: SLAMConfig,
               init_pose=None) -> slam.SLAMState:
-    """The unsharded bootstrap of a sharded frame, gathered onto its mesh's
-    first device, then the state split over the mesh."""
-    state = slam._bootstrap(gather_frame(frame), intr, cfg, init_pose)
-    return shard_state(state, frame.depth.mesh, cfg)
+    """``slam.bootstrap`` of a sharded frame: the step's per-shard pieces
+    on an empty map (preprocess, the frame's valid pixels appended in
+    pixel order, the index render, the prediction)."""
+    img = frame.depth
+    mesh = img.mesh
+    _check_bounds(img.all_bounds, intr, cfg)
+    home = mesh.home
+    pose = (torch.eye(4, dtype=torch.float32, device=home) if init_pose is None
+            else const(init_pose, home))
+    pose_on, pose_inv_on = On(pose), On(lie.se3_inverse(pose))
+    pres = _preprocess(frame, intr, cfg)
+    meas, packed, ok = [], [], []
+    for (a, _), (_, pre, curv, _), rgb in zip(img.bounds, pres, frame.rgb.parts):
+        conf = preprocess.confidence_map(pre, curv, intr, cfg, weighting=1.0, row0=a)
+        m = sm.measurement_from_preprocess(pre, curv, rgb, conf)
+        meas.append(m)
+        packed.append(sm._pack_frame(m, pose_on(rgb.device), 0, 1))
+        ok.append(sm._measurement_valid(m, cfg).reshape(-1))
+    every, mine = _map_layout(mesh, cfg.map_capacity)
+    empty = [sm._empty_rows(hi - lo, d) for (lo, hi), d in zip(mine, mesh.devices)]
+    data = ShardedRows(empty, mine, cfg.map_capacity, mesh, all_bounds=every)
+    w = intr.width
+    pix = ShardedRows(packed, [(a * w, b * w) for a, b in img.bounds], intr.height * w, mesh,
+                      all_bounds=[(a * w, b * w) for a, b in img.all_bounds])
+    S = min(intr.height * w, cfg.map_capacity)
+    zero = torch.zeros((), dtype=torch.int32, device=home)
+    parts, count, _, _ = _append(empty, data, zero, pix, ok, S)
+    data = data.like(parts)
+    idx = render_index(data, pose_inv_on, intr)
+    attr_ext = _attr_slabs(data, img.like([i[a:b] for i, (a, b) in zip(idx, img.bounds)]),
+                           pose_inv_on, cfg)
+    filled = []
+    for (a, b), (ae, _, s0), (_, pre, curv, _), m, rgb in zip(img.bounds, attr_ext, pres, meas,
+                                                              frame.rgb.parts):
+        pred = _predict_hrbf_slab(ae, s0, a, b, pose_inv_on(rgb.device), intr, cfg)
+        filled.append(raycast.fill_in(pred, pre.vertex_filtered, pre.normal, pre.radius, rgb,
+                                      m.conf, curv.k1, curv.k2, cfg))
+    zero_f = torch.zeros((), dtype=torch.float32, device=home)
+    return _state(data, count, pose[:3, :3], pose[:3, 3], 1, 0, pres, filled,
+                  torch.ones((cfg.max_submaps,), dtype=torch.bool, device=home), zero_f, zero_f,
+                  img, intr, mesh)
+
+
+def _attr_slabs(data: ShardedRows, idx: ShardedRows, pose_inv: On, cfg: SLAMConfig) -> list:
+    """Per image shard: (the extended attr image of its rows and the halo
+    the ray cast reads, that slab's index map, its first row)."""
+    halo = max(cfg.predict_window_multiplier, 1)
+    slabs = idx.slabs(halo, halo)
+    rows = data.gather_rows([ids.reshape(-1) for ids, _ in slabs])
+    return [(sm.attr_from_rows(r, ids.reshape(-1) >= 0, pose_inv(ids.device), ids.shape,
+                               extended=True), ids, s0) for r, (ids, s0) in zip(rows, slabs)]
 
 
 def step(state: slam.SLAMState, frame: slam.FrameInput, intr: CameraIntrinsics,
          cfg: SLAMConfig, fixed_pose: torch.Tensor | None = None) -> slam.SLAMState:
     """``slam.step`` on a sharded state (branch for branch); ``frame``
     sharded as the state's images, or whole (it is then split)."""
-    mesh = _mesh(state)
+    mesh = state.map.data.mesh
     img = state.pred_vertex
-    _check_bounds(img.bounds, intr, cfg)
+    _check_bounds(img.all_bounds, intr, cfg)
     if is_sharded(frame):
         if frame.depth.bounds != img.bounds:
             raise ValueError(f"the frame's rows {frame.depth.bounds} are not split as the "
@@ -193,8 +260,8 @@ def step(state: slam.SLAMState, frame: slam.FrameInput, intr: CameraIntrinsics,
 
     dt = torch.linalg.vector_norm(new_t - state.t)
     w_rot = torch.linalg.vector_norm(lie.so3_log(state.R.T @ new_R))
-    weighting = _On(torch.clamp(1.0 - (dt * 5.0 + w_rot * 2.0), 0.25, 1.0))
-    pose_on, pose_inv_on = _On(pose), _On(pose_inv)
+    weighting = On(torch.clamp(1.0 - (dt * 5.0 + w_rot * 2.0), 0.25, 1.0))
+    pose_on, pose_inv_on = On(pose), On(pose_inv)
     meas = []
     for k, ((a, _), (_, pre, curv, _)) in enumerate(zip(img.bounds, pres)):
         dev = img.parts[k].device
@@ -207,18 +274,11 @@ def step(state: slam.SLAMState, frame: slam.FrameInput, intr: CameraIntrinsics,
     idx = render_index(data, pose_inv_on, intr,
                        active=[(p[:, sm.VALID] > 0.5) & (p[:, sm.ACT] > 0.5) for p in data.parts])
     data, count, idx2 = fuse(data, count, meas, pose_on, idx, img, intr, cfg, time,
-                             state.submap_idx, _On(act_cur))
+                             state.submap_idx, On(act_cur))
 
     # one extended attr render after fuse (each image shard's rows and the
     # halo the ray cast reads), shared by clean and prediction
-    halo = max(cfg.predict_window_multiplier, 1)
-    attr_ext = []
-    for k, (a, b) in enumerate(img.bounds):
-        ids, s0 = _slab(idx2, img.parts[k].device, a - halo, b + halo)
-        rows = _gather_rows(data, ids.reshape(-1))
-        attr_ext.append((sm.attr_from_rows(rows, ids.reshape(-1) >= 0,
-                                           pose_inv_on(ids.device), ids.shape, extended=True),
-                         ids, s0))
+    attr_ext = _attr_slabs(data, idx2, pose_inv_on, cfg)
     data, count, remap = clean_with_remap(data, count, pose_on, attr_ext, img, intr, cfg, time)
 
     cp = max(cfg.clean_compact_period, 1)
@@ -226,21 +286,24 @@ def step(state: slam.SLAMState, frame: slam.FrameInput, intr: CameraIntrinsics,
     pixel_remap = (cfg.clean_pixel_remap and cp > 1 and cw > 1 and time % cp != 0
                    and time % cw != 0)
     splat = cfg.raycast_period > 1 and time % cfg.raycast_period != 0
+    if pixel_remap:
+        idx3 = [torch.where((ids >= 0) & sm.pixel_keep_mask(ae, cfg, time), ids, -1)
+                for ae, ids, _ in attr_ext]
+    else:
+        idx3 = [torch.where(ids >= 0, r, -1) for (_, ids, _), r in
+                zip(attr_ext, remap.gather_rows([ids for _, ids, _ in attr_ext]))]
+    own = [x[a - s0:b - s0] for x, (a, b), (_, _, s0) in zip(idx3, img.bounds, attr_ext)]
+    if splat:
+        own_rows = data.gather_rows([x.reshape(-1) for x in own])
     filled_parts = []
     for k, ((a, b), (ae, ids, s0)) in enumerate(zip(img.bounds, attr_ext)):
         dev = ids.device
-        if pixel_remap:
-            keep_pix = sm.pixel_keep_mask(ae, cfg, time)
-            idx3 = torch.where((ids >= 0) & keep_pix, ids, -1)
-        else:
-            idx3 = torch.where(ids >= 0, _gather_rows(remap, ids), -1)
-        own = slice(a - s0, b - s0)
         if splat:
-            own_ids = idx3[own].reshape(-1)
-            pred = raycast.splat_from_rows(_gather_rows(data, own_ids), own_ids >= 0,
-                                           pose_inv_on(dev), cfg, (b - a, intr.width))
+            own_ids = own[k].reshape(-1)
+            pred = raycast.splat_from_rows(own_rows[k], own_ids >= 0, pose_inv_on(dev), cfg,
+                                           (b - a, intr.width))
         else:
-            pred_attr = torch.where((idx3 >= 0)[..., None], ae, 0.0)
+            pred_attr = torch.where((idx3[k] >= 0)[..., None], ae, 0.0)
             pred = _predict_hrbf_slab(pred_attr, s0, a, b, pose_inv_on(dev), intr, cfg)
         _, pre, curv, _ = pres[k]
         filled_parts.append(raycast.fill_in(pred, pre.vertex_filtered, pre.normal, pre.radius,
@@ -272,9 +335,8 @@ def _preprocess(frame: slam.FrameInput, intr: CameraIntrinsics, cfg: SLAMConfig)
     chain's halo."""
     halo = preprocess_halo(cfg)
     out = []
-    for k, (a, b) in enumerate(frame.depth.bounds):
-        dev = frame.depth.parts[k].device
-        depth, s0 = _slab(frame.depth, dev, a - halo, b + halo)
+    for (a, b), (depth, s0), rgb in zip(frame.depth.bounds, frame.depth.slabs(halo, halo),
+                                        frame.rgb.parts):
         depth_f = (preprocess.bilateral_filter(depth, cfg, pallas_form=cfg.use_pallas)
                    if cfg.use_bilateral_filter else depth)
         pre = preprocess.vertex_normal_radius(depth, depth_f, intr, cfg, row0=s0)
@@ -282,7 +344,7 @@ def _preprocess(frame: slam.FrameInput, intr: CameraIntrinsics, cfg: SLAMConfig)
         pre = preprocess.update_normal_rad(pre, curv, cfg)
         i0, i1 = a - s0, b - s0
         out.append((depth_f[i0:i1], _rows(pre, i0, i1), _rows(curv, i0, i1),
-                    pyramid.rgb_to_intensity(frame.rgb.parts[k])))
+                    pyramid.rgb_to_intensity(rgb)))
     return out
 
 
@@ -308,17 +370,15 @@ def _predict_hrbf_slab(attr_ext: torch.Tensor, s0: int, a: int, b: int,
 # the map
 # --------------------------------------------------------------------------- #
 
-def render_index(data: ShardedRows, pose_inv: _On, intr: CameraIntrinsics,
+def render_index(data: ShardedRows, pose_inv: On, intr: CameraIntrinsics,
                  active=None, conf_threshold: float | None = None) -> list:
     """``surfel_map.render_index`` of a sharded map: the whole (H, W)
     index map on each local shard's device (one tensor per device)."""
     mesh = data.mesh
-    tg, ids = [], []
-    for k, (part, (lo, hi)) in enumerate(zip(data.parts, data.bounds)):
-        dev = part.device
-        tg.append(sm.render_targets(part, pose_inv(dev), intr,
-                                    None if active is None else active[k], conf_threshold))
-        ids.append(torch.arange(lo, hi, dtype=torch.int32, device=dev))
+    tg = [sm.render_targets(part, pose_inv(part.device), intr,
+                            None if active is None else active[k], conf_threshold)
+          for k, part in enumerate(data.parts)]
+    ids = _ids(data.bounds, mesh.devices)
     if data.total <= sm.KEY_ROWS:
         bufs = mesh.pmin([[sm.render_keys(*t, i, intr)] for t, i in zip(tg, ids)])
         keyed = True
@@ -334,9 +394,9 @@ def render_index(data: ShardedRows, pose_inv: _On, intr: CameraIntrinsics,
     return [decoded[b[0].device] for b in bufs]
 
 
-def fuse(data: ShardedRows, count: torch.Tensor, meas: list, pose: _On, idx: list,
+def fuse(data: ShardedRows, count: torch.Tensor, meas: list, pose: On, idx: list,
          img: ShardedRows, intr: CameraIntrinsics, cfg: SLAMConfig, time: int,
-         submap_idx: int, act: _On):
+         submap_idx: int, act: On):
     """``surfel_map.fuse`` over a sharded map: ``meas`` each image shard's
     ``FrameMeasurement`` of its rows, ``idx`` the whole index map on each
     shard's device.  Returns (map rows, count, updated index map split as
@@ -344,21 +404,27 @@ def fuse(data: ShardedRows, count: torch.Tensor, meas: list, pose: _On, idx: lis
     mesh = data.mesh
     h, w = intr.height, intr.width
     hq, wq = h // 2, w // 2
-    P = hq * wq
     n_cap = data.total
     par = int(time) % 2
-    pose_inv = _On(lie.se3_inverse(pose.x))
+    pose_inv = On(lie.se3_inverse(pose.x))
 
-    px = []   # per image shard: its checkerboard pixels' association
+    def quarter_rows(a, b):
+        """(first, end) checkerboard row of image rows [a, b)."""
+        return max((a - par + 1) // 2, 0), min(hq, (b - par + 1) // 2)
+
+    # per image shard: its checkerboard pixels and their candidates' rows
+    win = []
     for k, (a, b) in enumerate(img.bounds):
-        dev = img.parts[k].device
-        yq0 = max((a - par + 1) // 2, 0)
-        yq1 = min(hq, (b - par + 1) // 2)
+        yq0, yq1 = quarter_rows(a, b)
         nq = max(yq1 - yq0, 0)
         y_first = 2 * yq0 + par
         ys0, ys1 = max(y_first - 1, 0), min(y_first + 2 * nq, h)
-        ids = idx[k][ys0:ys1]
-        rows = _gather_rows(data, ids.reshape(-1))
+        win.append((yq0, nq, y_first, idx[k][ys0:ys1], ys0))
+    cand_rows = data.gather_rows([ids.reshape(-1) for *_, ids, _ in win])
+    px = []
+    for k, ((a, b), (yq0, nq, y_first, ids, ys0), rows) in enumerate(zip(img.bounds, win,
+                                                                        cand_rows)):
+        dev = img.parts[k].device
         attr = sm.attr_from_rows(rows, ids.reshape(-1) >= 0, pose_inv(dev), ids.shape)
         r0 = y_first - ys0
 
@@ -375,60 +441,34 @@ def fuse(data: ShardedRows, count: torch.Tensor, meas: list, pose: _On, idx: lis
         ok_pix, best_id, new_rows = sm.fuse_pixels(meas_q, patch, cand, 2.0 * xxq + par,
                                                    2.0 * yyq + par, pose(dev), intr, cfg,
                                                    time, submap_idx, act(dev))
-        px.append(dict(dev=dev, p0=yq0 * wq, n=n_pix, nq=nq, m0=m0, ok=ok_pix, best=best_id,
+        px.append(dict(p0=yq0 * wq, n=n_pix, nq=nq, m0=m0, ok=ok_pix, best=best_id,
                        new_rows=new_rows, patch=patch, cand=cand, meas_q=meas_q))
+    qb = [quarter_rows(a, b) for a, b in img.all_bounds]
+    new_rows = ShardedRows([q["new_rows"] for q in px], [(q["p0"], q["p0"] + q["n"]) for q in px],
+                           hq * wq, mesh, all_bounds=[(y0 * wq, max(y1, y0) * wq)
+                                                      for y0, y1 in qb])
 
-    # the winner scatter-min and the merge, on the shard that owns the row
-    merged = []
-    for part, (lo, hi) in zip(data.parts, data.bounds):
-        dev = part.device
-        n = hi - lo
-        wtbl = None
-        for q in px:
-            best = q["best"].to(dev)
-            mine = (q["ok"].to(dev) & (best >= lo) & (best < hi))
-            pix = torch.arange(q["p0"], q["p0"] + q["n"], dtype=torch.int32, device=dev)
-            got = sm.winner_table(torch.where(mine, best - lo, n), mine, pix, n)
-            wtbl = got if wtbl is None else torch.minimum(wtbl, got)
-        has_winner = wtbl != _INT_MAX
-        meas_rows = None
-        for q in px:
-            if q["n"] == 0:
-                continue
-            local = torch.clamp(wtbl - q["p0"], 0, q["n"] - 1).long()
-            got = q["new_rows"][local.to(q["dev"])].to(dev)
-            own = (wtbl >= q["p0"]) & (wtbl < q["p0"] + q["n"])
-            meas_rows = got if meas_rows is None else torch.where(own[:, None], got, meas_rows)
-        merged.append(sm.merge_rows(part, meas_rows, has_winner))
+    # each map row's winning pixel (a scatter-min over the map rows, merged
+    # by pmin); the winner's measurement moves to the shard that owns the
+    # row, which merges it
+    matched = [q["ok"] & (q["best"] >= 0) for q in px]
+    pix = [torch.arange(q["p0"], q["p0"] + q["n"], dtype=torch.int32, device=m.device)
+           for q, m in zip(px, matched)]
+    wt = mesh.pmin([[sm.winner_table(torch.where(m, q["best"], n_cap), m, p, n_cap)]
+                    for q, m, p in zip(px, matched, pix)])
+    won = [torch.where(m & (t[0][torch.where(m, q["best"], 0).long()] == p), q["best"], -1)
+           for q, m, p, t in zip(px, matched, pix, wt)]
+    wtbl = [t[0][lo:hi] for t, (lo, hi) in zip(wt, data.bounds)]
+    merged = [sm.merge_rows(part, r, wb != _INT_MAX)
+              for part, r, wb in zip(data.parts, new_rows.move_rows(won, data).parts, wtbl)]
 
     # new surfels: count + rank over the whole frame in pixel order
-    S = min(cfg.new_surfels_capacity, P, n_cap)
-    start = _On(torch.clamp(count, 0, n_cap - S))
-    new_mask = [q["ok"] & (q["best"] < 0) for q in px]
-    offs, total = mesh.exclusive_scan([m.sum(dtype=torch.int32) for m in new_mask])
-    n_new = _On(torch.clamp(total[0], max=S))
-    for q, m, off in zip(px, new_mask, offs):
-        rank = off + torch.cumsum(m.to(torch.int32), dim=0, dtype=torch.int32) - 1
-        q["new_id"] = start(q["dev"]) + rank
-        q["appended"] = m & (rank < S)
-    out = []
-    for part, (lo, hi) in zip(merged, data.bounds):
-        dev = part.device
-        n = hi - lo
-        slot = torch.arange(lo, hi, dtype=torch.int32, device=dev) - start(dev)
-        stale = (slot >= n_new(dev)) & (slot < S)
-        buf = torch.cat([torch.where(stale[:, None], sm._empty_rows(1, dev), part),
-                         part.new_zeros((1, sm.N_CHANNELS))])
-        for q in px:
-            new_id = q["new_id"].to(dev)
-            mine = q["appended"].to(dev) & (new_id >= lo) & (new_id < hi)
-            buf.index_copy_(0, torch.where(mine, new_id - lo, n).long(), q["new_rows"].to(dev))
-        out.append(buf[:n])
-    count = torch.clamp(start.x + n_new.x, max=n_cap).to(torch.int32)
-
+    S = min(cfg.new_surfels_capacity, hq * wq, n_cap)
+    out, count, appended, new_id = _append(merged, data, count, new_rows,
+                                           [q["ok"] & (q["best"] < 0) for q in px], S)
     idx2 = []
     for k, ((a, b), q) in enumerate(zip(img.bounds, px)):
-        upd = sm.fuse_index_update(q["appended"], q["new_id"], q["cand"], q["meas_q"],
+        upd = sm.fuse_index_update(appended[k], new_id[k], q["cand"], q["meas_q"],
                                    q["patch"]).reshape(q["nq"], wq)
         own = idx[k][a:b].clone()
         own[q["m0"]:q["m0"] + 2 * q["nq"]:2, par:par + 2 * wq:2] = upd
@@ -436,7 +476,7 @@ def fuse(data: ShardedRows, count: torch.Tensor, meas: list, pose: _On, idx: lis
     return data.like(out), count, img.like(idx2)
 
 
-def clean_with_remap(data: ShardedRows, count: torch.Tensor, pose: _On, attr_ext: list,
+def clean_with_remap(data: ShardedRows, count: torch.Tensor, pose: On, attr_ext: list,
                      img: ShardedRows, intr: CameraIntrinsics, cfg: SLAMConfig, time: int):
     """``surfel_map.clean_with_remap`` over a sharded map; ``attr_ext``
     each image shard's (extended attr slab, index slab, first row), with
@@ -457,12 +497,11 @@ def clean_with_remap(data: ShardedRows, count: torch.Tensor, pose: _On, attr_ext
         return new_data, new_count, data.like([torch.where(k, r, -1)
                                                for k, r in zip(keep, rank)])
     parts, remap = [], []
-    for part, k, (lo, hi) in zip(data.parts, keep, data.bounds):
+    for part, k, ids in zip(data.parts, keep, _ids(data.bounds, mesh.devices)):
         part = part.clone()
         part[:, sm.VALID] = torch.where(k, part[:, sm.VALID], 0.0)
         parts.append(part)
-        remap.append(torch.where(k, torch.arange(lo, hi, dtype=torch.int32,
-                                                 device=part.device), -1))
+        remap.append(torch.where(k, ids, -1))
     return data.like(parts), count, data.like(remap)
 
 
@@ -471,30 +510,13 @@ def compact(data: ShardedRows, keep: list):
     that owns its new position (kept rows first, then the killed ones,
     each in the old order).  Returns (rows, count, each kept row's new
     position per shard)."""
-    mesh = data.mesh
-    kept = [k.sum(dtype=torch.int32) for k in keep]
-    off_keep, n_keep = mesh.exclusive_scan(kept)
-    off_kill, _ = mesh.exclusive_scan([k.shape[0] - c for k, c in zip(keep, kept)])
-    pos, rank = [], []
-    for k, ok, ol, nk in zip(keep, off_keep, off_kill, n_keep):
-        r_keep = ok + torch.cumsum(k.to(torch.int32), dim=0, dtype=torch.int32) - 1
-        r_kill = ol + torch.cumsum((~k).to(torch.int32), dim=0, dtype=torch.int32) - 1
-        rank.append(r_keep)
-        pos.append(torch.where(k, r_keep, nk + r_kill))
+    pos, rank, n_keep = _order(data.mesh, keep)
     out = []
-    for part, (lo, hi) in zip(data.parts, data.bounds):
-        dev = part.device
-        n = hi - lo
-        buf = part.new_empty((n + 1, sm.N_CHANNELS))
-        for src, p in zip(data.parts, pos):
-            p = p.to(dev)
-            mine = (p >= lo) & (p < hi)
-            buf.index_copy_(0, torch.where(mine, p - lo, n).long(), src.to(dev))
-        rows = buf[:n]
-        rows[:, sm.VALID] = (torch.arange(lo, hi, device=dev)
-                             < n_keep[0].to(dev)).to(torch.float32)
+    for rows, (lo, hi) in zip(data.move_rows(pos, data).parts, data.bounds):
+        rows[:, sm.VALID] = (torch.arange(lo, hi, device=rows.device)
+                             < n_keep.to(rows.device)).to(torch.float32)
         out.append(rows)
-    return data.like(out), n_keep[0], rank
+    return data.like(out), n_keep, rank
 
 
 def per_shard(m: sm.SurfelMap, fn) -> sm.SurfelMap:
@@ -507,82 +529,130 @@ def per_shard(m: sm.SurfelMap, fn) -> sm.SurfelMap:
 
 
 def refresh_active_channel(m: sm.SurfelMap, submap_active: torch.Tensor) -> sm.SurfelMap:
-    on = _On(submap_active)
+    on = On(submap_active)
     return per_shard(m, lambda x: sm.refresh_active_channel(x, on(x.data.device)))
 
 
 def apply_submap_deltas(m: sm.SurfelMap, deltas: torch.Tensor) -> sm.SurfelMap:
-    on = _On(deltas)
+    on = On(deltas)
     return per_shard(m, lambda x: sm.apply_submap_deltas(x, on(x.data.device)))
 
 
 def whole_map(m: sm.SurfelMap) -> sm.SurfelMap:
-    """A sharded map gathered onto its mesh's first device."""
+    """A sharded map gathered onto its mesh's first device (exports)."""
     return sm.SurfelMap(gather(m.data), m.count)
 
 
-def split_map(m: sm.SurfelMap, mesh: Mesh) -> sm.SurfelMap:
-    return sm.SurfelMap(ShardedRows.split(m.data, mesh), m.count.to(mesh.home))
-
-
 def grow(m: sm.SurfelMap, new_capacity: int) -> sm.SurfelMap:
-    """``surfel_map.grow`` of a sharded map: gathered, grown, split again
-    (evenly over the new capacity)."""
-    return split_map(sm.grow(whole_map(m), new_capacity), m.data.mesh)
+    """``surfel_map.grow`` of a sharded map, split evenly over the new
+    capacity: every row moves to the shard that owns its id in the new
+    layout (pristine rows past the old capacity)."""
+    data = m.data
+    if new_capacity <= data.total:
+        return m
+    mesh = data.mesh
+    every, mine = _map_layout(mesh, new_capacity)
+    pristine = ShardedRows([sm._empty_rows(hi - lo, d) for (lo, hi), d in zip(mine, mesh.devices)],
+                           mine, new_capacity, mesh, all_bounds=every)
+    return sm.SurfelMap(data.move_rows(_ids(data.bounds, mesh.devices), pristine), m.count)
 
 
 def exchange_active(act: sm.SurfelMap, arch: sm.SurfelMap, submap_active: torch.Tensor,
                     time: int, cfg: SLAMConfig):
-    """``surfel_map.exchange_active`` with a sharded active map: gathered,
-    exchanged with the (whole) archive, split again."""
-    a2, r2, stats = sm.exchange_active(whole_map(act), arch, submap_active, time, cfg)
-    return split_map(a2, act.data.mesh), r2, stats
+    """``surfel_map.exchange_active`` with a sharded active map and the
+    archive whole on every process: the leave / stay / enter decisions
+    per row; the active map's stay rows moved as a compaction moves them
+    and its enter rows read from the (local) archive; the leave rows
+    all-gathered and written after the archive's kept rows.  Returns
+    (active', archive', stats) as the unsharded exchange does; past its
+    count the archive's rows are pristine (the unsharded exchange copies
+    dead active rows there)."""
+    data = act.data
+    mesh = data.mesh
+    Ca = data.total
+    arows = arch.data
+    Cr = arows.shape[0]
+    ns = submap_active.shape[0]
+    t = cfg.curv_valid_threshold
+    on = On(submap_active)
+
+    def junk(rows):
+        k1, k2 = rows[:, sm.K1], rows[:, sm.K2]
+        curv_bad = (k1 < -t) | (k1 > t) | (k2 < -t) | (k2 > t)
+        unstable = (((float(time) - rows[:, sm.STAMP]) > cfg.unstable_time_limit)
+                    & (rows[:, sm.CONF] < cfg.confidence_threshold))
+        return curv_bad | unstable
+
+    on_a, leave = [], []
+    for part in data.parts:
+        va = part[:, sm.VALID] > 0
+        stays = va & on(part.device)[sm._submap_of(part, ns)]
+        on_a.append(stays)
+        leave.append(va & ~stays & ~junk(part))
+    vr = arows[:, sm.VALID] > 0
+    enter = vr & submap_active[sm._submap_of(arows, ns)] & ~junk(arows)
+    keep_r = vr & ~enter
+
+    # new active = [stay-compacted | enter-compacted]
+    pos, _, n_stay = _order(mesh, on_a)
+    enter_ids = sm._stable_prefix(enter)[:Ca]
+    n_enter_all = enter.sum(dtype=torch.int32)
+    n_enter = torch.minimum(torch.clamp(n_enter_all, max=Ca), Ca - n_stay)
+    n_act = n_stay + n_enter
+    L = enter_ids.shape[0]
+    parts = []
+    for rows, g in zip(data.move_rows(pos, data).parts, _ids(data.bounds, mesh.devices)):
+        dev = rows.device
+        at = g - n_stay.to(dev)
+        from_arch = (at >= 0) & (at < L)
+        entered = arows[enter_ids[torch.clamp(at, 0, L - 1).to(arows.device).long()]].to(dev)
+        rows = torch.where(from_arch[:, None], entered, rows)
+        valid = g < n_act.to(dev)
+        rows[:, sm.VALID] = valid.to(torch.float32)
+        rows[:, sm.ACT] = (on(dev)[sm._submap_of(rows, ns)] & valid).to(torch.float32)
+        parts.append(rows)
+
+    # new archive = [keep-compacted | leave-compacted]
+    keep_blk = arows[sm._stable_prefix(keep_r)]
+    n_keep = keep_r.sum(dtype=torch.int32)
+    leave_blk = mesh.all_gather([p[sm._stable_prefix(lv)[:int(lv.sum())]]
+                                 for p, lv in zip(data.parts, leave)])[0].to(arows.device)
+    n_leave = leave_blk.shape[0]
+    arch_data = sm._place(torch.cat([keep_blk, keep_blk.new_zeros((n_leave, keep_blk.shape[1]))]),
+                          n_keep, leave_blk)[:Cr]
+    n_arch = torch.clamp(n_keep + n_leave, max=Cr)
+    live = torch.arange(Cr, dtype=torch.int32, device=arows.device) < n_arch
+    arch_data = torch.where(live[:, None], arch_data, sm._empty_rows(1, arows.device))
+    arch_data[:, sm.VALID] = live.to(torch.float32)
+
+    dropped = (n_enter_all - n_enter.to(arows.device)) + (n_keep + n_leave - n_arch)
+    stats = torch.stack([n_act.to(arows.device), n_arch, dropped]).to(torch.int32)
+    return (sm.SurfelMap(data.like(parts), n_act.to(torch.int32)),
+            sm.SurfelMap(arch_data, n_arch.to(torch.int32)), stats)
 
 
 # --------------------------------------------------------------------------- #
 # tracking
 # --------------------------------------------------------------------------- #
 
-def row_sharded_tracking(cfg: SLAMConfig) -> bool:
-    """Whether ``track`` sums row-sharded Grams (the joint nearest-pixel
-    pass with both terms: the default and bench configurations) or
-    gathers the inputs and tracks whole on the first device."""
-    return (0 < cfg.icp_weight < 100 and not cfg.icp_use_sparse
-            and not cfg.icp_use_correspondence_search and cfg.tracking_rgb_nearest
-            and cfg.tracking_reassoc_period <= 1 and cfg.tracking_subsample <= 1
-            and cfg.tracking_topk <= 0 and not cfg.tracking_patch_assoc)
-
-
 def track(state: slam.SLAMState, pres: list, intr: CameraIntrinsics,
           cfg: SLAMConfig) -> odometry.TrackResult:
-    """``slam.step``'s tracking on a sharded state; ``pres`` the
-    per-shard preprocess outputs."""
-    img = state.pred_vertex
-    if not row_sharded_tracking(cfg):
-        def whole(i):
-            return gather(img.like([p[i] for p in pres]))
-
-        depth_f, intensity = whole(0), whole(3)
-        pre = preprocess.VertexNormalRadius(
-            *(gather(img.like([p[1][f] for p in pres])) for f in range(5)))
-        curv = preprocess.CurvatureResult(
-            *(gather(img.like([p[2][f] for p in pres])) for f in range(8)))
-        st = state._replace(**{f: gather(getattr(state, f)) for f in (
-            "prev_intensity", "pred_vertex", "pred_normal", "pred_intensity",
-            "pred_icp_weight", "pred_k1", "pred_k2")})
-        return slam.track_frame(st, depth_f, pre, curv, intensity, intr, cfg)
-    levels = _pyramids(state, pres, cfg)
-    return _track_rows(state.R, state.t, levels, img.mesh, intr, cfg)
+    """``slam.step``'s tracking on a sharded state (every tracking
+    setting); ``pres`` the per-shard preprocess outputs."""
+    return odometry.track_levels(state.R, state.t, _pyramids(state, pres, cfg),
+                                 state.map.data.mesh, intr, cfg)
 
 
 def _pyramids(state: slam.SLAMState, pres: list, cfg: SLAMConfig) -> list:
-    """Per pyramid level, per shard: its rows of every tracking input
-    (``odometry.build_inputs``' fused passes), with the level's row
-    bounds."""
+    """``odometry.build_inputs``' pyramids per shard: one
+    ``odometry.Level`` per pyramid level, each shard's rows of every
+    tracking input (a 2-row halo at each level for the 5x5 filters)."""
     img = state.pred_vertex
-    R, t = _On(state.R), _On(state.t)
+    mesh = img.mesh
+    R, t = On(state.R), On(state.t)
+    curv = cfg.icp_use_correspondence_search
     lvl0 = []
-    for k, (depth_f, pre, _, intensity) in enumerate(pres):
+    for k, (depth_f, pre, cv, intensity) in enumerate(pres):
         dev = img.parts[k].device
         pv, pn = state.pred_vertex.parts[k], state.pred_normal.parts[k]
         valid = pv[..., 2] > 0
@@ -590,140 +660,46 @@ def _pyramids(state: slam.SLAMState, pres: list, cfg: SLAMConfig) -> list:
             "deps": torch.stack([depth_f, torch.where(valid, pv[..., 2], 0.0)], dim=-1),
             "ints": torch.stack([intensity, state.pred_intensity.parts[k],
                                  state.prev_intensity.parts[k]], dim=-1),
-            "vmaps": [pre.vertex_filtered, torch.where(valid[..., None],
-                                                        pv @ R(dev).T + t(dev), 0.0)],
-            "nmaps": [pre.normal, torch.where(valid[..., None], pn @ R(dev).T, 0.0)],
-            "scalars": [state.pred_icp_weight.parts[k]],
+            "vmaps": [pre.vertex_filtered, torch.where(
+                valid[..., None], icp_ops.mat3_apply(pv, R(dev)) + t(dev), 0.0)],
+            "nmaps": [pre.normal, torch.where(valid[..., None], icp_ops.mat3_apply(pn, R(dev)),
+                                              0.0)],
+            "scalars": [state.pred_icp_weight.parts[k]] + (
+                [cv.k1, cv.k2, state.pred_k1.parts[k], state.pred_k2.parts[k]] if curv else []),
         })
-    levels = [(lvl0, list(img.bounds), img.total)]
+    levels = [(lvl0, list(img.all_bounds), img.total)]
     for _ in range(cfg.num_pyramid_levels - 1):
         shards, bounds, height = levels[-1]
         h2 = height // 2
         nb = [(a // 2, b // 2) for a, b in bounds]
         nb[-1] = (nb[-1][0], h2)
+
+        def rows(key):
+            return ShardedRows([s[key] for s in shards], mesh.local(bounds), height, mesh,
+                               all_bounds=bounds).slabs(2, 2)
+
         nxt = []
-        deps = ShardedRows([s["deps"] for s in shards], bounds, height, img.mesh)
-        ints = ShardedRows([s["ints"] for s in shards], bounds, height, img.mesh)
-        for k, (s, (a, b)) in enumerate(zip(shards, bounds)):
-            dev = img.parts[k].device
-            d, s0 = _slab(deps, dev, a - 2, b + 2)
-            i, _ = _slab(ints, dev, a - 2, b + 2)
-            r0, n = (a - s0) // 2, nb[k][1] - nb[k][0]
+        for (a, b), (n0, n1), s, (d, s0), (i, _) in zip(
+                mesh.local(bounds), mesh.local(nb), shards, rows("deps"), rows("ints")):
+            r0 = (a - s0) // 2
             vms, nms, scs = pyramid.resize_maps_fused(s["vmaps"], s["nmaps"], s["scalars"])
-            nxt.append({"deps": pyramid.pyr_down_depth_mc(d)[r0:r0 + n],
-                        "ints": pyramid.pyr_down_intensity_mc(i)[r0:r0 + n],
+            nxt.append({"deps": pyramid.pyr_down_depth_mc(d)[r0:r0 + n1 - n0],
+                        "ints": pyramid.pyr_down_intensity_mc(i)[r0:r0 + n1 - n0],
                         "vmaps": vms, "nmaps": nms, "scalars": scs})
         levels.append((nxt, nb, h2))
-    return levels
-
-
-def _level_slab(shards, bounds, height, mesh, key, chan, k, halo):
-    """(slab of channel ``chan`` of input ``key`` around shard k's rows,
-    its first row)."""
-    x = ShardedRows([s[key][..., chan] for s in shards], bounds, height, mesh)
-    return _slab(x, mesh.devices[k], bounds[k][0] - halo, bounds[k][1] + halo)
-
-
-def _so3_prealign(levels, mesh: Mesh, intr: CameraIntrinsics, cfg: SLAMConfig):
-    """``odometry._so3_prealign`` with each shard's sums over its own rows
-    of the coarsest level, reduced by ``psum``; the solve once."""
-    lvl = cfg.num_pyramid_levels - 1
-    shards, bounds, height = levels[lvl]
-    li = intr.level(lvl)
-    home = mesh.home
-    K, Kinv = odometry._k_matrix(li, home)
-    grad_rows, last, last_g = [], [], []
-    for k, (a, b) in enumerate(bounds):
-        nxt, s0 = _level_slab(shards, bounds, height, mesh, "ints", 0, k, 1)
-        gx, gy = icp_ops.central_gradients(nxt, s0, height)
-        i0, i1 = a - s0, b - s0
-        grad_rows.append(torch.stack([nxt[i0:i1].reshape(-1), gx[i0:i1].reshape(-1),
-                                      gy[i0:i1].reshape(-1)], dim=-1))
-        prev, s0 = _level_slab(shards, bounds, height, mesh, "ints", 2, k, 1)
-        lgx, lgy = icp_ops.central_gradients(prev, s0, height)
-        i0, i1 = a - s0, b - s0
-        last.append(prev[i0:i1])
-        last_g.append((lgx[i0:i1], lgy[i0:i1]))
-    table = mesh.all_gather(grad_rows)
-    next_whole = [t[:, 0].reshape(height, li.width) for t in table]
-    kinv = _On(Kinv)
-
-    def sums(basis, krlr):
-        basis, krlr = _On(basis), _On(krlr)
-        return mesh.psum([list(icp_ops.so3_step(
-            last[k], next_whole[k], table[k], *last_g[k], basis(dev), kinv(dev), krlr(dev),
-            row0=a)) for k, ((a, _), dev) in enumerate(zip(bounds, mesh.devices))])[0]
-
-    return odometry.so3_loop(sums, K, Kinv, cfg.so3_iterations)
-
-
-def _track_rows(prev_R: torch.Tensor, prev_t: torch.Tensor, levels, mesh: Mesh,
-                intr: CameraIntrinsics, cfg: SLAMConfig) -> odometry.TrackResult:
-    """``odometry.track``'s joint nearest-pixel path with each
-    Gauss-Newton system summed over the shards' own pixels."""
-    home = mesh.home
-    result_rt = torch.eye(4, dtype=torch.float32, device=home)
-    if cfg.so3_prealign:
-        result_rt[:3, :3] = _so3_prealign(levels, mesh, intr, cfg)
-    prev_R_inv = _On(prev_R.T)
-    prev_t_on = _On(prev_t)
-    prev_T = lie.rt_to_mat(prev_R, prev_t)
-    zero = torch.zeros((), dtype=torch.float32, device=home)
-    stats = {"icp_e": zero, "icp_c": zero, "rgb_e": zero, "rgb_c": zero}
-    carry = (result_rt, torch.zeros((6, 6), dtype=torch.float32, device=home),
-             torch.zeros((6,), dtype=torch.float32, device=home), stats, None)
-    eps = cfg.tracking_converge_eps
-    live = {}
-
-    for lvl in range(cfg.num_pyramid_levels - 1, -1, -1):
-        shards, bounds, height = levels[lvl]
-        li = intr.level(lvl)
-        min_scale = (cfg.min_gradient_magnitudes[lvl] ** 2) / (cfg.sobel_scale ** 2)
-        subs, model = [], []
-        for k, (s, (a, b)) in enumerate(zip(shards, bounds)):
-            ints, s0 = _level_slab(shards, bounds, height, mesh, "ints", 0, k, 2)
-            deps, _ = _level_slab(shards, bounds, height, mesh, "deps", 0, k, 2)
-            gx, gy = pyramid.sobel_derivatives(ints)
-            sv = icp_ops.rgb_static_valid(ints, gx, gy, deps, min_scale, s0, height)
-            i0, i1 = a - s0, b - s0
-            n_pix = (b - a) * li.width
-            vcurr, ncurr, valid = icp_ops.joint_cur_pack(s["vmaps"][0], s["nmaps"][0],
-                                                         s["deps"][..., 0], li, row0=a)
-            subs.append(icp_ops.SubPixels(
-                vcurr=vcurr, ncurr=ncurr, valid=valid, i_next=ints[i0:i1].reshape(n_pix),
-                static_valid=sv.reshape(-1, li.width)[i0:i1].reshape(n_pix),
-                gx=gx[i0:i1].reshape(n_pix), gy=gy[i0:i1].reshape(n_pix)))
-            model.append(icp_ops.pack_joint_nearest(
-                s["vmaps"][1], s["nmaps"][1], s["scalars"][0], s["deps"][..., 1],
-                s["ints"][..., 1]))
-        table = mesh.all_gather(model)
-
-        def body(it, carry, subs=subs, table=table, li=li):
-            result_rt = carry[0]
-            cur = odometry.current_pose(prev_T, result_rt)
-            R_curr, t_curr = _On(cur[:3, :3]), _On(cur[:3, 3])
-            passes = []
-            for k, sub in enumerate(subs):
-                dev = mesh.devices[k]
-                icp_res, corres, _ = icp_ops.joint_step(
-                    R_curr(dev), t_curr(dev), prev_R_inv(dev), prev_t_on(dev), None, None,
-                    None, table[k], None, None, li, cfg, nearest=True, sub=sub)
-                passes.append((icp_res, corres))
-            n_rgb, ssum = mesh.psum([[c.count, c.sigma_sum] for _, c in passes])[0]
-            sigma_val = _On(odometry.robust_sigma(n_rgb))
-            parts = []
-            for k, ((icp_res, corres), sub) in enumerate(zip(passes, subs)):
-                rgb_res = icp_ops.rgb_step(corres, sigma_val(mesh.devices[k]), sub.gx, sub.gy,
-                                           li, cfg)
-                parts.append([*icp_res, rgb_res.A, rgb_res.b])
-            iA, ib, ir2, ic, rA, rb = mesh.psum(parts)[0]
-            A, b, st = odometry.joint_system(icp_ops.StepResult(iA, ib, ir2, ic),
-                                             icp_ops.StepResult(rA, rb, None, None), ssum, n_rgb,
-                                             cfg.icp_weight)
-            x = icp_ops.solve_system(A, b)
-            return ((odometry.apply_increment(result_rt, x), A, b, st, None),
-                    torch.linalg.vector_norm(x))
-
-        carry, live[lvl] = odometry._gn_loop(body, cfg.pyramid_iterations[lvl], carry, eps)
-
-    return odometry.track_result(carry, prev_R, prev_t, live, cfg)
+    out = []
+    for lvl, (shards, bounds, height) in enumerate(levels):
+        named = []
+        for k, s in enumerate(shards):
+            d = {"next_depth": s["deps"][..., 0], "last_depth": s["deps"][..., 1],
+                 "next_int": s["ints"][..., 0], "last_int": s["ints"][..., 1],
+                 "prev_int": s["ints"][..., 2], "next_vmap": s["vmaps"][0],
+                 "last_vmap": s["vmaps"][1], "next_nmap": s["nmaps"][0],
+                 "last_nmap": s["nmaps"][1], "icp_weight": s["scalars"][0]}
+            if curv:
+                d.update(zip(("next_k1", "next_k2", "last_k1", "last_k2"), s["scalars"][1:5]))
+            if lvl == 0 and cfg.tracking_topk > 0:
+                d["sal_k1"], d["sal_k2"] = pres[k][2].k1, pres[k][2].k2
+            named.append(d)
+        out.append(odometry.Level(named, bounds, height))
+    return out

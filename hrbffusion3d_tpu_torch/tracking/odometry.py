@@ -8,6 +8,12 @@ pass (nearest or bilinear), the separate ICP and photometric terms
 iterations, early exit, and the finest level's subsampled, top-k and
 patch-anchored iterations.
 
+One Gauss-Newton body serves every setting, whole or row-sharded
+(``track_levels``): each shard of a ``parallel.mesh.Mesh`` evaluates its
+own pixels against model tables all-gathered per level, and the systems,
+counts and image-wide sums are reduced with ``Mesh.psum``; ``track`` of
+whole-image ``TrackingInputs`` is its case of one shard.
+
 The iteration budgets are Python loops.  The divergence and keep-best
 logic, and the early exit (``cfg.tracking_converge_eps``), stay on the
 device as ``torch.where`` over the carry: once an iteration's increment is
@@ -40,6 +46,7 @@ from ..config import CameraIntrinsics, SLAMConfig
 from ..core import lie
 from ..ops import icp as icp_ops
 from ..ops import pyramid as pyr_ops
+from ..parallel.mesh import Mesh, On
 from ..utils.tensors import const
 
 
@@ -81,8 +88,9 @@ def build_inputs(next_depth, next_intensity, next_vmap, next_nmap,
     curvature maps ride along with the ICP weight in the pooled scalars."""
     L = cfg.num_pyramid_levels
     pred_valid = pred_vmap[..., 2] > 0
-    vmap_g = torch.where(pred_valid[..., None], pred_vmap @ prev_R.T + prev_t, 0.0)
-    nmap_g = torch.where(pred_valid[..., None], pred_nmap @ prev_R.T, 0.0)
+    vmap_g = torch.where(pred_valid[..., None], icp_ops.mat3_apply(pred_vmap, prev_R) + prev_t,
+                         0.0)
+    nmap_g = torch.where(pred_valid[..., None], icp_ops.mat3_apply(pred_nmap, prev_R), 0.0)
     pred_depth = torch.where(pred_valid, pred_vmap[..., 2], 0.0)
     use_curv = cfg.icp_use_correspondence_search and next_k1 is not None
 
@@ -221,18 +229,70 @@ def so3_loop(sums, K: torch.Tensor, Kinv: torch.Tensor, n_iters: int) -> torch.T
     return torch.where(done, best_R, R_lr)
 
 
-def _so3_prealign(inp: TrackingInputs, intr: CameraIntrinsics, cfg: SLAMConfig):
+class Level(NamedTuple):
+    """One pyramid level of the tracker's inputs over a mesh: ``shards``
+    holds each local shard's rows of the level's images (a dict: next_*
+    the live frame, last_* the model prediction with its vertices and
+    normals in the world frame, prev_int the previous live intensity,
+    icp_weight; with the correspondence search next_k1 / next_k2 /
+    last_k1 / last_k2; at the finest level with top-k sal_k1 / sal_k2),
+    ``bounds`` every shard's rows at this level in the global order, and
+    ``height`` the level's image height."""
+
+    shards: list
+    bounds: list
+    height: int
+
+
+_FIELDS = {"next_depth": "next_depth", "next_int": "next_intensity", "next_vmap": "next_vmap",
+           "next_nmap": "next_nmap", "last_depth": "last_depth", "last_int": "last_intensity",
+           "last_vmap": "last_vmap_g", "last_nmap": "last_nmap_g", "icp_weight": "icp_weight",
+           "prev_int": "prev_intensity", "next_k1": "next_k1", "next_k2": "next_k2",
+           "last_k1": "last_k1", "last_k2": "last_k2", "sal_k1": "sal_k1", "sal_k2": "sal_k2"}
+
+
+def whole_levels(inp: TrackingInputs) -> list:
+    """``TrackingInputs`` as the levels of a one-shard mesh."""
+    out = []
+    for lvl, depth in enumerate(inp.next_depth):
+        shard = {k: getattr(inp, f)[lvl] for k, f in _FIELDS.items()
+                 if len(getattr(inp, f)) > lvl}
+        out.append(Level([shard], [(0, depth.shape[0])], depth.shape[0]))
+    return out
+
+
+def _so3_prealign(levels: list, mesh: Mesh, intr: CameraIntrinsics, cfg: SLAMConfig):
     """Rotation pre-alignment at the coarsest level (RGBDOdometry.cpp:
-    827-914)."""
+    827-914): each shard's sums over its own rows, reduced by ``psum``;
+    the live image's packed gradient rows all-gathered (they are read at
+    warped pixels anywhere); the solve once."""
     lvl = cfg.num_pyramid_levels - 1
-    last = inp.prev_intensity[lvl]
-    K, Kinv = _k_matrix(intr.level(lvl), last.device)
-    nxt = inp.next_intensity[lvl]
-    next_grad_rows = icp_ops.pack_so3(nxt)
-    last_gx, last_gy = icp_ops.central_gradients(last)
-    return so3_loop(lambda basis, krlr: icp_ops.so3_step(
-        last, nxt, next_grad_rows, last_gx, last_gy, basis, Kinv, krlr),
-        K, Kinv, cfg.so3_iterations)
+    lv = levels[lvl]
+    li = intr.level(lvl)
+    K, Kinv = _k_matrix(li, mesh.home)
+    mine = mesh.local(lv.bounds)
+    nxt = mesh.slabs([s["next_int"] for s in lv.shards], lv.bounds, lv.height, 1, 1)
+    prev = mesh.slabs([s["prev_int"] for s in lv.shards], lv.bounds, lv.height, 1, 1)
+    grad_rows, last, last_g = [], [], []
+    for (a, b), (img, s0), (pimg, p0) in zip(mine, nxt, prev):
+        gx, gy = icp_ops.central_gradients(img, s0, lv.height)
+        i0, i1 = a - s0, b - s0
+        grad_rows.append(torch.stack([img[i0:i1].reshape(-1), gx[i0:i1].reshape(-1),
+                                      gy[i0:i1].reshape(-1)], dim=-1))
+        lgx, lgy = icp_ops.central_gradients(pimg, p0, lv.height)
+        last.append(pimg[a - p0:b - p0])
+        last_g.append((lgx[a - p0:b - p0], lgy[a - p0:b - p0]))
+    table = mesh.all_gather(grad_rows)
+    next_whole = [t[:, 0].reshape(lv.height, li.width) for t in table]
+    kinv = On(Kinv)
+
+    def sums(basis, krlr):
+        basis, krlr = On(basis), On(krlr)
+        return mesh.psum([list(icp_ops.so3_step(
+            last[k], next_whole[k], table[k], *last_g[k], basis(dev), kinv(dev), krlr(dev),
+            row0=a)) for k, ((a, _), dev) in enumerate(zip(mine, mesh.devices))])[0]
+
+    return so3_loop(sums, K, Kinv, cfg.so3_iterations)
 
 
 def _where_carry(keep: torch.Tensor, old, new):
@@ -269,9 +329,25 @@ def _gn_loop(body, n_iters: int, carry, eps: float):
     return carry, live
 
 
+def _per_device(tables, build):
+    """``build`` of each local shard's all-gathered table, once per device."""
+    done = {}
+    return [done.setdefault(t.device, build(t)) for t in tables]
+
+
 def track(prev_R: torch.Tensor, prev_t: torch.Tensor, inp: TrackingInputs,
           intr: CameraIntrinsics, cfg: SLAMConfig, rgb_only: bool = False) -> TrackResult:
-    """Incremental-transform estimate (RGBDOdometry.cpp:796-1249).
+    """Incremental-transform estimate (RGBDOdometry.cpp:796-1249) from
+    whole-image inputs: ``track_levels`` on a mesh of one shard."""
+    return track_levels(prev_R, prev_t, whole_levels(inp), Mesh([prev_R.device]), intr, cfg,
+                        rgb_only)
+
+
+def track_levels(prev_R: torch.Tensor, prev_t: torch.Tensor, levels: list, mesh: Mesh,
+                 intr: CameraIntrinsics, cfg: SLAMConfig, rgb_only: bool = False) -> TrackResult:
+    """Incremental-transform estimate (RGBDOdometry.cpp:796-1249) with the
+    inputs' rows split over ``mesh`` (``levels``: one ``Level`` per
+    pyramid level).
 
     ``cfg.icp_weight`` >= 100 tracks with ICP alone, 0 (or ``rgb_only``)
     with the photometric term alone.  The fused single-gather pass runs
@@ -280,113 +356,158 @@ def track(prev_R: torch.Tensor, prev_t: torch.Tensor, inp: TrackingInputs,
     ``cfg.tracking_joint_gather``; the separate ``icp_step`` +
     ``rgb_residual`` formulation otherwise.  The finest level's top-k,
     patch and subsample iterations and the fixed-correspondence ones ride
-    on the fused pass."""
+    on the fused pass.
+
+    Each shard evaluates the residuals of its own pixels (their gradients
+    and photometric gate from a 2-row halo) against model tables
+    all-gathered per level (they are read at projected pixels anywhere);
+    every Gauss-Newton system, count and image-wide sum is reduced with
+    ``psum`` (the systems float64, rounded once), and the solves run once,
+    on the mesh's first device.  Per-pixel state (sparse ICP's lambda map,
+    the fixed correspondences) stays with its shard.  On a mesh of one
+    shard this is the whole-image tracker."""
     use_icp = (not rgb_only) and cfg.icp_weight > 0
     use_rgb = rgb_only or cfg.icp_weight < 100
-    dev = prev_R.device
-    result_rt = torch.eye(4, dtype=torch.float32, device=dev)
+    home, devs = mesh.home, mesh.devices
+    result_rt = torch.eye(4, dtype=torch.float32, device=home)
     if cfg.so3_prealign and use_rgb:
-        result_rt[:3, :3] = _so3_prealign(inp, intr, cfg)
+        result_rt[:3, :3] = _so3_prealign(levels, mesh, intr, cfg)
 
-    prev_R_inv = prev_R.T
+    prev_R_inv, prev_t_on = On(prev_R.T), On(prev_t)
     prev_T = lie.rt_to_mat(prev_R, prev_t)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=home)
     stats = {"icp_e": zero, "icp_c": zero, "rgb_e": zero, "rgb_c": zero}
-    carry = (result_rt, torch.zeros((6, 6), dtype=torch.float32, device=dev),
-             torch.zeros((6,), dtype=torch.float32, device=dev), stats, None)
+    carry = (result_rt, torch.zeros((6, 6), dtype=torch.float32, device=home),
+             torch.zeros((6,), dtype=torch.float32, device=home), stats, None)
     iters = cfg.pyramid_iterations
     eps = cfg.tracking_converge_eps
     live = {}
 
     for lvl in range(cfg.num_pyramid_levels - 1, -1, -1):
+        lv = levels[lvl]
         li = intr.level(lvl)
-        K, Kinv = _k_matrix(li, dev)
-        next_int = inp.next_intensity[lvl]
-        d_idx, d_idy = pyr_ops.sobel_derivatives(next_int)
+        w = li.width
+        mine = mesh.local(lv.bounds)
+        K, Kinv = _k_matrix(li, home)
         min_scale = (cfg.min_gradient_magnitudes[lvl] ** 2) / (cfg.sobel_scale ** 2)
         use_sparse = cfg.icp_use_sparse and use_icp
         # the fused pass: ICP + photometric share one row gather
         use_joint = ((cfg.tracking_joint_gather or cfg.tracking_rgb_nearest)
                      and use_rgb and use_icp and not use_sparse
                      and not cfg.icp_use_correspondence_search)
+        has_curv = "next_k1" in lv.shards[0]
+
+        # per shard, pose-invariant: the Sobel gradients and the
+        # photometric gate of its pixels, from a 2-row halo
+        ints = mesh.slabs([s["next_int"] for s in lv.shards], lv.bounds, lv.height, 2, 2)
+        deps = mesh.slabs([s["next_depth"] for s in lv.shards], lv.bounds, lv.height, 2, 2)
+        full = []
+        for (a, b), s, (img, s0), (dep, _) in zip(mine, lv.shards, ints, deps):
+            gx, gy = pyr_ops.sobel_derivatives(img)
+            sv = icp_ops.rgb_static_valid(img, gx, gy, dep, min_scale, s0, lv.height)
+            i0, i1 = a - s0, b - s0
+            n = (b - a) * w
+            own = dict(i_next=s["next_int"].reshape(n),
+                       static_valid=sv.reshape(-1, w)[i0:i1].reshape(n),
+                       gx=gx[i0:i1].reshape(n), gy=gy[i0:i1].reshape(n))
+            if use_joint:
+                vc, nc, vl = icp_ops.joint_cur_pack(s["next_vmap"], s["next_nmap"],
+                                                    s["next_depth"], li, row0=a)
+                full.append(icp_ops.SubPixels(vcurr=vc, ncurr=nc, valid=vl, **own))
+            else:
+                full.append(icp_ops.SubPixels(vcurr=None, ncurr=None, valid=None, **own))
+
+        # model tables, all-gathered per level
         if use_joint:
-            packer = (icp_ops.pack_joint_nearest if cfg.tracking_rgb_nearest
-                      else icp_ops.pack_joint)
-            model_rows = packer(inp.last_vmap_g[lvl], inp.last_nmap_g[lvl], inp.icp_weight[lvl],
-                                inp.last_depth[lvl], inp.last_intensity[lvl])
-            last_rows = None
-            cur_pack = icp_ops.joint_cur_pack(inp.next_vmap[lvl], inp.next_nmap[lvl],
-                                              inp.next_depth[lvl], li)
+            tables = mesh.all_gather([icp_ops.pack_joint_nearest(
+                s["last_vmap"], s["last_nmap"], s["icp_weight"], s["last_depth"], s["last_int"])
+                for s in lv.shards])
+            if not cfg.tracking_rgb_nearest:
+                tables = _per_device(tables, lambda t: icp_ops.joint_footprint(
+                    t.reshape(lv.height, w, 9)))
         else:
-            model_rows = icp_ops.pack_model(inp.last_vmap_g[lvl], inp.last_nmap_g[lvl],
-                                            inp.icp_weight[lvl])
-            last_rows = icp_ops.pack_last(inp.last_depth[lvl], inp.last_intensity[lvl])
-            cur_pack = None
-        static_valid = icp_ops.rgb_static_valid(next_int, d_idx, d_idy, inp.next_depth[lvl],
-                                                min_scale)
+            models = mesh.all_gather([icp_ops.pack_model(s["last_vmap"], s["last_nmap"],
+                                                         s["icp_weight"]) for s in lv.shards])
+            lasts = _per_device(mesh.all_gather([
+                torch.stack([s["last_depth"], s["last_int"]], dim=-1).reshape(-1, 2)
+                for s in lv.shards]), lambda t: icp_ops.pack_last(
+                    t[:, 0].reshape(lv.height, w), t[:, 1].reshape(lv.height, w)))
+            curv_prev = (mesh.all_gather([torch.stack([s["last_k1"], s["last_k2"]],
+                                                      dim=-1).reshape(-1, 2)
+                                          for s in lv.shards]) if has_curv else None)
         # fixed-correspondence iterations: carry the association rows and
         # re-gather every reassoc-th iteration only
         reassoc = (cfg.tracking_reassoc_period
                    if use_joint and cfg.tracking_reassoc_period > 1 else 1)
-        has_curv = len(inp.next_k1) > 0
 
         def body(it, carry, sub=None, patch=None, sv_scale=None):
             result_rt, _, _, st, extra = carry
             cur = current_pose(prev_T, result_rt)
-            R_curr, t_curr = cur[:3, :3], cur[:3, 3]
-            A = b = None
+            R_c, t_c = On(cur[:3, :3]), On(cur[:3, 3])
+            pix = full if sub is None else sub
             if use_joint:
-                if patch is not None:
-                    if sub is not None:
-                        vc, nc, vl = sub.vcurr, sub.ncurr, sub.valid
-                        i_nx, sv = sub.i_next, sub.static_valid
+                passes = []
+                for k, (dev, p) in enumerate(zip(devs, pix)):
+                    if patch is not None:
+                        icp_res, corres = icp_ops.joint_step_patch(
+                            R_c(dev), t_c(dev), prev_R_inv(dev), prev_t_on(dev), patch[k],
+                            cfg.tracking_patch_radius, p.vcurr, p.ncurr, p.valid, p.i_next,
+                            p.static_valid, li, cfg)
+                        assoc = None
                     else:
-                        vc, nc, vl = cur_pack
-                        i_nx, sv = next_int.reshape(-1), static_valid
-                    icp_res, corres = icp_ops.joint_step_patch(
-                        R_curr, t_curr, prev_R_inv, prev_t, patch, cfg.tracking_patch_radius,
-                        vc, nc, vl, i_nx, sv, li, cfg)
-                else:
-                    icp_res, corres, extra = icp_ops.joint_step(
-                        R_curr, t_curr, prev_R_inv, prev_t, inp.next_vmap[lvl],
-                        inp.next_nmap[lvl], inp.next_depth[lvl], model_rows, next_int,
-                        static_valid, li, cfg,
-                        assoc_prev=extra if reassoc > 1 else None,
-                        do_gather=it % reassoc == 0 if reassoc > 1 else None,
-                        nearest=cfg.tracking_rgb_nearest, cur_pack=cur_pack, sub=sub)
+                        icp_res, corres, assoc = icp_ops.joint_step(
+                            R_c(dev), t_c(dev), prev_R_inv(dev), prev_t_on(dev), None, None,
+                            None, tables[k], None, None, li, cfg,
+                            assoc_prev=extra[k] if reassoc > 1 else None,
+                            do_gather=it % reassoc == 0 if reassoc > 1 else None,
+                            nearest=cfg.tracking_rgb_nearest, sub=p)
+                    passes.append((icp_res, corres, assoc))
+                n_rgb, ssum = mesh.psum([[c.count, c.sigma_sum] for _, c, _ in passes])[0]
                 # subsampled iterations keep the full set's robustifier
                 # scale times the stride
                 if sv_scale is None:
                     sv_scale = float(cfg.tracking_subsample) if sub is not None else 1.0
-                rgb_res = icp_ops.rgb_step(corres, robust_sigma(corres.count, sv_scale),
-                                           sub.gx if sub is not None else d_idx,
-                                           sub.gy if sub is not None else d_idy, li, cfg)
-                A, b, st = joint_system(icp_res, rgb_res, corres.sigma_sum, corres.count,
-                                        cfg.icp_weight)
+                sigma = On(robust_sigma(n_rgb, sv_scale))
+                sums = mesh.psum([
+                    [*icp_res, *icp_ops.rgb_step(corres, sigma(dev), p.gx, p.gy, li, cfg)[:2]]
+                    for dev, p, (icp_res, corres, _) in zip(devs, pix, passes)])[0]
+                A, b, st = joint_system(icp_ops.StepResult(*sums[:4]),
+                                        icp_ops.StepResult(sums[4], sums[5], None, None),
+                                        ssum, n_rgb, cfg.icp_weight)
+                if reassoc > 1:
+                    extra = tuple(assoc for _, _, assoc in passes)
             else:
+                A = b = None
                 if use_rgb:
-                    corres = icp_ops.rgb_residual(
-                        *rgb_warp(K, Kinv, result_rt), inp.next_depth[lvl],
-                        next_int, last_rows, static_valid, cfg)
-                    sigma_val = (torch.full((), -1.0, device=dev) if rgb_only
-                                 else robust_sigma(corres.count))
-                    rgb_res = icp_ops.rgb_step(corres, sigma_val, d_idx, d_idy, li, cfg)
-                    A, b = rgb_res.A, rgb_res.b
-                    st = {**st, "rgb_e": torch.sqrt(corres.sigma_sum)
-                          / torch.clamp(corres.count, min=1.0), "rgb_c": corres.count}
+                    krkinv, kt = (On(x) for x in rgb_warp(K, Kinv, result_rt))
+                    cors = [icp_ops.rgb_residual(krkinv(dev), kt(dev), s["next_depth"],
+                                                 s["next_int"], lasts[k], p.static_valid, cfg,
+                                                 row0=a, height=lv.height)
+                            for k, (dev, s, p, (a, _)) in enumerate(zip(devs, lv.shards, pix,
+                                                                         mine))]
+                    n_rgb, ssum = mesh.psum([[c.count, c.sigma_sum] for c in cors])[0]
+                    sigma = On(torch.full((), -1.0, device=home) if rgb_only
+                               else robust_sigma(n_rgb))
+                    A, b = mesh.psum([list(icp_ops.rgb_step(c, sigma(dev), p.gx, p.gy, li,
+                                                            cfg)[:2])
+                                      for dev, c, p in zip(devs, cors, pix)])[0]
+                    st = {**st, "rgb_e": torch.sqrt(ssum) / torch.clamp(n_rgb, min=1.0),
+                          "rgb_c": n_rgb}
                 if use_icp:
-                    icp_out = icp_ops.icp_step(
-                        R_curr, t_curr, prev_R_inv, prev_t, inp.next_vmap[lvl],
-                        inp.next_nmap[lvl], model_rows, li, cfg,
-                        k1_curr=inp.next_k1[lvl] if has_curv else None,
-                        k2_curr=inp.next_k2[lvl] if has_curv else None,
-                        k1_prev=inp.last_k1[lvl] if has_curv else None,
-                        k2_prev=inp.last_k2[lvl] if has_curv else None,
-                        sparse_lambda=extra if use_sparse else None)
-                    icp_res, extras = icp_out if use_sparse else (icp_out, None)
-                    w = cfg.icp_weight if use_rgb else 1.0
-                    A = (w * w) * icp_res.A if A is None else A + (w * w) * icp_res.A
-                    b = w * icp_res.b if b is None else b + w * icp_res.b
+                    outs = [icp_ops.icp_step(
+                        R_c(dev), t_c(dev), prev_R_inv(dev), prev_t_on(dev), s["next_vmap"],
+                        s["next_nmap"], models[k], li, cfg,
+                        k1_curr=s["next_k1"] if has_curv else None,
+                        k2_curr=s["next_k2"] if has_curv else None,
+                        k1_prev=curv_prev[k][:, 0] if has_curv else None,
+                        k2_prev=curv_prev[k][:, 1] if has_curv else None,
+                        sparse_lambda=extra[k] if use_sparse else None)
+                        for k, (dev, s) in enumerate(zip(devs, lv.shards))]
+                    icp_res = icp_ops.StepResult(*mesh.psum(
+                        [list(o[0] if use_sparse else o) for o in outs])[0])
+                    wt = cfg.icp_weight if use_rgb else 1.0
+                    A = (wt * wt) * icp_res.A if A is None else A + (wt * wt) * icp_res.A
+                    b = wt * icp_res.b if b is None else b + wt * icp_res.b
                     st = {**st, "icp_e": torch.sqrt(icp_res.residual2.to(torch.float32))
                           / torch.clamp(icp_res.count, min=1.0), "icp_c": icp_res.count}
                 # the float64 sums rounded once
@@ -398,16 +519,17 @@ def track(prev_R: torch.Tensor, prev_t: torch.Tensor, inp: TrackingInputs,
                 # ADMM dual update with the post-solve pose
                 # (RGBDOdometry.cpp:1209-1224 -> updateLambdaMapKernel)
                 cur2 = current_pose(prev_T, result_rt)
-                extra = icp_ops.sparse_icp_lambda_update(
-                    extra, extras, cur2[:3, :3], cur2[:3, 3], prev_R_inv, prev_t,
-                    inp.next_vmap[lvl], cfg.sparse_icp_mu)
+                R2, t2 = On(cur2[:3, :3]), On(cur2[:3, 3])
+                extra = tuple(icp_ops.sparse_icp_lambda_update(
+                    extra[k], outs[k][1], R2(dev), t2(dev), prev_R_inv(dev), prev_t_on(dev),
+                    s["next_vmap"], cfg.sparse_icp_mu)
+                    for k, (dev, s) in enumerate(zip(devs, lv.shards)))
             return (result_rt, A, b, st, extra), torch.linalg.vector_norm(x)
 
-        n_pix = li.height * li.width
         # sparse ICP's lambda map is zeroed at each level (RGBDOdometry.cpp:965-978)
-        extra0 = (torch.zeros((n_pix, 3), dtype=torch.float32, device=dev) if use_sparse else
-                  torch.zeros((n_pix, 9), dtype=torch.float32, device=dev) if reassoc > 1 else
-                  None)
+        chans = 3 if use_sparse else 9 if reassoc > 1 else 0
+        extra0 = (tuple(torch.zeros(((b - a) * w, chans), dtype=torch.float32, device=dev)
+                        for (a, b), dev in zip(mine, devs)) if chans else None)
         carry = carry[:4] + (extra0,)
         live[lvl] = 0
         # the finest level's fast iterations: the top-k most salient pixels and/or
@@ -418,59 +540,61 @@ def track(prev_R: torch.Tensor, prev_t: torch.Tensor, inp: TrackingInputs,
         drive_patch = fast and cfg.tracking_rgb_nearest and cfg.tracking_patch_assoc
         drive_topk = fast and cfg.tracking_topk > 0
         if drive_patch or drive_topk:
-            table = None
+            ptables = None
             if drive_patch:
                 # camera-frame model normals: the world-frame pyramid rotated
-                # back (nmap_g = nmap_c @ prev_R.T)
-                nmap_c = (inp.last_nmap_g[lvl].reshape(n_pix, 3) @ prev_R).reshape(
-                    li.height, li.width, 3)
-                table = icp_ops.build_patch_table(
-                    icp_ops.pack_patch_base(inp.last_depth[lvl], nmap_c, inp.icp_weight[lvl],
-                                            inp.last_intensity[lvl]),
-                    cfg.tracking_patch_radius)
+                # back (nmap_g = nmap_c @ prev_R.T); the table of each
+                # pixel's (2R+1)^2 window built from the whole base image
+                prev_RT = On(prev_R.T)
+                ptables = _per_device(mesh.all_gather([icp_ops.pack_patch_base(
+                    s["last_depth"], icp_ops.mat3_apply(s["last_nmap"], prev_RT(dev)),
+                    s["icp_weight"], s["last_int"]).reshape(-1, 6)
+                    for dev, s in zip(devs, lv.shards)]), lambda t: icp_ops.build_patch_table(
+                        t.reshape(lv.height, w, 6), cfg.tracking_patch_radius))
 
-            def anchor(rt, vcurr_rows):
+            def anchor(rt, pix):
                 cur = current_pose(prev_T, rt)
-                return icp_ops.patch_anchor(cur[:3, :3], cur[:3, 3], prev_R_inv, prev_t,
-                                            vcurr_rows, table, li)
+                R_c, t_c = On(cur[:3, :3]), On(cur[:3, 3])
+                return [icp_ops.patch_anchor(R_c(dev), t_c(dev), prev_R_inv(dev), prev_t_on(dev),
+                                             p.vcurr, ptables[k], li)
+                        for k, (dev, p) in enumerate(zip(devs, pix))]
 
             sub_sel, scale, n_full, n_sel = None, 1.0, 0, iters[0]
             if drive_topk:
-                ids = icp_ops.saliency_ids(
-                    cfg.tracking_topk, inp.next_vmap[lvl], inp.next_nmap[lvl], next_int,
-                    static_valid, d_idx, d_idy, li,
-                    k1=inp.sal_k1[0] if inp.sal_k1 else None,
-                    k2=inp.sal_k2[0] if inp.sal_k2 else None)
-                sub_sel = icp_ops._sub_pixels_at(
-                    ids, inp.next_vmap[lvl], inp.next_nmap[lvl], inp.next_depth[lvl],
-                    next_int, static_valid, d_idx, d_idy, li)
-                scale = (n_pix / ids.shape[0]) ** 0.5
+                sal = [(s["sal_k1"], s["sal_k2"]) if "sal_k1" in s else (None, None)
+                       for s in lv.shards]
+                sums = mesh.psum([icp_ops.saliency_sums(p, *c) for p, c in zip(full, sal)])[0]
+                sums = On(torch.stack(sums))
+                sub_sel = [icp_ops.select_pixels(p, icp_ops.saliency_select(
+                    cfg.tracking_topk, list(sums(dev)), p, a, lv.height, w, *c))
+                    for dev, p, c, (a, _) in zip(devs, full, sal, mine)]
+                scale = (lv.height * w
+                         / icp_ops.saliency_count(cfg.tracking_topk, lv.height, w)) ** 0.5
                 n_full = min(cfg.tracking_topk_full_iters, iters[0])
                 n_sel = iters[0] - n_full
             if n_sel:
-                patch1 = (anchor(carry[0], sub_sel.vcurr if sub_sel is not None else cur_pack[0])
-                          if drive_patch else None)
+                patch1 = anchor(carry[0], sub_sel or full) if drive_patch else None
                 carry, k = _gn_loop(functools.partial(body, sub=sub_sel, patch=patch1,
                                                       sv_scale=scale), n_sel, carry, eps)
                 live[lvl] += k
             if n_full:
                 # polish at full resolution, the patch re-anchored at the
                 # current estimate
-                patch2 = anchor(carry[0], cur_pack[0]) if drive_patch else None
+                patch2 = anchor(carry[0], full) if drive_patch else None
                 carry, k = _gn_loop(functools.partial(body, patch=patch2), n_full, carry, eps)
                 live[lvl] += k
             continue
 
         # finest-level pixel subsampling: the first iterations on a
-        # stride-decimated live pixel set, the last
+        # stride-decimated live pixel set (the image's own grid), the last
         # tracking_subsample_full_iters at full resolution
         n_sub = 0
         if lvl == 0 and use_joint and reassoc == 1 and cfg.tracking_subsample > 1:
             n_sub = max(0, iters[0] - min(cfg.tracking_subsample_full_iters, iters[0]))
         if n_sub:
-            sub = icp_ops.pack_sub_pixels(
-                cfg.tracking_subsample, inp.next_vmap[lvl], inp.next_nmap[lvl],
-                inp.next_depth[lvl], next_int, static_valid, d_idx, d_idy, li)
+            sub = [icp_ops.select_pixels(p, icp_ops.subsample_ids(
+                cfg.tracking_subsample, a, b - a, w, dev)) for dev, p, (a, b) in zip(devs, full,
+                                                                                    mine)]
             carry, k = _gn_loop(functools.partial(body, sub=sub), n_sub, carry, eps)
             live[lvl] += k
         carry, k = _gn_loop(body, iters[lvl] - n_sub, carry, eps)

@@ -1,7 +1,8 @@
 """The port runs where there is no JAX and stands alone from the JAX
 package: importing the package, every one of its submodules (the sparse
 backend's, the full system's, the real-data entry point's, the
-distributed BA's and the row-sharded dense step's included) and ``chip_smoke``'s imports
+distributed BA's, the row-sharded dense step's and the mesh's included) and
+``chip_smoke``'s imports
 leaves ``jax`` and every ``hrbffusion3d_tpu`` module out of ``sys.modules``,
 and succeeds with both blocked.  The port's copies of the JAX package's
 numpy-only code (the BRIEF pattern, the reduction-plan construction,
@@ -52,9 +53,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     # io.tum, io.klg, io.native_loader, utils.timing, utils.params,
     # utils.checkpoint, viz.stats, viz.viewer, eval.recon, eval.mesh) and
     # the distributed BA's (parallel, parallel.sharding, parallel.dist_ba,
-    # parallel.multihost) and the row-sharded step's (parallel.sharded_step)
-    # included
-    assert int(n_modules) >= 56, out.stdout
+    # parallel.multihost) and the row-sharded step's (parallel.sharded_step,
+    # parallel.mesh) included
+    assert int(n_modules) >= 57, out.stdout
     assert leaked == "[]", leaked
     for name in ("backend/brief_pattern", "backend/features", "backend/reduce_plan",
                  "backend/ba", "backend/keyframes", "backend/bow", "backend/vocab",

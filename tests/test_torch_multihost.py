@@ -132,3 +132,13 @@ def test_two_process_collectives_match_single_process(tmp_path):
     counts = [int(v[2]) for v in vals]
     assert int(got["total"]) == sum(counts)
     np.testing.assert_array_equal(got["offsets"], np.cumsum([0] + counts)[:3])
+    # the row move: process 0's rows after it, and the rows that came from
+    # process 1, which are exactly those of its shards that land in
+    # process 0's block
+    n_rows, pos = torch_dist_child.move_positions(6)
+    bounds = sharding.row_bounds(n_rows, 6)
+    want = mesh.move_rows([v[0] for v in vals], pos, bounds,
+                          [torch.zeros(b - a, 3) for a, b in bounds])
+    np.testing.assert_array_equal(got["moved"], torch.cat(want[:3]))
+    came = sum(int((p < bounds[2][1]).sum()) for p in pos[3:])
+    assert int(got["received_rows"]) == came and 0 < came < sum(p.numel() for p in pos[3:])

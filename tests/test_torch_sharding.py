@@ -28,7 +28,8 @@ from hrbffusion3d_tpu_torch.core import lie
 from hrbffusion3d_tpu_torch.eval import synth
 from hrbffusion3d_tpu_torch.map import surfel_map as sm
 from hrbffusion3d_tpu_torch.ops import kernels, preprocess
-from hrbffusion3d_tpu_torch.parallel import multihost, sharded_step as ss, sharding as sh
+from hrbffusion3d_tpu_torch.parallel import mesh as mesh_mod, multihost, sharded_step as ss
+from hrbffusion3d_tpu_torch.parallel import sharding as sh
 from hrbffusion3d_tpu_torch.pipeline import slam
 
 torch.set_num_threads(1)
@@ -80,6 +81,25 @@ def test_collectives(n):
         assert int(t) == sum(int(x) for x in counts)
     with pytest.raises(ValueError, match="pmin got"):
         mesh.pmin([[f[0]]] * (n + 1))
+    # move_rows: a permutation of 20 rows; the same rows into a 40-row
+    # layout at 20 + their index, every third one nowhere, over ones
+    rows = torch.from_numpy(rng.standard_normal((20, 3)).astype(np.float32))
+    perm = torch.from_numpy(rng.permutation(20).astype(np.int32))
+    bounds, wide = sh.row_bounds(20, n), sh.row_bounds(40, n)
+    parts = [rows[a:b] for a, b in bounds]
+    want = torch.empty_like(rows)
+    want[perm.long()] = rows
+    got = mesh.move_rows(parts, [perm[a:b] for a, b in bounds], bounds,
+                         [torch.zeros(b - a, 3) for a, b in bounds])
+    assert [g.shape[0] for g in got] == [b - a for a, b in bounds]
+    assert torch.equal(torch.cat(got), want)
+    ids = torch.arange(20, dtype=torch.int32)
+    to = torch.where(ids % 3 == 0, -1, ids + 20)
+    want = torch.ones(40, 3)
+    want[20:][ids % 3 != 0] = rows[ids % 3 != 0]
+    got = mesh.move_rows(parts, [to[a:b] for a, b in bounds], wide,
+                         [torch.ones(b - a, 3) for a, b in wide])
+    assert torch.equal(torch.cat(got), want) and mesh.received_rows == 0
 
 
 def test_row_bounds_and_mesh_axes():
@@ -209,14 +229,15 @@ def test_render_index_and_attr(scene, n, keyed, monkeypatch):
     st = sh.shard_state(state, mesh, CFG)
     pose_inv = lie.se3_inverse(torch.as_tensor(poses[1], dtype=torch.float32))
     want = sm.render_index(state.map, pose_inv, INTR, active=state.map.active)
-    got = ss.render_index(st.map.data, ss._On(pose_inv), INTR,
+    got = ss.render_index(st.map.data, mesh_mod.On(pose_inv), INTR,
                           active=[(p[:, sm.VALID] > 0.5) & (p[:, sm.ACT] > 0.5)
                                   for p in st.map.data.parts])
     assert len(got) == n and (want >= 0).float().mean() > 0.5
     for g in got:
         _equal(g, want, "index map")
     ids = want.reshape(-1)
-    rows = ss._gather_rows(st.map.data, ids)
+    rows, *others = st.map.data.gather_rows([ids] * n)
+    assert all(torch.equal(o, rows) for o in others)
     _equal(sm.attr_from_rows(rows, ids >= 0, pose_inv, want.shape, extended=True),
            sm.render_attr_image(state.map, want, pose_inv, extended=True), "attr")
 
@@ -246,8 +267,8 @@ def test_fuse(scene, n, time):
     st, pose, _, meas, meas_parts, idx, img = _fuse_inputs(scene, n)
     act = torch.tensor(1.0)
     m, idx2 = sm.fuse(state.map, meas, pose, idx, INTR, CFG, time=time, submap_idx=0, act=act)
-    data, count, sidx2 = ss.fuse(st.map.data, st.map.count, meas_parts, ss._On(pose),
-                                 [idx] * n, img, INTR, CFG, time, 0, ss._On(act))
+    data, count, sidx2 = ss.fuse(st.map.data, st.map.count, meas_parts, mesh_mod.On(pose),
+                                 [idx] * n, img, INTR, CFG, time, 0, mesh_mod.On(act))
     assert not torch.equal(m.data, state.map.data)
     _equal(count, m.count, "count")
     _equal(data.gather(), m.data, "map rows")
@@ -265,8 +286,8 @@ def test_fuse_block_overwrite_at_capacity(scene):
     _, pose, _, meas, meas_parts, idx, img = _fuse_inputs(scene, 5)
     act = torch.tensor(1.0)
     m, idx2 = sm.fuse(small, meas, pose, idx, INTR, cfg, time=2, submap_idx=1, act=act)
-    data, count, sidx2 = ss.fuse(st.map.data, st.map.count, meas_parts, ss._On(pose),
-                                 [idx] * 5, img, INTR, cfg, 2, 1, ss._On(act))
+    data, count, sidx2 = ss.fuse(st.map.data, st.map.count, meas_parts, mesh_mod.On(pose),
+                                 [idx] * 5, img, INTR, cfg, 2, 1, mesh_mod.On(act))
     _equal(count, m.count), _equal(data.gather(), m.data), _equal(sidx2.gather(), idx2)
 
 
@@ -308,7 +329,7 @@ def test_compaction_across_shards(scene, n):
                                               unstable_time_limit=0))):
         m, remap = sm.clean_with_remap(state.map, pose, idx, INTR, cfg, time,
                                        attr=attr[..., :sm.ATTR_CHANNELS])
-        d2, c2, r2 = ss.clean_with_remap(st.map.data, st.map.count, ss._On(pose), attr_ext,
+        d2, c2, r2 = ss.clean_with_remap(st.map.data, st.map.count, mesh_mod.On(pose), attr_ext,
                                          img, INTR, cfg, time)
         _equal(c2, m.count, f"count at {time}")
         _equal(d2.gather(), m.data, f"rows at {time}")

@@ -16,7 +16,7 @@ import torch.distributed
 
 from hrbffusion3d_tpu_torch.backend import ba
 from hrbffusion3d_tpu_torch.core import lie
-from hrbffusion3d_tpu_torch.parallel import dist_ba, multihost
+from hrbffusion3d_tpu_torch.parallel import dist_ba, multihost, sharding
 
 
 def make_problem(seed=4, n_cams=5, n_lms=64, noise=0.003, perturb=0.05):
@@ -73,11 +73,21 @@ def shard_values(k: int):
             torch.tensor(int(rng.integers(0, 20)), dtype=torch.int32))
 
 
+def move_positions(n_shards: int):
+    """(the global rows of ``shard_values``' float blocks of ``n_shards``
+    shards, each block's rows' new positions: a permutation from a seed)."""
+    n = sum(k + 1 for k in range(n_shards))
+    perm = torch.from_numpy(np.random.default_rng(7).permutation(n).astype(np.int32))
+    starts = np.cumsum([0] + [k + 1 for k in range(n_shards)])
+    return n, [perm[starts[k]:starts[k + 1]] for k in range(n_shards)]
+
+
 def collectives_rank(addr, n_processes, rank, local_shards, out_path):
     """One process of a ``gloo`` run of the mesh's collectives on the CPU,
     ``local_shards`` shards per process; process 0 writes what its first
-    shard got to ``out_path`` (.npz), and every process checks that its
-    shards got the same."""
+    shard got (and its shards' rows after ``move_rows``, with the rows it
+    received from the other process) to ``out_path`` (.npz), and every
+    process checks that its shards got the same."""
     torch.set_num_threads(1)
     multihost.initialize(addr, n_processes, rank, backend="gloo")
     try:
@@ -87,13 +97,146 @@ def collectives_rank(addr, n_processes, rank, local_shards, out_path):
         pmin = mesh.pmin([[v[1]] for v in vals])
         gathered = mesh.all_gather([v[0] for v in vals])
         offs, total = mesh.exclusive_scan([v[2] for v in vals])
+        n_rows, pos = move_positions(mesh.size)
+        new_bounds = sharding.row_bounds(n_rows, mesh.size)
+        moved = mesh.move_rows([v[0] for v in vals], mesh.local(pos), new_bounds,
+                               [torch.zeros(b - a, 3) for a, b in mesh.local(new_bounds)])
         for i in range(local_shards):
             assert torch.equal(psum[i][0], psum[0][0]) and torch.equal(pmin[i][0], pmin[0][0])
             assert torch.equal(gathered[i], gathered[0]) and torch.equal(total[i], total[0])
         if multihost.is_coordinator():
             np.savez(out_path, psum=psum[0][0].numpy(), pmin=pmin[0][0].numpy(),
                      gathered=gathered[0].numpy(), total=total[0].numpy(),
-                     offsets=torch.stack(offs).numpy())
+                     offsets=torch.stack(offs).numpy(), moved=torch.cat(moved).numpy(),
+                     received_rows=mesh.received_rows)
         torch.distributed.barrier()
     finally:
         torch.distributed.destroy_process_group()
+
+
+# --------------------------------------------------------------------------- #
+# the row-sharded dense step over a process group
+# --------------------------------------------------------------------------- #
+
+DENSE_MODES = {"default": {}, "topk": {"tracking_topk": 768, "tracking_topk_full_iters": 1}}
+
+
+def dense_setup(mode):
+    """(intrinsics, config, poses, frames, archive) of the group runs: a
+    64x48 orbit, compaction and crowd rules every second frame, and an
+    archive whose valid rows belong to submap 1 (``dense_run`` exchanges
+    with submap 0 inactive, so the active rows leave and these enter)."""
+    import dataclasses
+
+    from hrbffusion3d_tpu_torch.config import CameraIntrinsics, small_test_config
+    from hrbffusion3d_tpu_torch.eval import synth
+    from hrbffusion3d_tpu_torch.map import surfel_map as sm
+    from hrbffusion3d_tpu_torch.pipeline import slam
+
+    intr = CameraIntrinsics(fx=52.0, fy=52.0, cx=32.0, cy=24.0, width=64, height=48)
+    cfg = small_test_config(map_capacity=1 << 12, new_surfels_capacity=1 << 10,
+                            pyramid_iterations=(2, 1, 1), so3_iterations=1,
+                            predict_conf_threshold=0.2, clean_compact_period=2,
+                            clean_crowd_period=2, curv_window=2, max_submaps=4)
+    cfg = dataclasses.replace(cfg, **DENSE_MODES[mode])
+    poses = synth.orbit_trajectory(4, angle_per_frame=0.01)
+    room = synth.default_room("cpu")
+    frames = [slam.FrameInput(*synth.render_frame(room, p, intr)) for p in poses]
+    boot = slam.bootstrap(frames[1], intr, cfg, init_pose=poses[1])
+    arch = torch.cat([boot.map.data[:1500], sm._empty_rows((1 << 13) - 1500, "cpu")])
+    arch[:, sm.SUBMAP] = 1.0
+    archive = sm.SurfelMap(arch, torch.tensor(1500, dtype=torch.int32))
+    return intr, cfg, poses, frames, archive
+
+
+def dense_run(mesh, mode):
+    """bootstrap and three steps on ``mesh``: a tracked step on a
+    compaction and crowd frame, ``grow`` to twice the capacity, a tracked
+    step, ``exchange_active`` against the archive, a replayed step on a
+    compaction and crowd frame.  Returns (state, archive, stats)."""
+    import dataclasses
+
+    from hrbffusion3d_tpu_torch.parallel import sharded_step, sharding
+    from hrbffusion3d_tpu_torch.pipeline import slam
+
+    intr, cfg, poses, frames, archive = dense_setup(mode)
+    st = slam.bootstrap(sharding.shard_frame(frames[0], mesh, cfg), intr, cfg,
+                        init_pose=poses[0])
+    st = slam.step(st, frames[1], intr, cfg)
+    cfg = dataclasses.replace(cfg, map_capacity=2 * cfg.map_capacity)
+    st = st._replace(map=sharded_step.grow(st.map, cfg.map_capacity))
+    st = slam.step(st, frames[2], intr, cfg)
+    active = torch.tensor([False, True, True, True])
+    act, arch, stats = sharded_step.exchange_active(st.map, archive, active, st.time, cfg)
+    st = slam.step(st._replace(map=act), frames[3], intr, cfg, fixed_pose=poses[3])
+    return st, arch, stats
+
+
+def dense_rows(state, archive, stats) -> dict:
+    """This process's rows of a sharded state (each field's local parts in
+    shard order), with the replicated fields, the archive and the stats."""
+    from hrbffusion3d_tpu_torch.pipeline import slam
+
+    out = {"map": torch.cat(state.map.data.parts).numpy(),
+           "count": state.map.count.numpy(), "archive": archive.data.numpy(),
+           "archive_count": archive.count.numpy(), "stats": stats.numpy(),
+           "devices": np.array([str(p.device) for p in state.map.data.parts])}
+    for name in slam.SLAMState._fields:
+        x = getattr(state, name)
+        if hasattr(x, "parts"):
+            out[name] = torch.cat(x.parts).numpy()
+        elif isinstance(x, torch.Tensor):
+            out[name] = x.numpy()
+    return out
+
+
+def _log_moves(mesh) -> list:
+    """Wraps ``mesh.move_rows`` so that each call appends [the rows it
+    brought from other processes, the rows of this process that left for
+    another one, the rows this process holds in the new layout] to the
+    list returned."""
+    log, move = [], mesh.move_rows
+    n = len(mesh.devices)
+
+    def logged(parts, pos, bounds, into):
+        before = mesh.received_rows
+        mine = mesh.local(bounds)
+        lo, hi = mine[0][0], mine[-1][1]
+        p = torch.cat(list(pos))
+        left = int(((p >= 0) & ((p < lo) | (p >= hi))).sum())
+        out = move(parts, pos, bounds, into)
+        log.append([mesh.received_rows - before, left, hi - lo])
+        assert len(bounds) == n * mesh.n_ranks
+        return out
+
+    mesh.move_rows = logged
+    return log
+
+
+def dense_rank(addr, n_processes, rank, layouts, modes, out_dir):
+    """One process of a ``gloo`` group running ``dense_run`` for each mode
+    on ``global_mesh(local_shards, two_level)`` on the CPU for each
+    ``(local_shards, two_level)`` of ``layouts``; it writes its rows to
+    ``out_dir/<local_shards>_<mode>_<rank>.npz`` with its log of the row
+    moves (``_log_moves``), then, outside the group, the whole rows of the
+    in-process mesh of the same shard count for its share of the (layout,
+    mode) pairs to ``out_dir/<local_shards>_<mode>_ref.npz``."""
+    torch.set_num_threads(1)
+    multihost.initialize(addr, n_processes, rank, backend="gloo")
+    try:
+        for local_shards, two_level in layouts:
+            mesh = multihost.global_mesh(local_shards=local_shards, device="cpu",
+                                         two_level=two_level)
+            for mode in modes:
+                log = _log_moves(mesh)
+                rows = dense_rows(*dense_run(mesh, mode))
+                np.savez(f"{out_dir}/{local_shards}_{mode}_{rank}.npz", moves=np.array(log),
+                         **rows)
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    pairs = [(k, mode) for k, _ in layouts for mode in modes]
+    for local_shards, mode in pairs[rank::n_processes]:
+        local = sharding.make_mesh(n_processes * local_shards, devices=["cpu"])
+        np.savez(f"{out_dir}/{local_shards}_{mode}_ref.npz",
+                 **dense_rows(*dense_run(local, mode)))
