@@ -84,8 +84,8 @@ and prints:
     repeat bit for bit, card vs the port's CPU run of the same mesh and
     n shards vs 1 within 1e-4, ms per solve beside ``ba.optimize``); (b)
     the same problem in 2 spawned ``gloo`` processes of 4 shards (their
-    tensors on the card) and in 1 ``nccl`` process of 8, each within 2e-5
-    of the in-process 8-shard solve; (c) ``FullSLAM(mesh=make_mesh(4))``
+    tensors on the card) and in 1 ``nccl`` process of 8, each bit for bit
+    to the in-process 8-shard solve; (c) ``FullSLAM(mesh=make_mesh(4))``
     on 41 frames of (b)'s protocol through a synchronous
     ``process_batch`` (every local BA sharded, ATE under 5 cm, 0 host
     syncs and every kernel in each dense step; the map's rows on the 4
@@ -111,11 +111,27 @@ and prints:
     ``make_mesh(8)`` run; ms per step beside the unsharded step, launches
     per shard per step, bytes per shard, bytes put into the collectives
     per step in (g); a JSON line ``{"sharded_step": {...}}``;
+  - ``FullSLAM`` over a process group (``phase_group_full_system``, (h)):
+    2 spawned ``gloo`` processes x 2 shards on the card, launched once:
+    (i) phase_distributed (c)'s 41 frames sync through one
+    ``process_batch``, bit for bit to (c)'s in-process ``make_mesh(4)``
+    run (every pose and keyframe pose, each process's map rows, the
+    count, the archive, ``archive_dropped``); (ii) the same frames
+    through ``process`` with async BA, the two processes bit for bit to
+    each other (the corrections applied at the same frames), ATE under 5
+    cm; (iii) phase_full_system (a)'s out-and-back replayed, the loop
+    closing on both processes with the same pair and deltas, bit for bit
+    to the same run on an in-process ``make_mesh(4)``; per part the fps
+    per process beside the in-process run's, host syncs per dense step,
+    every kernel in every dense step of every process, bytes into the
+    collectives per frame (dense step, backend) and the backend's ms per
+    keyframe per process; a JSON line ``{"group_full_system": {...}}``;
   - a JSON line ``{"kernels": [...]}``: per kernel its launches on the main
     path (the bilateral kernel's keyframe call site apart, and the
     launches of each ``phase_run_tum`` path, each tracking mode,
     ``phase_distributed`` (c) and each ``phase_sharded_step`` run, (f)'s
-    modes and (g)'s runs beside them, with its slab check), max abs error
+    modes, (g)'s runs and (h)'s parts beside them, with its slab check),
+    max abs error
     against the plain version, both times and the bound (the least time
     the card could take for the same work);
   - last, ``{"ok": true, "device": {...}}``.
@@ -1228,11 +1244,10 @@ def _closer_poses(lc) -> torch.Tensor:
     return torch.from_numpy(np.stack([kf.pose for kf in lc.backend.keyframes]).astype(np.float32))
 
 
-def _replay_loop(dev, label: str, scale: float):
-    """FullSLAM.process in replay mode at 640x480 on the out-and-back of
-    tests/test_full_slam_loop.py, the return leg's drift steps scaled by
-    ``scale``.  Returns (results, the system, its closer's state just before
-    each correct(), each correct()'s result)."""
+def _loop_frames(dev, scale: float):
+    """The out-and-back of tests/test_full_slam_loop.py at 640x480: (its
+    poses, the replayed poses whose return leg drifts by STEP_XI * scale
+    per step over the last 4 frames, the frames rendered on ``dev``)."""
     gt = _out_and_back()
     step = lie.se3_exp(torch.from_numpy(STEP_XI * scale)).numpy()
     D = np.eye(4, dtype=np.float32)
@@ -1241,9 +1256,17 @@ def _replay_loop(dev, label: str, scale: float):
         if k >= gt.shape[0] - 4:
             D = step @ D
         drifted.append((D @ gt[k]).astype(np.float32))
-    drifted = np.stack(drifted)
     scene = synth.default_room(dev)
-    frames = [slam.FrameInput(*synth.render_frame(scene, p, TUM1)) for p in gt]
+    return (gt, np.stack(drifted),
+            [slam.FrameInput(*synth.render_frame(scene, p, TUM1)) for p in gt])
+
+
+def _replay_loop(dev, label: str, scale: float):
+    """FullSLAM.process in replay mode at 640x480 on the out-and-back of
+    tests/test_full_slam_loop.py, the return leg's drift steps scaled by
+    ``scale``.  Returns (results, the system, its closer's state just before
+    each correct(), each correct()'s result)."""
+    gt, drifted, frames = _loop_frames(dev, scale)
     sys_ = full_slam.FullSLAM(TUM1, LOOP_CFG, backend_kwargs=LOOP_BACKEND, loop_kwargs=LOOP_ARGS,
                               init_pose=gt[0], device=dev)
     lc = sys_.loop_closer
@@ -2109,12 +2132,14 @@ def phase_tracking_modes(poses, frames, smi) -> tuple[dict, dict]:
 # run of the same mesh and n shards against 1 within DIST_TOL (poses: norm
 # of se3_log of the difference; landmarks: metres) and DIST_CHI2_RTOL
 # (tests/test_torch_ba.py's solver bounds); the multi-process solves of
-# the unpadded problem against the in-process 8-shard one within DIST_MP_TOL
-# (tests/test_multihost_2proc.py's bound); FullSLAM(mesh=make_mesh(4)) on
+# the unpadded problem equal to the in-process 8-shard one bit for bit
+# (Mesh.psum adds every shard's system in the global shard order over a
+# group too; tests/test_multihost_2proc.py bounds the JAX pair by 2e-5);
+# FullSLAM(mesh=make_mesh(4)) on
 # phase_full_system (b)'s protocol cut to DIST_FRAMES frames (5 keyframes),
 # its keyframe poses within DIST_TOL of mesh=None's
 DIST_SHARDS = (1, 4, 8)
-DIST_TOL, DIST_CHI2_RTOL, DIST_MP_TOL = 1e-4, 1e-4, 2e-5
+DIST_TOL, DIST_CHI2_RTOL = 1e-4, 1e-4
 DIST_FRAMES, DIST_FULL_SHARDS = 41, 4
 # (b): (backend, processes, shards per process); NCCL refuses two ranks on
 # one card, so the gloo ranks share it and the nccl group has one rank
@@ -2208,11 +2233,11 @@ def _dist_processes(problem, dev, device=None) -> dict:
     """(b) phase_backend's last local-BA problem, unpadded, in separate
     processes: 2 ``gloo`` ranks with 4 shards each, every rank's tensors
     on the card, and 1 ``nccl`` rank with 8 shards; each against the
-    in-process 8-shard solve of the same problem on the card.  Unpadded,
-    its landmarks fill all 8 shards, so each gloo rank adds several
-    non-empty shards and the all-reduce groups the sum otherwise than the
-    in-process order (the padded problem of (a) leaves rank 1 one shard
-    with edges)."""
+    in-process 8-shard solve of the same problem on the card, bit for bit.
+    Unpadded, its landmarks fill all 8 shards, so each gloo rank holds
+    several non-empty shards, whose systems a per-process sum would group
+    otherwise than the in-process order (the padded problem of (a) leaves
+    rank 1 one shard with edges)."""
     n_lms = int(problem.points.shape[0])
     mesh = sharding.make_mesh(8, devices=[dev])
     sb = dist_ba.partition_problem(problem, mesh.size)
@@ -2244,24 +2269,27 @@ def _dist_processes(problem, dev, device=None) -> dict:
                   f"{row['device']} ({row['seconds']:.1f} s with start-up; shards with edges "
                   f"per rank {held}, valid edges per shard {valid}): cameras "
                   f"{row['cams']:.3g}, landmarks {row['points']:.3g} m, chi2 relative "
-                  f"{row['chi2_rel']:.3g} from the in-process 8-shard solve")
-            if not (row["cams"] <= DIST_MP_TOL and row["points"] <= DIST_MP_TOL
-                    and row["chi2_rel"] < DIST_CHI2_RTOL):
-                raise RuntimeError(f"distributed (b): {backend} run {row} (limit {DIST_MP_TOL})")
+                  f"{row['chi2_rel']:.3g} from the in-process 8-shard solve (exact required)")
+            if not (row["cams"] == 0 and row["points"] == 0 and row["chi2_rel"] == 0):
+                raise RuntimeError(f"distributed (b): {backend} run {row} differs from the "
+                                   "in-process solve")
     return out
 
 
 @contextlib.contextmanager
-def _per_frame(sink, syncs):
+def _per_frame(sink, syncs, mesh=None):
     """Record, for every slam.bootstrap and slam.step call, the host syncs
-    (of the main thread) and the kernels' launches it made."""
+    (of the main thread) and the kernels' launches it made; with ``mesh``
+    also the host reads its collectives made (``Mesh.host_reads``)."""
     fns = {name: getattr(slam, name) for name in ("bootstrap", "step")}
 
     def recorder(fn):
         def run(*args, **kwargs):
             before, s0 = dict(kernels.LAUNCHES), syncs[0]
+            r0 = mesh.host_reads if mesh is not None else 0
             out = fn(*args, **kwargs)
-            sink.append((syncs[0] - s0, {k: v - before[k] for k, v in kernels.LAUNCHES.items()}))
+            rec = (syncs[0] - s0, {k: v - before[k] for k, v in kernels.LAUNCHES.items()})
+            sink.append(rec if mesh is None else rec + (mesh.host_reads - r0,))
             return out
         return run
 
@@ -2274,15 +2302,22 @@ def _per_frame(sink, syncs):
             setattr(slam, name, fn)
 
 
-def _dist_full_system(dev, mesh) -> dict:
-    """(c) FullSLAM with ``mesh`` on phase_full_system (b)'s protocol cut
-    to DIST_FRAMES frames, sync through one process_batch, then the same
-    frames with mesh=None."""
-    n = DIST_FRAMES
+def _dist_frames(dev, n=DIST_FRAMES):
+    """phase_full_system (b)'s protocol cut to ``n`` frames: (the poses, the
+    Kinect-noisy frames stacked on ``dev``)."""
     scene = synth.complex_room(dev)
     gt = synth.panorama_trajectory(n, n_turns=1.8 * (n - 1) / 360.0)
     ds, cs = zip(*(_kinect_frame(scene, gt[i], i, dev) for i in range(n)))
-    batch = slam.FrameInput(torch.stack(ds), torch.stack(cs))
+    return gt, slam.FrameInput(torch.stack(ds), torch.stack(cs))
+
+
+def _dist_full_system(dev, mesh) -> tuple[dict, dict]:
+    """(c) FullSLAM with ``mesh`` on phase_full_system (b)'s protocol cut
+    to DIST_FRAMES frames, sync through one process_batch, then the same
+    frames with mesh=None.  Returns (the results, the mesh run's record
+    for phase_group_full_system (h)(i): ``_gfs_record``)."""
+    n = DIST_FRAMES
+    gt, batch = _dist_frames(dev, n)
     solves, problems, frames = [], [], []
     make_optimizer = dist_ba.make_optimizer
 
@@ -2313,6 +2348,8 @@ def _dist_full_system(dev, mesh) -> dict:
         dist_ba.make_optimizer = make_optimizer
     launches = dict(kernels.LAUNCHES)
     _driven("distributed (c)", launches)
+    record = _gfs_record(sys_, mesh, GFS_PROCESSES)
+    record.update(frames_digest=multihost.digest([batch.depth, batch.rgb]), fps=(n - 1) / secs)
     data = sys_.state.map.data
     map_shards = (sum(p.shape[0] > 0 for p in data.parts)
                   if isinstance(data, sharding.ShardedRows) else 1)
@@ -2368,26 +2405,29 @@ def _dist_full_system(dev, mesh) -> dict:
     if len(frames) != n or idle:
         raise RuntimeError(f"distributed (c): {len(frames)} dense steps for {n} frames; a kernel "
                            f"was not launched on frames {idle}")
-    return out
+    return out, record
 
 
-def phase_distributed(problem, dev, smi) -> dict:
+def phase_distributed(problem, dev, smi) -> tuple[dict, dict]:
     """The landmark-sharded local BA: (a) phase_backend's last local-BA
     problem, padded as the mesh path pads it, on 1-, 4- and 8-shard meshes
     of the card; (b) the same problem unpadded in 2 gloo processes and 1
-    nccl process; (c) FullSLAM(mesh=) end to end."""
+    nccl process; (c) FullSLAM(mesh=) end to end.  Returns (the results,
+    (c)'s record for phase_group_full_system)."""
     t_phase = time.perf_counter()
     prob = ba.pad_problem(problem)
     print(f"distributed: problem of {problem.obs.shape[0]} edges, {problem.points.shape[0]} "
           f"landmarks, {problem.cams.shape[0]} cameras (padded "
           f"{prob.obs.shape[0]} / {prob.points.shape[0]} / {prob.cams.shape[0]}); {smi}")
-    out = dict(problem=_ba_sizes(prob), solver=_dist_solver(prob, dev),
-               processes=_dist_processes(problem, dev),
-               full_system=_dist_full_system(dev, sharding.make_mesh(DIST_FULL_SHARDS,
-                                                                     devices=[dev])))
+    solver = _dist_solver(prob, dev)
+    processes = _dist_processes(problem, dev)
+    full_system, record = _dist_full_system(dev, sharding.make_mesh(DIST_FULL_SHARDS,
+                                                                    devices=[dev]))
+    out = dict(problem=_ba_sizes(prob), solver=solver, processes=processes,
+               full_system=full_system)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"distributed: phase {out['seconds']:.1f} s")
-    return out
+    return out, record
 
 
 # phase_sharded_step: the row-sharded dense step (parallel/sharded_step) on
@@ -2849,6 +2889,259 @@ def phase_sharded_step(poses, frames, est, state, smi, full_system, mode_runs) -
     return out
 
 
+# phase_group_full_system: FullSLAM over a process group, GFS_PROCESSES gloo
+# processes x GFS_SHARDS shards on the one card (NCCL refuses two ranks on
+# one card), launched once: (i) phase_distributed (c)'s protocol (DIST_FRAMES
+# frames, FULL_CFG) sync through one process_batch, bit for bit to (c)'s
+# in-process make_mesh(4) run (every pose and keyframe pose, each process's
+# map rows, the count, the archive, archive_dropped); (ii) the same frames
+# through process with async BA, both processes bit for bit to each other
+# (the whole map gathered, the archive, poses, keyframes, the corrections
+# and the frames they applied at), ATE under FULL_ATE_MAX; (iii)
+# phase_full_system (a)'s out-and-back (the test's drift) replayed, the loop
+# firing on both processes with the same pair and deltas, bit for bit to the
+# same run on an in-process make_mesh(4); every dense step of every process
+# launching every kernel, host syncs per dense step counted
+GFS_PROCESSES, GFS_SHARDS = 2, 2
+GFS_TIMEOUT_S = 900.0
+GFS_PARTS = ("sync", "async", "loop")
+GFS_ASYNC_FRAMES = DIST_FRAMES
+
+
+def _gfs_record(sys_, mesh, halves: int = 1) -> dict:
+    """What phase_group_full_system compares of a FullSLAM run on ``mesh``:
+    the poses, keyframe poses, map count, archive count and digest,
+    ``archive_dropped``, the loops, the async corrections applied, and a
+    digest of the map rows of each of ``halves`` equal runs of the local
+    shards (a group process's rows: ``halves`` 1; the same rows of an
+    in-process mesh: ``halves`` = the group's process count)."""
+    parts = sys_.state.map.data.parts
+    k = len(parts) // halves
+    arch = sys_.archive
+    return dict(poses=sys_.poses().astype(np.float32),
+                kf_poses=np.stack([kf.pose for kf in sys_.backend.keyframes]).astype(np.float32),
+                count=int(sys_.state.map.count), archive_dropped=int(sys_.archive_dropped),
+                archive_count=-1 if arch is None else int(arch.count),
+                archive_digest=0 if arch is None else multihost.digest([arch.data]),
+                map_digests=[multihost.digest([torch.cat(parts[h * k:(h + 1) * k])])
+                             for h in range(halves)],
+                loops=np.array(sys_.loop_closures, dtype=np.int64).reshape(-1, 2),
+                applied=np.array(sys_.async_applied, dtype=np.int64).reshape(-1, 2))
+
+
+@contextlib.contextmanager
+def _backend_ms(sys_, sink):
+    """Sum into ``sink[name]`` the wall ms of every call of the system's
+    backend and loop closer entry points (on whichever thread)."""
+    targets = [(sys_.backend, n) for n in ("insert_keyframe", "active_submap_mask", "local_ba")]
+    if sys_.loop_closer is not None:
+        targets += [(sys_.loop_closer, n) for n in ("add_keyframe", "correct")]
+    for obj, name in targets:
+        fn = getattr(obj, name)
+
+        def timed(*args, _fn=fn, _name=name, **kwargs):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            sink[_name] = sink.get(_name, 0.0) + 1e3 * (time.perf_counter() - t0)
+            return out
+
+        setattr(obj, name, timed)
+    try:
+        yield
+    finally:
+        for obj, name in targets:
+            delattr(obj, name)
+
+
+def _gfs_run(part, mesh, dev, halves: int = 1) -> dict:
+    """One part of phase_group_full_system on ``mesh`` (a group's or an
+    in-process one): the system driven through its entry points, with the
+    kernels' launches, host syncs and launches per dense step, bytes into
+    the collectives, wall seconds and backend ms recorded."""
+    if part == "loop":
+        gt, drifted, frames = _loop_frames(dev, 1.0)
+        sys_ = full_slam.FullSLAM(TUM1, LOOP_CFG, backend_kwargs=LOOP_BACKEND,
+                                  loop_kwargs=LOOP_ARGS, init_pose=gt[0], mesh=mesh, device=dev)
+    else:
+        n = DIST_FRAMES if part == "sync" else GFS_ASYNC_FRAMES
+        gt, batch = _dist_frames(dev, n)
+        sys_ = full_slam.FullSLAM(TUM1, FULL_CFG, init_pose=gt[0], mesh=mesh, device=dev,
+                                  async_ba=part == "async")
+    corrects, ms, steps = [], {}, []
+    lc = sys_.loop_closer
+    if lc is not None:
+        correct = lc.correct
+
+        def recorded(cand, run_global_ba=True):
+            deltas = correct(cand, run_global_ba)
+            corrects.append((cand.match_kf, cand.query_kf, deltas))
+            return deltas
+
+        lc.correct = recorded
+    bmesh = sys_.backend.mesh
+    torch.cuda.synchronize()
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    b0, bb0 = mesh.sent_bytes, bmesh.sent_bytes
+    with _sync_counts() as syncs, _per_frame(steps, syncs, mesh), _backend_ms(sys_, ms):
+        t0 = time.perf_counter()
+        if part == "loop":
+            for i, f in enumerate(frames):
+                sys_.process(f, timestamp=float(i), fixed_pose=drifted[i])
+        elif part == "sync":
+            sys_.process_batch(batch, timestamps=[float(i) for i in range(n)])
+        else:
+            for i in range(n):
+                sys_.process(slam.FrameInput(batch.depth[i], batch.rgb[i]), timestamp=float(i))
+            sys_.close()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        worker_syncs = syncs[1]
+    rec = _gfs_record(sys_, mesh, halves)
+    if lc is not None:
+        lc.correct = correct
+    n_frames = len(sys_.trajectory)
+    rec.update(
+        frames=n_frames, seconds=secs, fps=(n_frames - 1) / secs, keyframes=len(rec["kf_poses"]),
+        ate_mm=ate_rmse(rec["poses"], gt[:n_frames], align=False) * 1e3,
+        whole_digest=multihost.digest([sharded_step.whole_map(sys_.state.map).data]),
+        corrects=np.array(multihost.digest([corrects]), dtype=np.int64),
+        loop_pairs=np.array([(a, b) for a, b, _ in corrects], dtype=np.int64).reshape(-1, 2),
+        step_syncs=np.array([s for s, _, _ in steps]),
+        step_reads=np.array([r for _, _, r in steps]),
+        idle_steps=np.array([i for i, (_, per, _) in enumerate(steps) if min(per.values()) == 0]),
+        launches=json.dumps(dict(kernels.LAUNCHES)), worker_syncs=worker_syncs,
+        dense_bytes=mesh.sent_bytes - b0, backend_bytes=bmesh.sent_bytes - bb0,
+        backend_ms=json.dumps(ms))
+    if part != "loop":
+        rec["frames_digest"] = multihost.digest([batch.depth, batch.rgb])
+    del sys_
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _gfs_rank(addr, n_processes, rank, local_shards, device, out_dir):
+    """One process of phase_group_full_system: each of GFS_PARTS on
+    ``global_mesh(local_shards)`` of ``device``; writes each part's record
+    to ``out_dir/<part>_<rank>.npz``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(addr, n_processes, rank, backend="gloo")
+    try:
+        dev = torch.device(device)
+        mesh = multihost.global_mesh(local_shards=local_shards, device=dev)
+        for part in GFS_PARTS:
+            np.savez(f"{out_dir}/{part}_{rank}.npz", **_gfs_run(part, mesh, dev))
+        multihost.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _gfs_differing(ranks, ref, keys) -> list:
+    """The keys of ``keys`` in which some process's record differs from
+    ``ref``'s."""
+    return [k for k in keys if not all(np.array_equal(g[k], ref[k]) for g in ranks)]
+
+
+def phase_group_full_system(dev, ref_sync, smi) -> dict:
+    """(h) FullSLAM over GFS_PROCESSES gloo processes x GFS_SHARDS shards:
+    (i) sync against phase_distributed (c)'s in-process run, (ii) async,
+    the processes against each other, (iii) the out-and-back's loop
+    against the same run on an in-process make_mesh(4)."""
+    t_phase = time.perf_counter()
+    n = GFS_PROCESSES * GFS_SHARDS
+    ref_loop = _gfs_run("loop", sharding.make_mesh(n, devices=[dev]), dev, GFS_PROCESSES)
+    print(f"group full system (iii) in process: FullSLAM(mesh=make_mesh({n})) on the "
+          f"out-and-back: {ref_loop['fps']:.2f} fps, loops {ref_loop['loops'].tolist()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        multihost.launch_local(_gfs_rank, GFS_PROCESSES, args=(GFS_SHARDS, str(dev), tmp),
+                               timeout_s=GFS_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        parts = {p: [dict(np.load(f"{tmp}/{p}_{r}.npz")) for r in range(GFS_PROCESSES)]
+                 for p in GFS_PARTS}
+    out, failed = {"seconds_with_start_up": secs}, []
+    for part, ranks in parts.items():
+        if part == "sync":
+            ref = ref_sync
+            keys = ("poses", "kf_poses", "count", "archive_count", "archive_dropped",
+                    "archive_digest", "frames_digest")
+        elif part == "async":
+            ref = ranks[0]
+            keys = ("poses", "kf_poses", "count", "archive_count", "archive_dropped",
+                    "archive_digest", "whole_digest", "loops", "corrects", "applied")
+        else:
+            ref = ref_loop
+            keys = ("poses", "kf_poses", "count", "loops", "corrects", "loop_pairs")
+        differing = _gfs_differing(ranks, ref, keys)
+        if part != "async":
+            differing += [f"map rows of process {r}" for r, g in enumerate(ranks)
+                          if int(g["map_digests"][0]) != int(ref["map_digests"][r])]
+        launches = [json.loads(str(g["launches"])) for g in ranks]
+        step_syncs = sorted({int(x) for g in ranks for x in g["step_syncs"]})
+        step_reads = sorted({int(x) for g in ranks for x in g["step_reads"]})
+        # the dense step's host syncs over a group are the split-size reads
+        # of move_rows (Mesh.host_reads), one per move, and nothing else
+        unexplained = [r for r, g in enumerate(ranks)
+                       if not np.array_equal(g["step_syncs"], g["step_reads"])]
+        frames = int(ranks[0]["frames"])
+        r = out[part] = dict(
+            differing=differing, frames=frames, keyframes=int(ranks[0]["keyframes"]),
+            fps=[float(g["fps"]) for g in ranks], seconds=[float(g["seconds"]) for g in ranks],
+            ref_fps=float(ref["fps"]) if part != "async" else float(ref_sync["fps"]),
+            ate_mm=float(ranks[0]["ate_mm"]), host_syncs_per_dense_step=step_syncs,
+            move_rows_reads_per_dense_step=step_reads,
+            host_syncs_per_process=[int(g["step_syncs"].sum()) for g in ranks],
+            worker_syncs=[int(g["worker_syncs"]) for g in ranks],
+            dense_steps=[len(g["step_syncs"]) for g in ranks],
+            idle_steps=[g["idle_steps"].tolist() for g in ranks],
+            launches={k: sum(x[k] for x in launches) for k in launches[0]},
+            dense_bytes_per_frame=[float(g["dense_bytes"]) / frames for g in ranks],
+            backend_bytes_per_frame=[float(g["backend_bytes"]) / frames for g in ranks],
+            backend_ms_per_keyframe=[
+                {k: v / int(g["keyframes"]) for k, v in json.loads(str(g["backend_ms"])).items()}
+                for g in ranks],
+            loops=ranks[0]["loops"].tolist(), loop_pairs=ranks[0]["loop_pairs"].tolist(),
+            applied=ranks[0]["applied"].tolist(), archive_dropped=int(ranks[0]["archive_dropped"]),
+            count=int(ranks[0]["count"]))
+        total_ms = [sum(x.values()) for x in r["backend_ms_per_keyframe"]]
+        print(f"group full system ({part}): {GFS_PROCESSES} gloo processes x {GFS_SHARDS} shards "
+              f"on {dev}, {frames} frames: {', '.join(f'{x:.2f}' for x in r['fps'])} fps per "
+              f"process (in-process make_mesh({n}) {r['ref_fps']:.2f}); bit for bit to "
+              f"{'each other' if part == 'async' else f'make_mesh({n})'}: {not differing} "
+              f"{differing or ''}; ATE {r['ate_mm']:.2f} mm; keyframes {r['keyframes']}, loops "
+              f"{r['loops']} (pairs corrected {r['loop_pairs']}); async corrections applied "
+              f"(state time, keyframe) {r['applied']}; host syncs per dense step {step_syncs}, "
+              f"of them move_rows' split-size reads {step_reads} (syncs per process "
+              f"{r['host_syncs_per_process']} in {r['dense_steps']} dense steps; keyframe worker "
+              f"{r['worker_syncs']}; async: one agreement per frame boundary, a host integer "
+              f"over gloo, no device read); bytes into "
+              f"the collectives per frame: dense "
+              f"{', '.join(f'{x / 1e6:.2f}' for x in r['dense_bytes_per_frame'])} MB, backend "
+              f"{', '.join(f'{x / 1e3:.1f}' for x in r['backend_bytes_per_frame'])} kB; backend "
+              f"ms per keyframe per process {', '.join(f'{x:.1f}' for x in total_ms)} "
+              f"({json.dumps(r['backend_ms_per_keyframe'])}); archive_dropped "
+              f"{r['archive_dropped']}; launches {json.dumps(r['launches'])}; {smi}")
+        if differing:
+            failed.append(f"({part}) differs in {differing}")
+        if any(r["idle_steps"]) or any(k != frames for k in r["dense_steps"]):
+            failed.append(f"({part}) {r['dense_steps']} dense steps for {frames} frames; a "
+                          f"kernel idle in steps {r['idle_steps']}")
+        if unexplained:
+            failed.append(f"({part}) processes {unexplained}: host syncs in dense steps other "
+                          f"than move_rows' split sizes ({step_syncs} against {step_reads})")
+        if not np.isfinite(ranks[0]["poses"]).all() or (
+                part != "loop" and not r["ate_mm"] < FULL_ATE_MAX * 1e3):
+            failed.append(f"({part}) ATE {r['ate_mm']} mm")
+        if part == "loop" and not (r["loops"] and r["loop_pairs"]):
+            failed.append("(loop) no loop closed")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"group full system: phase {out['seconds']:.1f} s ({secs:.1f} s the launch)")
+    if failed:
+        raise RuntimeError("group full system: " + "; ".join(failed))
+    return out
+
+
 def main() -> None:
     name, smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -2870,13 +3163,16 @@ def main() -> None:
     modes, mode_runs = phase_tracking_modes(poses, frames, smi)
     modes["device"] = smi
     print(json.dumps({"tracking_modes": modes}, default=float))
-    distributed = phase_distributed(last_problem, dev, smi)
+    distributed, sync_record = phase_distributed(last_problem, dev, smi)
     distributed["device"] = smi
     print(json.dumps({"distributed": distributed}, default=float))
     sharded = phase_sharded_step(poses, frames, est, state, smi, distributed["full_system"],
                                  mode_runs)
     sharded["device"] = smi
     print(json.dumps({"sharded_step": sharded}, default=float))
+    group_full = phase_group_full_system(dev, sync_record, smi)
+    group_full["device"] = smi
+    print(json.dumps({"group_full_system": group_full}, default=float))
 
     rows = []
     for kname in kernels.LAUNCHES:
@@ -2902,6 +3198,8 @@ def main() -> None:
         row["sharded_modes_launches"] = {k: v["launches"][kname]
                                          for k, v in sharded["modes"].items()}
         row["group_launches"] = {k: sharded["group"][k]["launches"][kname] for k in GROUP_RUNS}
+        row["group_full_system_launches"] = {k: group_full[k]["launches"][kname]
+                                             for k in GFS_PARTS}
         if kname == "bilateral_filter":
             row["keyframe_launches"] = full["tracked"]["keyframe_bilateral_launches"]
         if kname == "raycast_core":

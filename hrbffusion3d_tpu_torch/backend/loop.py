@@ -13,6 +13,13 @@ the pose graph and the global BA run on the backend's ``device`` through
 the port's ``features.match``, ``posegraph.optimize`` and ``ba.optimize``
 (deterministic planned sums, full float32).  The global BA has no plan-shape
 cache (it keeps jit cache keys stable in the JAX package).
+
+Over a process group (a backend whose mesh spans one, as ``FullSLAM``
+builds it) the closer runs whole and replicated on every process:
+detection, ``correct``, the pose graph and global BA are unsharded, and
+after each ``correct`` every process checks that it found the same
+candidate pair and deltas as the others (``multihost.check_replicas`` over
+the backend mesh's group), raising on every process if not.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..parallel import multihost
 from ..utils.tensors import const, host
 from . import ba, bow, features, posegraph
 from .keyframes import Keyframe, SparseBackend
@@ -311,11 +319,16 @@ class LoopCloser:
         for k in self._covis_group(cand.query_kf):
             be._fuse_into(k, loop_lms, th=4.0)
 
-        if run_global_ba:
-            deltas_ba = self._global_ba(old_poses)
-            if deltas_ba is not None:
-                return deltas_ba
-        return np.einsum("kij,kjl->kil", new_poses, np.linalg.inv(old_poses)).astype(np.float32)
+        deltas = self._global_ba(old_poses) if run_global_ba else None
+        if deltas is None:
+            deltas = np.einsum("kij,kjl->kil", new_poses, np.linalg.inv(old_poses)
+                               ).astype(np.float32)
+        mesh = be.mesh
+        if mesh is not None and mesh.group is not None:
+            multihost.check_replicas(f"loop correction {cand.match_kf}-{cand.query_kf} (pair, "
+                                     "deltas)", [cand.match_kf, cand.query_kf, deltas],
+                                     mesh.group)
+        return deltas
 
     # ------------------------------------------------------------------ #
     def _global_ba(self, original_poses: np.ndarray) -> Optional[np.ndarray]:

@@ -7,8 +7,10 @@ Each Gauss-Newton iteration:
      them, eliminates its landmark blocks (batched 3x3 inverses) and
      builds its partial reduced camera system S_d, gradient rhs_d and
      chi2_d;
-  2. ``Mesh.psum`` sums them (the one collective: 36 C^2 + 6 C + 1 floats
-     per iteration, an ``all_reduce`` when the mesh spans processes);
+  2. ``Mesh.psum`` sums them in the global shard order (the one
+     collective: 36 C^2 + 6 C + 1 floats per shard and iteration,
+     all-gathered when the mesh spans processes, so a group of processes
+     sums as one process with the same shards does);
   3. every device solves the replicated 6C x 6C system (Jacobi-scaled and
      dense, whatever the camera count), and each shard back-substitutes
      its own landmarks.
@@ -263,6 +265,7 @@ def gather_points(points_sharded, n_landmarks: int, mesh: Mesh | None = None) ->
         if dist.get_backend(mesh.group) == "gloo":
             local = local.cpu()
         parts = [torch.empty_like(local) for _ in range(dist.get_world_size(mesh.group))]
+        mesh.sent_bytes += local.numel() * local.element_size()
         dist.all_gather(parts, local, group=mesh.group)
         local = torch.cat(parts)
     return host(local).reshape(-1, 3)[:n_landmarks]

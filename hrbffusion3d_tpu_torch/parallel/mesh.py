@@ -7,12 +7,17 @@ A ``Mesh`` holds the shards this process runs, one device each, and, when
 several processes share the work, the ``torch.distributed`` process group
 that joins them (every process runs as many shards).  Its collectives take
 one part per local shard and hand each local shard the result on its own
-device; the local parts are combined in shard order on the first shard's
-device, then over the group when there is one:
+device:
   ``psum``            sum (the landmark-sharded BA's reduced systems, the
-                      dense step's Gram matrices);
+                      dense step's Gram matrices), added left to right in
+                      the global shard order on the first shard's device:
+                      over a group every shard's parts are all-gathered
+                      first, so that a group of processes adds exactly as
+                      one process with the same shards does;
   ``all_gather``      rows, concatenated in shard order;
-  ``pmin``            elementwise minimum (exact in any order);
+  ``pmin``            elementwise minimum (exact in any order: the local
+                      parts are combined first, then all-reduced over the
+                      group);
   ``exclusive_scan``  per-shard integer counts -> each shard's offset (the
                       sum of the counts of the shards before it) and the
                       total;
@@ -33,11 +38,16 @@ row range, in the global shard order):
                       a process each shard's rows are scattered into the
                       shards that own their positions, over a group every
                       row goes only to the process that owns its position
-                      (one ``all_to_all``).
+                      (one ``all_to_all``, whose split sizes are read to
+                      the host).
 Over a group ``sent_bytes`` counts the bytes this process put into the
-collectives and ``received_rows`` the rows that ``move_rows`` brought it
-from other processes.  A failed collective raises; nothing falls back to a
-gathered run.
+collectives, ``received_rows`` the rows that ``move_rows`` brought it
+from other processes and ``host_reads`` the device reads its collectives
+made (one per ``move_rows``: the ``all_to_all``'s split sizes).  Lengths
+that every process knows on the host (``all_gather``'s,
+``gather_rows``') are exchanged as host integers, on the CPU over
+``gloo`` (``host_ints``).  A failed collective raises; nothing falls back
+to a gathered run.
 
 Departure from JAX: a ``jax.sharding.Mesh`` cannot name a device twice.
 This one can, and lays its shards out round-robin over the devices it is
@@ -51,6 +61,8 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from ..utils.tensors import const
 
 _INT_MIN = torch.iinfo(torch.int32).min
 
@@ -105,6 +117,17 @@ class Mesh:
         self.axis_sizes = sizes
         self.sent_bytes = 0
         self.received_rows = 0
+        self.host_reads = 0
+
+    def with_group(self, group) -> "Mesh":
+        """The same shards and axes on another process group of the same
+        processes (a second communicator, e.g. for a thread of its own:
+        collectives of two threads must not share a group)."""
+        if (group is None) != (self.group is None) or (
+                group is not None and (dist.get_world_size(group) != self.n_ranks
+                                       or dist.get_rank(group) != self.rank)):
+            raise ValueError("the group must hold the mesh's processes in the same order")
+        return Mesh(self.devices, group, self.axis_names, self.axis_sizes)
 
     @property
     def size(self) -> int:
@@ -148,6 +171,11 @@ class Mesh:
         self.sent_bytes += flat.numel() * flat.element_size()
         dist.all_reduce(flat, op=op, group=self.group)
 
+    def _gather_ints(self, n: int) -> list:
+        """Every process's host integer ``n``, in rank order (no device
+        read over ``gloo``: ``host_ints``)."""
+        return [int(b[0]) for b in self._all_gather(host_ints([n], self.group))]
+
     def _all_gather(self, x):
         """Every process's ``x`` (equal shapes), in rank order."""
         x = x.contiguous()
@@ -156,49 +184,71 @@ class Mesh:
         dist.all_gather(blocks, x, group=self.group)
         return blocks
 
-    def _reduce(self, parts, combine, op):
+    def _every_shard(self, parts):
+        """Every shard's parts in the global shard order, on the first
+        device: over a group one ``all_gather`` per dtype of a flat buffer
+        holding this process's shards' parts, shard after shard."""
         home = self.home
-        total = [x.to(home) for x in parts[0]]
-        for shard in parts[1:]:
-            total = [combine(a, b.to(home)) for a, b in zip(total, shard)]
-        if self.group is not None:
-            # one flat buffer per dtype
-            for dtype in dict.fromkeys(x.dtype for x in total):
-                at = [i for i, x in enumerate(total) if x.dtype == dtype]
-                flat = torch.cat([total[i].reshape(-1) for i in at])
-                self._all_reduce(flat, op)
-                for i, y in zip(at, flat.split([total[i].numel() for i in at])):
-                    total[i] = y.view_as(total[i])
-        return self._spread(total)
+        local = [[x.to(home) for x in shard] for shard in parts]
+        if self.group is None:
+            return local
+        n = len(self.devices)
+        every = [[None] * len(local[0]) for _ in range(self.size)]
+        for dtype in dict.fromkeys(x.dtype for x in local[0]):
+            at = [i for i, x in enumerate(local[0]) if x.dtype == dtype]
+            flat = torch.cat([shard[i].reshape(-1) for shard in local for i in at])
+            sizes = [local[0][i].numel() for i in at] * n
+            for r, block in enumerate(self._all_gather(flat)):
+                pieces = block.split(sizes)
+                for k in range(n):
+                    for j, i in enumerate(at):
+                        every[r * n + k][i] = pieces[k * len(at) + j].view_as(local[0][i])
+        return every
 
     def psum(self, parts):
         """Sum over the mesh.  ``parts``: one sequence of tensors per local
-        shard, the same shapes in each.  The local shards' tensors are
-        added in shard order on the first shard's device, the sum is
-        all-reduced over the group (one flat buffer), and each shard gets
-        the result on its own device: a list of tensor lists, one per
-        local shard."""
+        shard, the same shapes in each.  Every shard's tensors (over a
+        group all-gathered, one flat buffer per dtype) are added left to
+        right in the global shard order on the first shard's device, so
+        the sum rounds as it does on one process with the same shards, and
+        each local shard gets the result on its own device: a list of
+        tensor lists, one per local shard."""
         self._check("psum", parts)
-        return self._reduce(parts, torch.add, dist.ReduceOp.SUM)
+        every = self._every_shard(parts)
+        total = every[0]
+        for shard in every[1:]:
+            total = [a + b for a, b in zip(total, shard)]
+        return self._spread(total)
 
     def pmin(self, parts):
         """Elementwise minimum over the mesh, laid out as ``psum``'s (the
-        minimum is exact, so the order does not change it)."""
+        minimum is exact, so the order does not change it: the local
+        shards' parts are combined first, then all-reduced over the group,
+        one flat buffer per dtype)."""
         self._check("pmin", parts)
-        return self._reduce(parts, torch.minimum, dist.ReduceOp.MIN)
+        home = self.home
+        total = [x.to(home) for x in parts[0]]
+        for shard in parts[1:]:
+            total = [torch.minimum(a, b.to(home)) for a, b in zip(total, shard)]
+        if self.group is not None:
+            for dtype in dict.fromkeys(x.dtype for x in total):
+                at = [i for i, x in enumerate(total) if x.dtype == dtype]
+                flat = torch.cat([total[i].reshape(-1) for i in at])
+                self._all_reduce(flat, dist.ReduceOp.MIN)
+                for i, y in zip(at, flat.split([total[i].numel() for i in at])):
+                    total[i] = y.view_as(total[i])
+        return self._spread(total)
 
     def all_gather(self, parts, dim: int = 0):
         """``parts`` (one tensor per local shard, equal but along ``dim``)
         concatenated along ``dim`` in global shard order; every local shard
         gets the whole on its own device.  Over a group the per-process
-        lengths are exchanged first (a host read) and the blocks padded to
-        the longest."""
+        lengths are exchanged first and the blocks padded to the longest."""
         self._check("all_gather", parts)
         home = self.home
         local = torch.cat([x.to(home) for x in parts], dim=dim)
         if self.group is not None:
-            lens = [int(x) for x in self._all_gather(
-                torch.tensor([local.shape[dim]], dtype=torch.int64, device=home))]
+            lens = self._gather_ints(local.shape[dim])
             pad = list(local.shape)
             pad[dim] = max(lens) - local.shape[dim]
             blocks = self._all_gather(torch.cat([local, local.new_zeros(pad)], dim=dim))
@@ -296,8 +346,7 @@ class Mesh:
             return [_owner_select(parts, mine, ids)[0] for ids in ids_list]
         home = self.home
         req = torch.cat([ids.reshape(-1).to(home, torch.int32) for ids in ids_list])
-        lens = [int(x) for x in self._all_gather(
-            torch.tensor([req.shape[0]], dtype=torch.int64, device=home))]
+        lens = self._gather_ints(req.shape[0])
         padded = torch.cat([req, req.new_zeros(max(lens) - req.shape[0])])
         every = torch.cat([g[:k] for g, k in zip(self._all_gather(padded), lens)])
         ans, owned = _owner_select(parts, mine, every)
@@ -348,14 +397,18 @@ class Mesh:
         home = self.home
         rows = torch.cat([p.to(home) for p in parts])
         at = torch.cat([p.to(home, torch.int32) for p in pos])
-        ends = torch.tensor([self._block(bounds, r)[1] for r in range(self.n_ranks)],
-                            dtype=torch.int32, device=home)
+        ends = const([self._block(bounds, r)[1] for r in range(self.n_ranks)], home,
+                     torch.int32)
         dest = torch.where(at < 0, self.n_ranks, torch.searchsorted(ends, at, right=True))
-        counts = torch.bincount(dest, minlength=self.n_ranks + 1)[:self.n_ranks]
+        # (bincount would read its maximum back to the host)
+        counts = torch.zeros(self.n_ranks + 1, dtype=torch.int64, device=home).index_add_(
+            0, dest, torch.ones_like(dest))[:self.n_ranks]
         got_counts = torch.empty_like(counts)
         self.sent_bytes += counts.numel() * counts.element_size()
         dist.all_to_all_single(got_counts, counts, group=self.group)
-        send, recv = counts.tolist(), got_counts.tolist()
+        # the split sizes: the one host read of a move over a group
+        self.host_reads += 1
+        send, recv = torch.stack([counts, got_counts]).tolist()
         order = torch.argsort(dest, stable=True)[:sum(send)]
         payload = torch.cat([_bits(rows).reshape(rows.shape[0], -1), at[:, None]], dim=1)[order]
         got = payload.new_empty((sum(recv), payload.shape[1]))
@@ -364,6 +417,15 @@ class Mesh:
         self.received_rows += sum(recv) - recv[self.rank]
         moved = _unbits(got[:, :-1].contiguous(), rows.dtype).reshape((-1,) + rows.shape[1:])
         return [moved], [got[:, -1]]
+
+
+def host_ints(values, group) -> torch.Tensor:
+    """Host integers as an int64 tensor where ``group``'s backend takes it:
+    on the CPU over ``gloo`` (so reading the result back reads no device),
+    on this process's card over ``nccl``."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    return torch.tensor(values, dtype=torch.int64, device=dev)
 
 
 def _cut(parts, mine, dev, lo: int, hi: int):

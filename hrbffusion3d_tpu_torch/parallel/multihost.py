@@ -17,12 +17,25 @@ group:
                              stack, split over the mesh
   globalize_sharded_ba()  -- this process's shards of a partitioned problem,
                              placed on its devices
-  is_coordinator()        -- process 0
+  is_coordinator()        -- process 0 (of the world, or of a group)
+  agree_min()             -- the least of one host integer over the
+                             processes (how many finished keyframe results
+                             every process holds)
+  check_replicas()        -- raise on every process, naming the field and
+                             the ranks, where values that every process
+                             computes alike differ (``digest()``, a 64-bit
+                             digest of each process's host arrays,
+                             all-gathered)
+  barrier()               -- every process of the group reaches it
+  same_ranks_group()      -- a new process group of a group's processes,
+                             in the same order (a second communicator)
   launch_local()          -- run a function in N spawned processes on this
                              host, joined by a file rendezvous, with a
                              deadline after which every one is killed
 
-Without ``initialize`` every helper works on the one process.
+Without ``initialize`` every helper works on the one process (the
+collective ones do nothing).  The host-integer collectives run on a CPU
+tensor over a ``gloo`` group, on the process's card over ``nccl``.
 
 Departures from JAX: nothing auto-detects a cluster here, so ``initialize``
 needs all three of its settings; the backend is named by the caller
@@ -43,17 +56,20 @@ through the group.
 from __future__ import annotations
 
 import datetime
+import hashlib
 import multiprocessing
 import os
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..pipeline.slam import FrameInput
 from ..utils.tensors import device_or_card
 from .dist_ba import ShardedBA, place
+from .mesh import host_ints
 from .sharding import Mesh, ShardedRows, concrete_device, row_bounds
 
 
@@ -132,8 +148,78 @@ def globalize_sharded_ba(sb: ShardedBA, mesh: Mesh) -> ShardedBA:
     return place(sb._replace(shards=sb.shards[lo:lo + len(mesh.devices)]), mesh)
 
 
-def is_coordinator() -> bool:
-    return not dist.is_initialized() or dist.get_rank() == 0
+def is_coordinator(group=None) -> bool:
+    """Whether this is process 0 of ``group`` (None: the world)."""
+    return not dist.is_initialized() or dist.get_rank(group) == 0
+
+
+def agree_min(n: int, group=None) -> int:
+    """The least of ``n`` over ``group``'s processes (None: the world);
+    ``n`` itself on one process."""
+    if not dist.is_initialized():
+        return int(n)
+    t = host_ints([int(n)], group)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return int(t[0])
+
+
+def digest(arrays) -> int:
+    """A 64-bit digest of a sequence of host values (numpy arrays, numbers,
+    None, nested tuples and lists): each one's bytes with its shape and
+    dtype."""
+    h = hashlib.blake2b(digest_size=8)
+
+    def feed(x):
+        if x is None:
+            h.update(b"None;")
+        elif isinstance(x, (tuple, list)):
+            h.update(f"seq{len(x)}(".encode())
+            for y in x:
+                feed(y)
+            h.update(b")")
+        else:
+            a = np.ascontiguousarray(x.cpu().numpy() if isinstance(x, torch.Tensor) else x)
+            h.update(f"{a.dtype.str}{a.shape};".encode())
+            h.update(a.tobytes())
+
+    for x in arrays:
+        feed(x)
+    return int.from_bytes(h.digest(), "little", signed=True)
+
+
+def check_replicas(name: str, arrays, group=None) -> None:
+    """Raise, on every process of ``group`` (None: the world), unless every
+    process holds the same ``arrays`` (host values that each process
+    computes alike: a keyframe's pose, a correction's deltas, a loop's
+    pair): a 64-bit digest of them is all-gathered, and the error names
+    ``name`` and the ranks that differ from rank 0.  Nothing on one
+    process."""
+    if not dist.is_initialized():
+        return
+    mine = host_ints([digest(arrays)], group)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, mine, group=group)
+    digests = [int(x[0]) for x in every]
+    differ = [r for r, d in enumerate(digests) if d != digests[0]]
+    if differ:
+        raise RuntimeError(f"replicas differ in {name}: ranks {differ} hold other values than "
+                           f"rank 0 (digests {digests}, this is rank "
+                           f"{dist.get_rank(group)})")
+
+
+def barrier(group=None) -> None:
+    """Every process of ``group`` (None: the world) reaches this point;
+    nothing on one process."""
+    if dist.is_initialized():
+        dist.barrier(group=group)
+
+
+def same_ranks_group(group=None):
+    """A new process group of ``group``'s processes (None: the world), in
+    the same order and on the same backend.  Every process of the world
+    must call it, in the same order as its other ``new_group`` calls."""
+    ranks = dist.get_process_group_ranks(group if group is not None else dist.group.WORLD)
+    return dist.new_group(ranks=ranks, backend=dist.get_backend(group), timeout=TIMEOUT)
 
 
 def launch_local(target, n_processes: int, args: tuple = (), timeout_s: float = 120.0) -> None:

@@ -28,7 +28,10 @@ the worker thread whatever the main thread's TF32 setting is
 
 Host syncs: ``process`` reads the pose back once per frame and the map
 count once (``ensure_capacity``); ``process_batch`` reads one packed vector
-per chunk (``slam.step_chunk``) and uses its count.
+per chunk (``slam.step_chunk``) and uses its count.  Over a group the
+dense step reads each ``move_rows``' split sizes (``Mesh.host_reads``),
+and async mode agrees once per frame boundary on a host integer (on the
+CPU over ``gloo``: no device read).
 
 ``mesh`` (``parallel.sharding.Mesh``, its first device ``device``): the
 dense state and the frames go on the mesh at ``process`` and
@@ -36,10 +39,36 @@ dense state and the frames go on the mesh at ``process`` and
 the JAX system places them) and every dense step is the row-sharded one
 (``parallel/sharded_step``); local BA, sync or async, runs the
 landmark-sharded solver (``parallel/dist_ba``) on the mesh's shards.  The
-keyframe inputs (``_kf_inputs``) and ``full_map`` read the frame and the
-map gathered (``sharding.gather_frame``, ``sharded_step.whole_map``), the
-active-window exchange and map growth gather, run whole and split the map
-again, and the corrections and the activity refresh run per shard.
+keyframe inputs (``_kf_inputs``) read the frame gathered
+(``sharding.gather_frame``); the active-window exchange
+(``sharded_step.exchange_active``: only the rows that leave are
+gathered, the archive is whole), map growth (``sharded_step.grow``: rows
+move to their new owners), the corrections and the activity refresh run
+per shard.  ``full_map`` is the one path that gathers the whole map
+(``sharded_step.whole_map``): an export.
+
+Over a process group (``mesh=multihost.global_mesh(...)`` on every
+process, after ``multihost.initialize``): every process runs this class on
+the same frames, passing each whole frame or stack (``_frame`` keeps its
+own shards' rows, as ``sharding.shard_frame`` does; a frame stack is split
+by image rows, never by frames, so ``multihost.host_local_batch`` stacks
+are not taken).  The dense step's collectives run over the mesh's group.
+The keyframe backend is replicated: every process inserts the same
+keyframe (the frame all-gathered), builds the same local-BA problem and
+solves it landmark-sharded over a second group of the same processes
+(``multihost.same_ranks_group``, made here, so that the async worker's
+collectives never share a group with the dense step's); loop closing
+runs whole on every process.  After each keyframe boundary every process
+checks that it holds what the others do (``multihost.check_replicas`` of
+the keyframe's id and pose, the covisibility mask, local BA's deltas and
+the loop's pair and deltas), and raises on every process if not.  Async:
+at every frame boundary, and in ``join_backend`` / ``close``, the
+processes agree on how many finished keyframe results each holds
+(``multihost.agree_min``) and each applies exactly that many, in keyframe
+order, so that a correction applies at the same frame on every process
+and the keyframe cadence (``_inflight``) follows equally.  Files
+(``save_trajectory_tum``, ``save_map_ply``, ``utils.checkpoint.save``)
+are written by the group's process 0 only, between barriers.
 Not ported: the JAX package's device-placement options
 (``backend_on_cpu``, ``ba_on_chip``, ``plan_cache_path``).
 """
@@ -61,7 +90,7 @@ from ..config import CameraIntrinsics, SLAMConfig
 from ..core import lie
 from ..map import surfel_map as sm
 from ..ops import preprocess, pyramid
-from ..parallel import sharded_step, sharding
+from ..parallel import multihost, sharded_step, sharding
 from ..utils.tensors import const, device_or_card, host
 from . import slam
 
@@ -83,6 +112,8 @@ class FullSLAM:
             raise ValueError(f"the mesh's first device {mesh.home} is not the system's "
                              f"device {self.device}")
         self.mesh = mesh
+        # the process group the mesh spans, or None
+        self._group = mesh.group if mesh is not None else None
         self.intr = intr
         self.cfg = cfg
         self.init_pose = init_pose
@@ -91,8 +122,11 @@ class FullSLAM:
         # BA padding buckets pre-sized for a production-scale run
         nf = bk.get("n_features", 1024)
         bk.setdefault("ba_pad_min", (16 * nf, 8 * nf, 32))
-        if mesh is not None:
-            bk.setdefault("mesh", mesh)
+        if mesh is not None and "mesh" not in bk:
+            # over a group the backend's collectives get a group of their
+            # own, made here in the same order on every process
+            bk["mesh"] = (mesh if self._group is None
+                          else mesh.with_group(multihost.same_ranks_group(self._group)))
         self.backend = SparseBackend(intr, cfg, device=self.device, **bk)
         self.loop_closer = (LoopCloser(self.backend, **(loop_kwargs or {}))
                             if cfg.use_global_ba else None)
@@ -125,6 +159,12 @@ class FullSLAM:
         # backend assigned exactly it)
         self._next_kf_id = 0
         self.async_corrections = 0
+        # (the state's time at the frame boundary, keyframe id) of every
+        # async keyframe result applied
+        self.async_applied: list[tuple[int, int]] = []
+        # results taken from the worker and not yet applied (over a group
+        # they wait until every process holds them)
+        self._finished: list = []
         self._fix_lock = threading.Lock()
         if async_ba:
             # the worker's own CUDA stream (None on the CPU)
@@ -180,18 +220,41 @@ class FullSLAM:
             if cand is not None:
                 loop = (self.loop_closer.correct(cand), cand)
         self._tick("w_loop", t0)
-        return kf_id, mask, deltas, loop
+        return kf_id, self.backend.keyframes[kf_id].pose.copy(), mask, deltas, loop
 
-    def _drain_async_results(self):
-        """Apply any finished BA / loop corrections at a frame boundary."""
+    def _check_keyframe(self, kf_id, kf_pose, mask, deltas, loop) -> None:
+        """Over a group: raise on every process unless all hold the same
+        keyframe boundary (id, pose, covisibility mask, local BA's deltas,
+        the loop's pair and deltas; ``loop`` is (deltas, candidate) or
+        None)."""
+        if self._group is None:
+            return
+        closed = None if loop is None else (loop[1].match_kf, loop[1].query_kf, loop[0])
+        multihost.check_replicas(f"keyframe {kf_id} (id, pose, covisibility mask, local BA "
+                                 "deltas, loop pair and deltas)",
+                                 [kf_id, kf_pose, mask, deltas, closed], self._group)
+
+    def _drain_async_results(self, block: bool = False):
+        """Apply finished BA / loop corrections at a frame boundary: over a
+        group exactly as many as every process holds (``agree_min``), in
+        keyframe order.  ``block``: wait for a result first when none has
+        finished here."""
+        if block and not self._finished:
+            self._finished.append(self._result_queue.get())
         while True:
             try:
-                item = self._result_queue.get_nowait()
+                self._finished.append(self._result_queue.get_nowait())
             except queue.Empty:
-                return
+                break
+        for item in self._finished:
             if isinstance(item, Exception):
                 raise RuntimeError("the keyframe worker failed") from item
-            kf_id, mask, deltas, loop = item
+        n = len(self._finished)
+        if self._group is not None:
+            n = multihost.agree_min(n, self._group)
+        ready, self._finished = self._finished[:n], self._finished[n:]
+        for kf_id, kf_pose, mask, deltas, loop in ready:
+            self._check_keyframe(kf_id, kf_pose, mask, deltas, loop)
             self._inflight -= 1
             self._refresh_active(mask)
             if deltas is not None:
@@ -201,15 +264,15 @@ class FullSLAM:
                 loop_deltas, cand = loop
                 self._apply_correction(loop_deltas, kf_id)
                 self.loop_closures.append((cand.match_kf, cand.query_kf))
+            self.async_applied.append((self.state.time, kf_id))
 
     def join_backend(self):
-        """Block until every queued keyframe is processed and applied."""
+        """Block until every queued keyframe is processed and applied (over
+        a group: on every process, applied as the processes agree)."""
         if not self.async_ba:
             return
-        while self._inflight > 0 or not self._kf_queue.empty():
-            self._drain_async_results()
-            _time.sleep(0.005)
-        self._drain_async_results()
+        while self._inflight > 0:
+            self._drain_async_results(block=True)
 
     def close(self):
         """Process and apply every queued keyframe, then stop the keyframe
@@ -288,7 +351,8 @@ class FullSLAM:
 
     def full_map(self) -> sm.SurfelMap:
         """Merged active + archive map (exports / evaluation), whole on the
-        system's device."""
+        system's device: the one path that gathers a sharded map (over a
+        group every process calls it)."""
         active = (sharded_step.whole_map(self.state.map) if sharding.is_sharded(self.state)
                   else self.state.map)
         if self.archive is None:
@@ -373,12 +437,16 @@ class FullSLAM:
                 if deltas is not None:
                     self._apply_correction(deltas, kf_id)
                     pose = self._pose_host()
+                loop = None
                 if self.loop_closer is not None:
                     cand = self.loop_closer.add_keyframe(kf_id)
                     if cand is not None:
-                        self._apply_correction(self.loop_closer.correct(cand), kf_id)
+                        loop = (self.loop_closer.correct(cand), cand)
+                        self._apply_correction(loop[0], kf_id)
                         pose = self._pose_host()
                         self.loop_closures.append((cand.match_kf, cand.query_kf))
+                self._check_keyframe(kf_id, self.backend.keyframes[kf_id].pose, mask, deltas,
+                                     loop)
 
         # capacity bucketing: double the map between frames when nearly full
         self.state, self.cfg = slam.ensure_capacity(self.state, self.cfg)
@@ -472,6 +540,8 @@ class FullSLAM:
             self._apply_correction(loop_deltas, kf_id)
             self.loop_closures.append((cand.match_kf, cand.query_kf))
         self._tick("corrections", t0)
+        self._check_keyframe(kf_id, self.backend.keyframes[kf_id].pose, mask, deltas,
+                             None if loop_deltas is None else (loop_deltas, cand))
         # the exchange's packed stats carried the fresh count
         return self._active_count if cfg.active_capacity > 0 else live_count
 
@@ -527,11 +597,25 @@ class FullSLAM:
         return np.stack(self.trajectory) if self.trajectory else np.zeros((0, 4, 4))
 
     def save_trajectory_tum(self, path: str):
+        """The trajectory as TUM text (over a group: written by process 0,
+        between barriers)."""
         from ..io import traj
 
-        traj.save_tum(path, self.timestamps, self.poses())
+        multihost.barrier(self._group)
+        if multihost.is_coordinator(self._group):
+            traj.save_tum(path, self.timestamps, self.poses())
+        multihost.barrier(self._group)
 
     def save_map_ply(self, path: str, conf_threshold: float = 0.0) -> int:
+        """The merged map as PLY; returns the surfels written (over a group
+        every process gathers the map and process 0 writes it, between
+        barriers)."""
         from ..io import ply
 
-        return ply.save_ply(path, self.full_map(), conf_threshold)
+        m = self.full_map()
+        n = int((m.data[:int(m.count), sm.CONF] >= conf_threshold).sum())
+        multihost.barrier(self._group)
+        if multihost.is_coordinator(self._group):
+            n = ply.save_ply(path, m, conf_threshold)
+        multihost.barrier(self._group)
+        return n

@@ -20,7 +20,10 @@ The BoW database is rebuilt on load from the keyframes' descriptors (the
 vocabulary is deterministic).  A state split over a mesh is saved whole
 (``sharding.gather_state``) and split again on load when the system has a
 mesh.  ``save`` first joins the async keyframe
-worker, so nothing is in flight.
+worker, so nothing is in flight.  Over a process group every process
+calls ``save`` (it joins its worker and gathers the state, both
+collective) and process 0 alone writes the file, between barriers; every
+process calls ``load`` on the same file and keeps its own shards' rows.
 
 Layout: 8 bytes little-endian length, an ``np.savez`` archive of the
 arrays (uncompressed: the map is most of the bytes and saving it is on the
@@ -42,7 +45,7 @@ import torch
 from ..backend import bow, features
 from ..backend.keyframes import Keyframe
 from ..map import surfel_map as sm
-from ..parallel import sharding
+from ..parallel import multihost, sharding
 from .convert import state_from_numpy, state_to_numpy
 from .tensors import const, host
 
@@ -53,11 +56,20 @@ def _pattern_fingerprint() -> int:
 
 
 def save(path: str, system) -> None:
-    """Write ``system`` (a ``FullSLAM`` that has processed a frame)."""
+    """Write ``system`` (a ``FullSLAM`` that has processed a frame; over a
+    group every process calls this, and process 0 writes)."""
     if system.state is None:
         raise ValueError("nothing to save: the system has processed no frame")
     system.join_backend()
     state = sharding.gather_state(system.state)
+    group = system.mesh.group if system.mesh is not None else None
+    multihost.barrier(group)
+    if multihost.is_coordinator(group):
+        _write(path, system, state)
+    multihost.barrier(group)
+
+
+def _write(path: str, system, state) -> None:
     arrays = {f"state.{k}": v for k, v in state_to_numpy(state).items()}
     if system.archive is not None:
         arrays["archive.data"] = host(system.archive.data)

@@ -1,7 +1,7 @@
 """``FullSLAM(mesh=)`` in each of its modes with the dense state sharded: the
 synchronous per-frame ``process`` and the async keyframe worker through
 ``process_batch``, both with the active-window / archive split (its
-exchange gathers the sharded map and splits it again) on a 3-shard CPU
+exchange gathers only the rows that leave for the archive) on a 3-shard CPU
 mesh at 128x96; every dense step is the row-sharded one and the state
 stays sharded; a checkpoint of the sharded system resumes sharded and bit
 for bit; ``full_map`` is the gathered map.  ATE under 5 cm is a sanity

@@ -3,11 +3,13 @@ of ``tests/test_multihost.py`` on the port (one process, an 8-shard CPU
 mesh: the flat and the two-level ``global_mesh``, ``host_local_batch``),
 the mesh's ``psum`` and the one-process ``globalize_sharded_ba``, a real
 2-process ``gloo`` solve of the landmark-sharded BA, 4 shards per process,
-held to the in-process 8-shard solve of the same problem within 2e-5
-(``tests/test_multihost_2proc.py``'s bound; the two add the 8 shards'
-systems in different orders), and the mesh's other collectives
-(``pmin``, ``all_gather`` of blocks of unequal length, the exclusive scan)
-over a 2-process ``gloo`` group, equal to the one-process results.
+equal bit for bit to the in-process 8-shard solve of the same problem
+(``psum`` over a group adds every shard's system in the global shard
+order, as one process does; ``tests/test_multihost_2proc.py`` bounds the
+JAX pair by 2e-5), and the mesh's collectives (``psum``, also on values
+whose sum depends on its grouping, ``pmin``, ``all_gather`` of blocks of
+unequal length, the exclusive scan, ``move_rows``) over a 2-process
+``gloo`` group, equal to the one-process results.
 
 The children run ``tests/torch_dist_child.py`` (no JAX), meet at a file
 rendezvous in a fresh temporary directory (no port to collide with other
@@ -112,10 +114,11 @@ def test_two_process_dist_ba_matches_single_process(tmp_path):
     prob = torch_dist_child.make_problem()[0]
     mesh = sharding.make_mesh(8, devices=["cpu"])
     cams, points, chi = dist_ba.make_optimizer(mesh)(dist_ba.partition_problem(prob, 8))
-    np.testing.assert_allclose(got["cams"], cams.numpy(), atol=2e-5)
-    np.testing.assert_allclose(got["points"],
-                               dist_ba.gather_points(points, prob.points.shape[0]), atol=2e-5)
-    np.testing.assert_allclose(float(got["chi"]), float(chi), rtol=1e-4)
+    # the group adds the 8 shards' systems in the in-process order: exact
+    np.testing.assert_array_equal(got["cams"], cams.numpy())
+    np.testing.assert_array_equal(got["points"],
+                                  dist_ba.gather_points(points, prob.points.shape[0]))
+    np.testing.assert_array_equal(got["chi"], chi.numpy())
 
 
 def test_two_process_collectives_match_single_process(tmp_path):
@@ -127,6 +130,13 @@ def test_two_process_collectives_match_single_process(tmp_path):
     vals = [torch_dist_child.shard_values(k) for k in range(6)]
     np.testing.assert_array_equal(got["psum"],
                                   mesh.psum([[v[1].to(torch.float32)] for v in vals])[0][0])
+    # the group adds every shard's part in the global shard order, as one
+    # process does; each process's sum first would round otherwise
+    cancelling = [torch.tensor([x], dtype=torch.float32) for x in torch_dist_child.CANCELLING]
+    in_process = mesh.psum([[x] for x in cancelling])[0][0]
+    per_process = sum(cancelling[:3], torch.zeros(1)) + sum(cancelling[3:], torch.zeros(1))
+    assert float(in_process[0]) == 2.0 and float(per_process[0]) == 0.0
+    np.testing.assert_array_equal(got["exact"], in_process)
     np.testing.assert_array_equal(got["pmin"], mesh.pmin([[v[1]] for v in vals])[0][0])
     np.testing.assert_array_equal(got["gathered"], torch.cat([v[0] for v in vals]))
     counts = [int(v[2]) for v in vals]

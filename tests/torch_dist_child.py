@@ -1,11 +1,14 @@
-"""The child side of the port's multi-process BA tests, kept free of JAX so
+"""The child side of the port's multi-process tests, kept free of JAX so
 that each spawned process starts in about two seconds (``conftest.py``,
 which imports JAX, is not loaded in a child).
 
 ``make_problem`` is ``tests/test_ba.py::_make_problem``'s construction from
 a numpy seed (cameras on a small arc, every camera sees every landmark,
 the first two fixed); ``solve_rank`` is one process of a multi-process
-solve of it.
+solve of it.  ``collectives_rank`` runs the mesh's collectives,
+``dense_rank`` the row-sharded dense step, and ``full_sync_rank``,
+``full_async_rank``, ``full_resume_rank`` and ``full_mismatch_rank``
+``FullSLAM`` over a group (``tests/test_torch_full_slam_group.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch.distributed
 from hrbffusion3d_tpu_torch.backend import ba
 from hrbffusion3d_tpu_torch.core import lie
 from hrbffusion3d_tpu_torch.parallel import dist_ba, multihost, sharding
+from hrbffusion3d_tpu_torch.utils import checkpoint
 
 
 def make_problem(seed=4, n_cams=5, n_lms=64, noise=0.003, perturb=0.05):
@@ -73,6 +77,12 @@ def shard_values(k: int):
             torch.tensor(int(rng.integers(0, 20)), dtype=torch.int32))
 
 
+# per global shard: float32 values whose sum depends on its grouping: in
+# the global shard order 1e8 + 1 + 1 - 1e8 + 1 + 1 = 2 (each + 1 on 1e8
+# rounds away), each process's three added first 1e8 + (-1e8) = 0
+CANCELLING = (1e8, 1.0, 1.0, -1e8, 1.0, 1.0)
+
+
 def move_positions(n_shards: int):
     """(the global rows of ``shard_values``' float blocks of ``n_shards``
     shards, each block's rows' new positions: a permutation from a seed)."""
@@ -94,6 +104,8 @@ def collectives_rank(addr, n_processes, rank, local_shards, out_path):
         mesh = multihost.global_mesh(local_shards=local_shards, device="cpu")
         vals = [shard_values(mesh.first_shard + i) for i in range(local_shards)]
         psum = mesh.psum([[v[1].to(torch.float32)] for v in vals])
+        exact = mesh.psum([[torch.tensor([CANCELLING[mesh.first_shard + i]])]
+                           for i in range(local_shards)])
         pmin = mesh.pmin([[v[1]] for v in vals])
         gathered = mesh.all_gather([v[0] for v in vals])
         offs, total = mesh.exclusive_scan([v[2] for v in vals])
@@ -103,9 +115,11 @@ def collectives_rank(addr, n_processes, rank, local_shards, out_path):
                                [torch.zeros(b - a, 3) for a, b in mesh.local(new_bounds)])
         for i in range(local_shards):
             assert torch.equal(psum[i][0], psum[0][0]) and torch.equal(pmin[i][0], pmin[0][0])
+            assert torch.equal(exact[i][0], exact[0][0])
             assert torch.equal(gathered[i], gathered[0]) and torch.equal(total[i], total[0])
         if multihost.is_coordinator():
-            np.savez(out_path, psum=psum[0][0].numpy(), pmin=pmin[0][0].numpy(),
+            np.savez(out_path, psum=psum[0][0].numpy(), exact=exact[0][0].numpy(),
+                     pmin=pmin[0][0].numpy(),
                      gathered=gathered[0].numpy(), total=total[0].numpy(),
                      offsets=torch.stack(offs).numpy(), moved=torch.cat(moved).numpy(),
                      received_rows=mesh.received_rows)
@@ -240,3 +254,163 @@ def dense_rank(addr, n_processes, rank, layouts, modes, out_dir):
         local = sharding.make_mesh(n_processes * local_shards, devices=["cpu"])
         np.savez(f"{out_dir}/{local_shards}_{mode}_ref.npz",
                  **dense_rows(*dense_run(local, mode)))
+
+
+# --------------------------------------------------------------------------- #
+# FullSLAM over a process group
+# --------------------------------------------------------------------------- #
+
+# a keyframe every 4 frames; 32 features, so that keyframes share fewer than
+# 15 landmarks and the older submaps leave the active window (rows move to
+# the archive at the exchanges)
+FULL_FRAMES, FULL_SPLIT = 13, 8
+FULL_BACKEND = dict(fast_threshold=8.0, n_features=32)
+
+
+def full_setup():
+    """(intrinsics, config, ground-truth poses, frames) of the group runs:
+    ``tests/test_torch_full_slam_mesh.py``'s protocol (13 frames of the
+    orbit at 128x96, a keyframe every 4 frames) rendered by the port's
+    ``eval/synth``, with the active-window / archive split."""
+    from hrbffusion3d_tpu_torch.config import CameraIntrinsics, small_test_config
+    from hrbffusion3d_tpu_torch.eval import synth
+
+    intr = CameraIntrinsics(fx=103.0, fy=103.0, cx=64.0, cy=48.0, width=128, height=96)
+    cfg = small_test_config(map_capacity=1 << 14, pyramid_iterations=(4, 3, 2),
+                            so3_iterations=4, predict_conf_threshold=0.2, keyframe_period=4,
+                            active_capacity=1 << 14, archive_capacity=1 << 15)
+    gt = synth.orbit_trajectory(FULL_FRAMES, angle_per_frame=0.004)
+    room = synth.default_room("cpu")
+    return intr, cfg, gt, [synth.render_frame(room, p, intr) for p in gt]
+
+
+def full_system(mesh, async_ba=False):
+    from hrbffusion3d_tpu_torch.pipeline.full_slam import FullSLAM
+
+    intr, cfg, gt, _ = full_setup()
+    return FullSLAM(intr, cfg, init_pose=gt[0], mesh=mesh, async_ba=async_ba,
+                    backend_kwargs=FULL_BACKEND, device="cpu")
+
+
+def full_batch(frames, lo, hi):
+    from hrbffusion3d_tpu_torch.pipeline import slam
+
+    return slam.FrameInput(torch.stack([d for d, _ in frames[lo:hi]]),
+                           torch.stack([c for _, c in frames[lo:hi]]))
+
+
+def full_rows(sys_) -> dict:
+    """This process's rows of a FullSLAM run: every pose, every keyframe
+    pose, its shards' map rows (local parts in shard order) and the map's
+    count, the archive, ``archive_dropped``, the loops and the async
+    corrections applied (the state's time at each, the keyframe)."""
+    m = sys_.state.map
+    return dict(poses=sys_.poses(), kf_poses=np.stack([kf.pose for kf in sys_.backend.keyframes]),
+                map=torch.cat(m.data.parts).numpy(), count=m.count.numpy(),
+                archive=sys_.archive.data.numpy(), archive_count=sys_.archive.count.numpy(),
+                archive_dropped=sys_.archive_dropped, loops=np.array(sys_.loop_closures),
+                applied=np.array(sys_.async_applied, dtype=np.int64).reshape(-1, 2),
+                async_corrections=sys_.async_corrections)
+
+
+def full_sync_run(mesh) -> dict:
+    """The sync protocol through ``process_batch`` in two calls (frames
+    0-7, 8-12): the rows of ``full_rows``."""
+    frames = full_setup()[3]
+    sys_ = full_system(mesh)
+    sys_.process_batch(full_batch(frames, 0, FULL_SPLIT))
+    sys_.process_batch(full_batch(frames, FULL_SPLIT, FULL_FRAMES))
+    return full_rows(sys_)
+
+
+def full_sync_rank(addr, n_processes, rank, local_shards, out_dir):
+    """One process of (a), the sync group run of ``FullSLAM(mesh=
+    global_mesh(local_shards))`` on the CPU, checkpointed after frame 8 to
+    ``group.ckpt`` (``group.ckpt.done`` written once it is whole); its rows
+    go to ``sync_<rank>.npz``."""
+    torch.set_num_threads(1)
+    ckpt = f"{out_dir}/group.ckpt"
+    multihost.initialize(addr, n_processes, rank, backend="gloo")
+    try:
+        mesh = multihost.global_mesh(local_shards=local_shards, device="cpu")
+        frames = full_setup()[3]
+        sys_ = full_system(mesh)
+        sys_.process_batch(full_batch(frames, 0, FULL_SPLIT))
+        checkpoint.save(ckpt, sys_)
+        if multihost.is_coordinator():
+            open(ckpt + ".done", "w").close()
+        sys_.process_batch(full_batch(frames, FULL_SPLIT, FULL_FRAMES))
+        np.savez(f"{out_dir}/sync_{rank}.npz", **full_rows(sys_))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def full_async_rank(addr, n_processes, rank, local_shards, out_dir):
+    """One process of (b), the async group run through ``process`` on
+    ``local_shards`` shards per process (``async_<rank>.npz``)."""
+    from hrbffusion3d_tpu_torch.pipeline import slam
+
+    torch.set_num_threads(1)
+    multihost.initialize(addr, n_processes, rank, backend="gloo")
+    try:
+        mesh = multihost.global_mesh(local_shards=local_shards, device="cpu")
+        sys_ = full_system(mesh, async_ba=True)
+        for i, (d, c) in enumerate(full_setup()[3]):
+            sys_.process(slam.FrameInput(d, c), timestamp=float(i))
+        sys_.close()
+        np.savez(f"{out_dir}/async_{rank}.npz", **full_rows(sys_))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def full_resume_rank(addr, n_processes, rank, local_shards, out_dir):
+    """One process of (c): a new group waits for (a)'s checkpoint, resumes
+    it on ``local_shards`` shards per process and runs frames 8-12
+    (``resume_<rank>.npz``)."""
+    import os
+    import time
+
+    torch.set_num_threads(1)
+    ckpt = f"{out_dir}/group.ckpt"
+    deadline = time.monotonic() + 120.0
+    while not os.path.exists(ckpt + ".done"):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no checkpoint at {ckpt}")
+        time.sleep(0.05)
+    multihost.initialize(addr, n_processes, rank, backend="gloo")
+    try:
+        mesh = multihost.global_mesh(local_shards=local_shards, device="cpu")
+        sys_ = checkpoint.load(ckpt, full_system(mesh))
+        sys_.process_batch(full_batch(full_setup()[3], FULL_SPLIT, FULL_FRAMES))
+        np.savez(f"{out_dir}/resume_{rank}.npz", **full_rows(sys_))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def full_mismatch_rank(addr, n_processes, rank, local_shards, out_dir):
+    """One process of (d): a sync group run over frames 0-4 in which
+    process 1's local BA returns deltas moved by 1e-6; each process writes
+    the error it raised to ``mismatch_<rank>.txt`` and raises it again, so
+    the launch fails."""
+    torch.set_num_threads(1)
+    multihost.initialize(addr, n_processes, rank, backend="gloo")
+    try:
+        mesh = multihost.global_mesh(local_shards=local_shards, device="cpu")
+        sys_ = full_system(mesh)
+        if rank == 1:
+            local_ba = sys_.backend.local_ba
+
+            def moved():
+                deltas = local_ba()
+                return None if deltas is None else deltas + np.float32(1e-6)
+
+            sys_.backend.local_ba = moved
+        try:
+            # the first local BA is at the keyframe of frame 4
+            sys_.process_batch(full_batch(full_setup()[3], 0, 5))
+        except RuntimeError as e:
+            with open(f"{out_dir}/mismatch_{rank}.txt", "w") as f:
+                f.write(str(e))
+            raise
+    finally:
+        torch.distributed.destroy_process_group()
