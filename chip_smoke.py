@@ -57,7 +57,16 @@ and prints:
     keyframes, loops, ``archive_dropped``) and the same frames decoded
     beforehand through FullSLAM alone (fps), (b) ``--load-trajectory``
     replay (the input trajectory written back within 1e-6), (c) the same
-    frames as .klg through the native loader and the Python reader, (d)
+    frames as .klg through the native loader (which must build: the port's
+    own zlib-only library) and the Python reader, and a JPEG-colour .klg
+    at 640x480 (the committed fixture ``tests/data/klg_jpeg``'s 20 Pillow
+    JPEGs with the card's depth): both readers' colour bytes equal the
+    fixture's Pillow digests, FullSLAM (run_tum's config, async) on the
+    native loader's frames in turns with the same frames stored raw, then
+    with the card's raw colour (ATE gate, 0 host syncs and every kernel in
+    each dense step), the host's
+    decode ms per frame, and a corrupt JPEG and a truncated zlib payload
+    raise in both readers at their frame, (d)
     checkpoint / resume (two runs and a resumed one, bit for bit when the
     two repeat), (e) 16 steps of splat prediction (``raycast_period`` 2;
     0 host syncs, the ray cast on the HRBF frames only), (f) the (a) map's
@@ -128,7 +137,8 @@ and prints:
     keyframe per process; a JSON line ``{"group_full_system": {...}}``;
   - a JSON line ``{"kernels": [...]}``: per kernel its launches on the main
     path (the bilateral kernel's keyframe call site apart, and the
-    launches of each ``phase_run_tum`` path, each tracking mode,
+    launches of each ``phase_run_tum`` path (the JPEG-colour .klg runs of
+    (c) included), each tracking mode,
     ``phase_distributed`` (c) and each ``phase_sharded_step`` run, (f)'s
     modes, (g)'s runs and (h)'s parts beside them, with its slab check),
     max abs error
@@ -146,13 +156,17 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import json
+import os
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import warnings
+import zlib
 from collections import defaultdict
 from pathlib import Path
 
@@ -165,7 +179,7 @@ from hrbffusion3d_tpu_torch.config import TUM1, SLAMConfig
 from hrbffusion3d_tpu_torch.core import camera, lie
 from hrbffusion3d_tpu_torch.eval import mesh, recon, synth
 from hrbffusion3d_tpu_torch.eval.ate import ate_rmse
-from hrbffusion3d_tpu_torch.io import klg, native_loader, ply, png, traj, tum
+from hrbffusion3d_tpu_torch.io import jpeg, klg, native_loader, ply, png, traj, tum
 from hrbffusion3d_tpu_torch.map import surfel_map as sm
 from hrbffusion3d_tpu_torch.ops import kernels, preprocess, pyramid, raycast
 from hrbffusion3d_tpu_torch.parallel import dist_ba, multihost, sharded_step, sharding
@@ -1587,25 +1601,40 @@ CKPT_CFG = dataclasses.replace(FULL_CFG, keyframe_period=5)
 SPLAT_STEPS = 16
 SPLAT_CFG = dataclasses.replace(BENCH_CFG, raycast_period=2)
 MESH_CPU_POINTS = 1024
-# the one build failure of the native loader a run may pass: a missing
-# library or header on the host (the Python reader then runs)
-NATIVE_MISSING = ("jpeglib.h", "zlib.h", "-ljpeg", "-lz")
 ROOT = Path(__file__).resolve().parent
+# (c) the JPEG-colour .klg: the committed fixture (scripts/make_klg_jpeg_fixture.py)
+KLG_JPEG_DIR = ROOT / "tests" / "data" / "klg_jpeg"
+KLG_DEPTH_SCALE = 1.0 / 5000.0
+KLG_DECODE_REPEATS = 3
+KLG_BAD_FRAMES, KLG_BAD_AT = 4, 2
+# (ii): "jpeg" the JPEG .klg; "raw" its decoded pixels stored raw (the same
+# frames into FullSLAM: the gap is the loader's decoding); "card" the card's
+# rendered colour stored raw
+KLG_RUN_ORDER = ("jpeg", "raw", "raw", "jpeg", "card")
 
 
-def _tum_fixture(root: Path, dev, intr=TUM1, n=RUN_TUM_FRAMES):
-    """A TUM RGB-D layout at ``root``: bench.py's full-system frames
-    (complex_room on panorama_trajectory at 1.8 deg/frame, the Kinect model
-    seeded per frame), PNG rows cycling through all five filter types.
-    Returns (ground truth poses, timestamps, depths, colours) as numpy."""
+def tum_frames(dev, intr=TUM1, n=RUN_TUM_FRAMES, first=None):
+    """bench.py's full-system frames (complex_room on panorama_trajectory at
+    1.8 deg/frame, the Kinect model seeded per frame), rendered on ``dev``:
+    (the n ground truth poses, the first ``first`` (default n) depths and
+    colours as numpy).  ``scripts/make_klg_jpeg_fixture.py`` renders the
+    colours of the committed JPEG fixture with it."""
     scene = synth.complex_room(dev)
     gt = synth.panorama_trajectory(n, n_turns=1.8 * (n - 1) / 360.0)
     depths, rgbs = [], []
-    for i in range(n):
+    for i in range(n if first is None else first):
         d, c = synth.render_frame_kinect(scene, gt[i], intr,
                                          torch.Generator(dev).manual_seed(1000 + i), 1.0)
         depths.append(d.cpu().numpy())
         rgbs.append(c.cpu().numpy())
+    return gt, depths, rgbs
+
+
+def _tum_fixture(root: Path, dev, intr=TUM1, n=RUN_TUM_FRAMES):
+    """A TUM RGB-D layout at ``root``: ``tum_frames``, PNG rows cycling
+    through all five filter types.  Returns (ground truth poses,
+    timestamps, depths, colours) as numpy."""
+    gt, depths, rgbs = tum_frames(dev, intr, n)
     ts = 1305031102.175304 + np.arange(n) / 30.0
     tum.write_sequence(str(root), np.stack(depths), np.stack(rgbs), ts, gt,
                        filters=np.arange(intr.height) % 5)
@@ -1740,32 +1769,219 @@ def _replay(fixture: Path, out: Path, n: int, dev) -> dict:
 def _klg(tmp: Path, depths, rgbs) -> dict:
     """(c) the same frames as .klg: native loader vs the Python reader."""
     path = str(tmp / "seq.klg")
-    klg.write(path, np.stack(depths), np.stack(rgbs), depth_scale=1.0 / 5000.0)
+    klg.write(path, np.stack(depths), np.stack(rgbs), depth_scale=KLG_DEPTH_SCALE)
     h, w = depths[0].shape
-    py = list(klg.frames(path, w, h, 1.0 / 5000.0))
     t0 = time.perf_counter()
-    nat = list(native_loader.frames(path, w, h, 1.0 / 5000.0))
+    if not native_loader.available():
+        raise RuntimeError("run_tum (c): the native loader did not build: "
+                           f"{native_loader.status()['build_error']}")
+    build_s = time.perf_counter() - t0
+    py = list(klg.frames(path, w, h, KLG_DEPTH_SCALE))
+    t0 = time.perf_counter()
+    nat = list(native_loader.frames(path, w, h, KLG_DEPTH_SCALE))
     nat_s = time.perf_counter() - t0
     st = native_loader.status()
     if st["reader"] != "native":
-        print(f"run_tum (c): native loader unavailable, the Python reader ran: {st['build_error']}")
-        if not any(key in (st["build_error"] or "") for key in NATIVE_MISSING):
-            raise RuntimeError(f"run_tum (c): native loader failed: {st['build_error']}")
-        return dict(reader=st["reader"], build_error=st["build_error"])
+        raise RuntimeError(f"run_tum (c): the {st['reader']} reader ran, not the native loader")
     same = len(nat) == len(py) == len(depths) and all(
         a.timestamp == b.timestamp and np.array_equal(a.depth, b.depth)
         and np.array_equal(np.round(a.rgb * 255), np.round(b.rgb * 255))
         and np.abs(a.rgb.view(np.int32) - b.rgb.view(np.int32)).max() <= 1
         for a, b in zip(py, nat))
     rgb_exact = all(np.array_equal(a.rgb, b.rgb) for a, b in zip(py, nat))
-    print(f"run_tum (c): {len(nat)} frames through the native loader ({st['library']}, "
-          f"{1e3 * nat_s / max(len(nat), 1):.1f} ms per frame) and the Python reader: "
+    print(f"run_tum (c): the native loader built in {build_s:.2f} s ({st['library']}); "
+          f"{len(nat)} frames through it ({1e3 * nat_s / max(len(nat), 1):.1f} ms per frame) and "
+          f"the Python reader: "
           f"timestamps and depth bit for bit {same}, colour floats bit for bit {rgb_exact} "
           f"(else within one ulp: the library scales by 1/255, the reader divides)")
     if not same:
         raise RuntimeError("run_tum (c): the native loader's frames differ from the Python reader's")
-    return dict(reader="native", frames=len(nat), rgb_bit_exact=rgb_exact,
-                ms_per_frame=1e3 * nat_s / max(len(nat), 1))
+    return dict(reader="native", library=st["library"], build_s=build_s, frames=len(nat),
+                rgb_bit_exact=rgb_exact, ms_per_frame=1e3 * nat_s / max(len(nat), 1))
+
+
+def _zlib_depth(d: np.ndarray) -> bytes:
+    """A depth payload as io/klg.write makes it (u16 at KLG_DEPTH_SCALE)."""
+    return zlib.compress(np.round(d / KLG_DEPTH_SCALE).astype(np.uint16).tobytes())
+
+
+def _write_klg(path: Path, depth_payloads, colours, stamps):
+    """A .klg of the given payloads; a colour is JPEG bytes or a raw
+    (H, W, 3) uint8 frame."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<i", len(depth_payloads)))
+        for dbuf, c, stamp in zip(depth_payloads, colours, stamps):
+            ibuf = c if isinstance(c, bytes) else c.tobytes()
+            f.write(struct.pack("<qii", int(stamp), len(dbuf), len(ibuf)))
+            f.write(dbuf)
+            f.write(ibuf)
+
+
+def _klg_read(reader, path: Path, w: int, h: int):
+    """(the frames ``reader`` yields, the seconds it took)."""
+    t0 = time.perf_counter()
+    out = list(reader(str(path), w, h, KLG_DEPTH_SCALE))
+    return out, time.perf_counter() - t0
+
+
+def _klg_fullslam(dev, path: Path, w: int, h: int, gt) -> dict:
+    """FullSLAM (run_tum's config, async: ``_fullslam_alone``'s) on the
+    frames the native loader yields from ``path`` as it decodes them; the
+    host syncs and the kernels' launches of every dense step."""
+    cfg = dataclasses.replace(SLAMConfig(), map_capacity=1 << 19)
+    sys_ = full_slam.FullSLAM(TUM1, cfg, async_ba=True, device=dev)
+    steps = []
+    torch.cuda.synchronize()
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    with _sync_counts() as syncs, _per_frame(steps, syncs):
+        t0 = time.perf_counter()
+        for f in native_loader.frames(str(path), w, h, KLG_DEPTH_SCALE):
+            sys_.process(slam.FrameInput(torch.from_numpy(f.depth), torch.from_numpy(f.rgb)),
+                         timestamp=f.timestamp * 1e-6)
+        sys_.close()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if native_loader.status()["reader"] != "native":
+        raise RuntimeError("run_tum (c): FullSLAM's frames did not come from the native loader")
+    est = sys_.poses()
+    n = len(est)
+    ate = ate_rmse(est, gt[:n]) if n == len(gt) and np.isfinite(est).all() else float("nan")
+    return dict(frames=n, seconds=secs, fps=n / secs, ate_mm=ate * 1e3,
+                keyframes=len(sys_.backend.keyframes),
+                host_syncs_per_step=[s for s, _ in steps], launches=launches,
+                idle_steps=[i for i, (_, per) in enumerate(steps) if min(per.values()) == 0])
+
+
+def _klg_must_raise(reader, path: Path, w: int, h: int, at: int) -> str:
+    """The message with which ``reader`` stops at frame ``at`` of ``path``,
+    after yielding every frame before it."""
+    got = []
+    try:
+        for f in reader(str(path), w, h, KLG_DEPTH_SCALE):
+            got.append(f)
+    except RuntimeError as e:
+        if len(got) != at or f"frame {at}:" not in str(e):
+            raise RuntimeError(f"run_tum (c): {path.name}: {len(got)} frames, then {e}") from e
+        return str(e)
+    raise RuntimeError(f"run_tum (c): {path.name}: the reader yielded {len(got)} frames and "
+                       f"raised nothing on the corrupt frame {at}")
+
+
+def _klg_jpeg(tmp: Path, dev, depths, rgbs, gt, ts, smi) -> dict:
+    """(c) a JPEG-colour .klg at 640x480: the committed fixture's colour
+    (Pillow, quality 90, 4:2:0) with the card's depth frames.  (i) both
+    readers' colour bytes equal the fixture's Pillow digests; (ii)
+    FullSLAM on the native loader's frames, in turns with the same frames
+    with their colour stored raw, then with the card's raw colour; (iii)
+    decode ms per frame on the host; and a corrupt JPEG payload and a
+    truncated zlib payload make both readers raise."""
+    meta = json.loads((KLG_JPEG_DIR / "digests.json").read_text())["frames"]
+    n = len(meta)
+    payloads = [(KLG_JPEG_DIR / e["file"]).read_bytes() for e in meta]
+    h, w = depths[0].shape
+    stamps = np.round(ts[:n] * 1e6).astype(np.int64)
+    dbufs = [_zlib_depth(d) for d in depths[:n]]
+    paths = {label: tmp / f"{label}.klg" for label in ("jpeg", "raw", "card")}
+    _write_klg(paths["jpeg"], dbufs, payloads, stamps)
+    _write_klg(paths["card"], dbufs, [(np.clip(c, 0, 1) * 255).astype(np.uint8)
+                                      for c in rgbs[:n]], stamps)
+
+    # (i) digests, through both readers
+    reads = {}
+    for label, reader in (("native", native_loader.frames), ("python", klg.frames)):
+        got, secs = _klg_read(reader, paths["jpeg"], w, h)
+        digests = [hashlib.sha256(np.round(f.rgb * 255).astype(np.uint8).tobytes()).hexdigest()
+                   for f in got]
+        wrong = [i for i, (dg, e) in enumerate(zip(digests, meta)) if dg != e["rgb_sha256"]]
+        reads[label] = (got, secs)
+        print(f"run_tum (c): JPEG .klg, {len(got)} frames of {n} through the {label} reader: "
+              f"colour vs the committed Pillow digests: {n - len(wrong) if len(got) == n else 0} "
+              f"equal, differing frames {wrong}")
+        if len(got) != n or wrong:
+            raise RuntimeError(f"run_tum (c): the {label} reader's JPEG colour differs from "
+                               f"Pillow's on frames {wrong} ({len(got)} frames of {n})")
+    if native_loader.status()["reader"] != "native":
+        raise RuntimeError("run_tum (c): the native loader did not run")
+    _write_klg(paths["raw"], dbufs, [np.round(f.rgb * 255).astype(np.uint8)
+                                     for f in reads["native"][0]], stamps)
+    raw_nat, _ = _klg_read(native_loader.frames, paths["raw"], w, h)
+    same = all(a.timestamp == b.timestamp == c.timestamp and np.array_equal(a.depth, b.depth)
+               and np.array_equal(a.depth, c.depth) and np.array_equal(a.rgb, c.rgb)
+               for a, b, c in zip(reads["native"][0], reads["python"][0], raw_nat))
+    if not (same and len(raw_nat) == n):
+        raise RuntimeError("run_tum (c): timestamps, depth or the raw copy's colour differ "
+                           "between the readers or files")
+
+    # (ii) FullSLAM on the decoded frames, beside raw colour, in turns
+    runs = {label: [] for label in paths}
+    for label in KLG_RUN_ORDER:
+        runs[label].append(_klg_fullslam(dev, paths[label], w, h, gt[:n]))
+    due = 1 + (n - 1) // SLAMConfig().keyframe_period
+    for label, r in ((label, r) for label in runs for r in runs[label]):
+        print(f"run_tum (c): FullSLAM (run_tum's config, async) on the native loader's {label}-"
+              f"colour frames: {r['frames']} {w}x{h} frames, {r['fps']:.2f} fps "
+              f"({r['seconds']:.2f} s, decoding included), ATE {r['ate_mm']:.3f} mm (aligned), "
+              f"keyframes {r['keyframes']} of {due} due, host syncs per dense step "
+              f"{sorted(set(r['host_syncs_per_step']))}, launches {json.dumps(r['launches'])}")
+        if not (np.isfinite(r["ate_mm"]) and r["ate_mm"] < RUN_TUM_ATE_MAX * 1e3):
+            raise RuntimeError(f"run_tum (c) {label}: ATE {r['ate_mm']} mm "
+                               f"(limit {RUN_TUM_ATE_MAX * 1e3} mm)")
+        _driven(f"run_tum (c) {label}", r["launches"])
+        if any(r["host_syncs_per_step"]) or r["idle_steps"] or len(r["host_syncs_per_step"]) != n:
+            raise RuntimeError(f"run_tum (c) {label}: host syncs per dense step "
+                               f"{r['host_syncs_per_step']}, steps without every kernel "
+                               f"{r['idle_steps']}")
+    fps = {label: ", ".join(f"{r['fps']:.2f}" for r in rs) for label, rs in runs.items()}
+    ate = {label: rs[0]["ate_mm"] for label, rs in runs.items()}
+    print(f"run_tum (c): runs in the order {' '.join(KLG_RUN_ORDER)}: the JPEG frames "
+          f"{fps['jpeg']} fps against their decoded pixels stored raw {fps['raw']} (the same "
+          f"frames into FullSLAM: the gap is the loader's decoding; ATE "
+          f"{ate['jpeg'] - ate['raw']:+.3f} mm) "
+          f"and the card's raw colour {fps['card']} (ATE {ate['jpeg'] - ate['card']:+.3f} mm: the "
+          f"fixture's colour was rendered on the CPU and compressed, the depth noise drawn on "
+          f"the card)")
+
+    # (iii) decode time on the host
+    jpeg_ms = []
+    for _ in range(KLG_DECODE_REPEATS):
+        for data in payloads:
+            t0 = time.perf_counter()
+            jpeg.decode(data)
+            jpeg_ms.append(1e3 * (time.perf_counter() - t0))
+    per_frame = {}
+    for label in ("jpeg", "raw"):
+        for name, reader in (("native", native_loader.frames), ("python", klg.frames)):
+            secs = [_klg_read(reader, paths[label], w, h)[1]
+                    for _ in range(KLG_DECODE_REPEATS)]
+            per_frame[f"{name}_{label}"] = 1e3 * float(np.median(secs)) / n
+    timing = dict(jpeg_decode_ms=float(np.median(jpeg_ms)), reader_ms_per_frame=per_frame,
+                  payload_bytes=[len(p) for p in payloads], host_cpus=os.cpu_count(), device=smi)
+    print(f"run_tum (c): host time on the card's machine ({smi}; {os.cpu_count()} CPUs): "
+          f"jpeg.decode of one {w}x{h} 4:2:0 frame {timing['jpeg_decode_ms']:.2f} ms (median of "
+          f"{len(jpeg_ms)}, {min(timing['payload_bytes'])}-{max(timing['payload_bytes'])} bytes); "
+          f"ms per frame over the whole file, median of {KLG_DECODE_REPEATS} passes: "
+          + json.dumps({k: round(v, 2) for k, v in per_frame.items()}))
+
+    # a corrupt JPEG payload and a truncated zlib payload raise in both readers
+    bad_jpeg = list(payloads[:KLG_BAD_FRAMES])
+    data = bytearray(bad_jpeg[KLG_BAD_AT])
+    mid = data.index(b"\xff\xda") + (len(data) - data.index(b"\xff\xda")) // 2
+    data[mid:mid + 16] = b"\xff" * 16
+    bad_jpeg[KLG_BAD_AT] = bytes(data)
+    cut = list(dbufs[:KLG_BAD_FRAMES])
+    cut[KLG_BAD_AT] = cut[KLG_BAD_AT][:len(cut[KLG_BAD_AT]) // 2]   # the header says so too
+    bad = {"jpeg": tmp / "bad_jpeg.klg", "zlib": tmp / "bad_zlib.klg"}
+    _write_klg(bad["jpeg"], dbufs[:KLG_BAD_FRAMES], bad_jpeg, stamps)
+    _write_klg(bad["zlib"], cut, payloads[:KLG_BAD_FRAMES], stamps)
+    raised = {f"{kind} {name}": _klg_must_raise(reader, path, w, h, KLG_BAD_AT)
+              for kind, path in bad.items()
+              for name, reader in (("native", native_loader.frames), ("python", klg.frames))}
+    for k, msg in raised.items():
+        print(f"run_tum (c): corrupt frame {KLG_BAD_AT} of {KLG_BAD_FRAMES}, {k} reader: "
+              f"{KLG_BAD_AT} frames, then RuntimeError: {msg[-160:]}")
+    return dict(frames=n, digests_equal=True, fullslam=runs, timing=timing, corrupt=raised)
 
 
 def _ckpt_run(dev, frames, gt, stop=None, path=None):
@@ -1899,11 +2115,12 @@ def _eval(ply_map: sm.SurfelMap, to_world: np.ndarray, dev) -> dict:
                 mesh=acc_mesh, mesh_ms=mesh_ms, cpu_points=len(pick), card_vs_cpu=gap)
 
 
-def phase_run_tum(dev, cmd=None) -> dict:
+def phase_run_tum(dev, cmd=None, smi="") -> dict:
     """The real-data entry point on a TUM-format fixture written here:
-    (a) the command line, (b) replay, (c) .klg through the native loader,
-    (d) checkpoint / resume, (e) splat prediction, (f) reconstruction
-    accuracy.  ``cmd``: how (a) starts the entry point."""
+    (a) the command line, (b) replay, (c) .klg through the native loader
+    (raw colour, and JPEG colour into FullSLAM), (d) checkpoint / resume,
+    (e) splat prediction, (f) reconstruction accuracy.  ``cmd``: how (a)
+    starts the entry point; ``smi``: the card's name and power limit."""
     t_phase = time.perf_counter()
     cmd = cmd or [sys.executable, "-m", "hrbffusion3d_tpu_torch.run_tum"]
     with tempfile.TemporaryDirectory(prefix="run_tum_") as tmp:
@@ -1923,6 +2140,7 @@ def phase_run_tum(dev, cmd=None) -> dict:
         out["fullslam_alone"] = _fullslam_alone(dev, depths, rgbs, ts)
         out["replay"] = _replay(tmp / "seq", tmp / "out_b", REPLAY_FRAMES, dev)
         out["klg"] = _klg(tmp, depths[:KLG_FRAMES], rgbs[:KLG_FRAMES])
+        out["klg_jpeg"] = _klg_jpeg(tmp, dev, depths, rgbs, gt, ts, smi)
         out["checkpoint"] = _checkpoint(dev, depths, rgbs, gt, tmp)
         out["splat"] = _splat(dev)
         out["eval"] = _eval(ply_map, to_world, dev)
@@ -3157,7 +3375,7 @@ def main() -> None:
     full = phase_full_system(dev)
     full["device"] = smi
     print(json.dumps({"full_system": full}, default=float))
-    real = phase_run_tum(dev)
+    real = phase_run_tum(dev, smi=smi)
     real["device"] = smi
     print(json.dumps({"run_tum": real}, default=float))
     modes, mode_runs = phase_tracking_modes(poses, frames, smi)
@@ -3189,6 +3407,8 @@ def main() -> None:
         row["replay_launches"] = real["replay"]["launches"][kname]
         row["checkpoint_launches"] = real["checkpoint"]["launches"][kname]
         row["splat_launches"] = real["splat"]["launches"][kname]
+        row["klg_jpeg_launches"] = [r["launches"][kname]
+                                    for r in real["klg_jpeg"]["fullslam"]["jpeg"]]
         row["tracking_modes_launches"] = {k: v["launches"][kname] for k, v in modes.items()
                                           if isinstance(v, dict) and "launches" in v}
         row["distributed_launches"] = distributed["full_system"]["launches"][kname]

@@ -7,8 +7,11 @@ ElasticFusion log format — header ``int32 numFrames``; per frame
 zlib-compressed u16 depth and JPEG rgb (sizes equal to raw -> uncompressed).
 
 The JAX package decodes a JPEG colour payload with Pillow.  The port has no
-imaging library: a JPEG payload is decoded by the native loader's libjpeg
-(``io/native_loader``); this reader raises on one.
+imaging library: a JPEG payload goes through the port's own baseline
+decoder (``io/jpeg``, compiled into the native loader's library), which
+gives Pillow's bytes.  A frame that fails to decode (a corrupt zlib or JPEG
+payload, a payload cut short, a JPEG whose size is not ``width`` x
+``height``) raises ``RuntimeError`` naming the frame's index.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import zlib
 from typing import Iterator, NamedTuple
 
 import numpy as np
+
+from . import jpeg
 
 
 class KLGFrame(NamedTuple):
@@ -32,27 +37,44 @@ def frames(path: str, width: int = 640, height: int = 480,
     raw_rgb_size = width * height * 3
     with open(path, "rb") as f:
         (num_frames,) = struct.unpack("<i", f.read(4))
-        for _ in range(num_frames):
+        for index in range(num_frames):
             hdr = f.read(8 + 4 + 4)
             if len(hdr) < 16:
                 return
             ts, dsize, isize = struct.unpack("<qii", hdr)
+            fail = lambda why: RuntimeError(f"{path}: frame {index}: {why}")  # noqa: E731
+            if dsize < 0 or isize < 0:
+                raise fail(f"negative payload size (depth {dsize}, colour {isize})")
             dbuf = f.read(dsize)
+            if len(dbuf) != dsize:
+                raise fail(f"depth payload truncated: {len(dbuf)} of {dsize} bytes")
             ibuf = f.read(isize)
+            if len(ibuf) != isize:
+                raise fail(f"colour payload truncated: {len(ibuf)} of {isize} bytes")
             if dsize == raw_depth_size:
                 depth_u16 = np.frombuffer(dbuf, np.uint16)
             else:
-                depth_u16 = np.frombuffer(zlib.decompress(dbuf), np.uint16)
+                try:
+                    raw = zlib.decompress(dbuf)
+                except zlib.error as e:
+                    raise fail(f"zlib decompression of the depth payload failed: {e}") from e
+                if len(raw) != raw_depth_size:
+                    raise fail(f"depth inflates to {len(raw)} bytes, {width}x{height} needs "
+                               f"{raw_depth_size}")
+                depth_u16 = np.frombuffer(raw, np.uint16)
             depth = depth_u16.reshape(height, width).astype(np.float32) * depth_scale
             if isize == raw_rgb_size:
                 rgb = np.frombuffer(ibuf, np.uint8).reshape(height, width, 3)
             elif isize == 0:
                 rgb = np.zeros((height, width, 3), np.uint8)
             else:
-                raise RuntimeError(
-                    f"{path}: frame at timestamp {ts} has a JPEG colour payload; the "
-                    "Python reader has no JPEG decoder (use io.native_loader, whose "
-                    "libjpeg decodes it)")
+                try:
+                    rgb = jpeg.decode(ibuf)
+                except RuntimeError as e:
+                    raise fail(f"JPEG colour payload: {e}") from e
+                if rgb.shape != (height, width, 3):
+                    raise fail(f"JPEG colour payload is {rgb.shape[1]}x{rgb.shape[0]}, "
+                               f"expected {width}x{height}")
             yield KLGFrame(ts, depth, rgb.astype(np.float32) / 255.0)
 
 

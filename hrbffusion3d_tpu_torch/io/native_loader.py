@@ -1,14 +1,21 @@
 """ctypes binding for the native prefetching .klg loader
-(``native/dataloader.cpp``); falls back to the Python reader (``io/klg.py``)
-when the library cannot be built or loaded.
+(``csrc/klg_loader.cpp``, the port's own copy of ``native/dataloader.cpp``);
+falls back to the Python reader (``io/klg.py``) when the library cannot be
+built or loaded.
 
 The JAX package loads a prebuilt ``native/libhrbfio.so``.  The port never
-reads or writes that file: at first use it builds ``native/dataloader.cpp``
-with the host C++ compiler and the flags of ``native/Makefile`` into
-``hrbffusion3d_tpu_torch/_build/`` (named by the hash of the source and the
-command, so a changed source is rebuilt), beside the CUDA kernels.  The
-loader decodes zlib depth and JPEG colour (libjpeg) on a worker thread of
-its own.
+reads that file and builds nothing outside its package: at first use it
+compiles ``csrc/klg_loader.cpp`` and the port's baseline JPEG decoder
+``csrc/jpeg_decode.cpp`` with the host C++ compiler into one library in
+``hrbffusion3d_tpu_torch/_build/`` (named by the hash of every source file
+it reads and the command, so a changed source is rebuilt), beside the CUDA
+kernels.  It links zlib and nothing else: no libjpeg.  The loader decodes
+zlib depth and JPEG colour on a worker thread of its own; ``io/jpeg``
+calls the same library's decoder.
+
+A frame that fails to decode (a corrupt zlib or JPEG payload, a payload cut
+short, a JPEG whose size is not ``width`` x ``height``) raises
+``RuntimeError`` naming the frame's index, after the frames before it.
 
 ``status()`` says which reader the last ``frames`` call ran (``"native"``
 or ``"python"``) and, when the build or the load failed, why: the
@@ -27,14 +34,19 @@ from typing import Iterator
 
 import numpy as np
 
+# klg imports io/jpeg, which imports this module: klg's names are read at
+# call time, not bound here
 from . import klg
-from .klg import KLGFrame
 
-_SOURCE = Path(__file__).resolve().parents[2] / "native" / "dataloader.cpp"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_SOURCE = _CSRC / "klg_loader.cpp"
+# every file the build reads: the compiled sources and the header
+_SOURCES = (_SOURCE, _CSRC / "jpeg_decode.cpp")
+_HEADERS = (_CSRC / "jpeg_decode.h",)
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
-# native/Makefile: CXXFLAGS and LDFLAGS
+# native/Makefile's flags, without libjpeg
 _CXXFLAGS = ["-O2", "-fPIC", "-std=c++17", "-Wall"]
-_LDFLAGS = ["-shared", "-lz", "-ljpeg", "-lpthread"]
+_LDFLAGS = ["-shared", "-lz", "-lpthread"]
 
 _LIB = None
 _STATUS = {"reader": None, "build_error": None, "library": None}
@@ -50,21 +62,23 @@ def _compiler() -> str:
 def _build() -> Path:
     """Build the library where needed; returns its path.  Raises
     ``RuntimeError`` with the compiler's output when the build fails."""
-    if not _SOURCE.exists():
-        raise FileNotFoundError(f"native loader source not found: {_SOURCE}")
+    for src in _SOURCES + _HEADERS:
+        if not src.exists():
+            raise FileNotFoundError(f"native loader source not found: {src}")
     cxx = _compiler()
-    key = hashlib.sha256(_SOURCE.read_bytes() + " ".join(
+    key = hashlib.sha256(b"".join(src.read_bytes() for src in _SOURCES + _HEADERS) + " ".join(
         [cxx] + _CXXFLAGS + _LDFLAGS).encode()).hexdigest()[:16]
     lib = _BUILD / f"libhrbfio_{key}.so"
     if lib.exists():
         return lib
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = _BUILD / f".libhrbfio_{key}.{os.getpid()}.so"
-    out = subprocess.run([cxx, *_CXXFLAGS, str(_SOURCE), "-o", str(tmp), *_LDFLAGS],
+    out = subprocess.run([cxx, *_CXXFLAGS, *map(str, _SOURCES), "-o", str(tmp), *_LDFLAGS],
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{Path(cxx).name} failed ({out.returncode}) on {_SOURCE.name}:\n"
+        raise RuntimeError(f"{Path(cxx).name} failed ({out.returncode}) on "
+                           f"{', '.join(src.name for src in _SOURCES)}:\n"
                            + (out.stderr or out.stdout).strip())
     os.replace(tmp, lib)
     return lib
@@ -83,8 +97,16 @@ def _load_lib():
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
         ctypes.POINTER(ctypes.c_int64),
     ]
+    lib.klg_error.restype = ctypes.c_char_p
+    lib.klg_error.argtypes = [ctypes.c_void_p]
     lib.klg_close.restype = None
     lib.klg_close.argtypes = [ctypes.c_void_p]
+    lib.jpeg_decode.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p, ctypes.c_int,
+    ]
     _STATUS["library"] = str(path)
     return lib
 
@@ -109,7 +131,7 @@ def status() -> dict:
 
 
 def frames(path: str, width: int = 640, height: int = 480,
-           depth_scale: float = 1.0 / 1000.0) -> Iterator[KLGFrame]:
+           depth_scale: float = 1.0 / 1000.0) -> Iterator[klg.KLGFrame]:
     """Stream frames through the native double-buffered decoder, or
     through the Python reader when it is unavailable."""
     if not available():
@@ -125,12 +147,14 @@ def frames(path: str, width: int = 640, height: int = 480,
         depth = np.empty((height, width), np.float32)
         rgb = np.empty((height, width, 3), np.float32)
         ts = ctypes.c_int64()
-        while _LIB.klg_next(
+        while (got := _LIB.klg_next(
             h,
             depth.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
             rgb.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
             ctypes.byref(ts),
-        ):
-            yield KLGFrame(int(ts.value), depth.copy(), rgb.copy())
+        )) == 1:
+            yield klg.KLGFrame(int(ts.value), depth.copy(), rgb.copy())
+        if got < 0:
+            raise RuntimeError(f"{path}: {_LIB.klg_error(h).decode()}")
     finally:
         _LIB.klg_close(h)

@@ -4,7 +4,9 @@ backend's, the full system's, the real-data entry point's, the
 distributed BA's, the row-sharded dense step's and the mesh's included) and
 ``chip_smoke``'s imports
 leaves ``jax`` and every ``hrbffusion3d_tpu`` module out of ``sys.modules``,
-and succeeds with both blocked.  The port's copies of the JAX package's
+and succeeds with both blocked.  Nothing of the port includes
+``jpeglib.h`` or links libjpeg, and its native loader compiles only
+sources inside the port's package.  The port's copies of the JAX package's
 numpy-only code (the BRIEF pattern, the reduction-plan construction,
 ``patch_information``, ``io/traj.py``, the loop closer's Horn alignment)
 equal their originals.
@@ -54,17 +56,44 @@ def test_port_imports_without_jax_or_the_jax_package():
     # utils.checkpoint, viz.stats, viz.viewer, eval.recon, eval.mesh) and
     # the distributed BA's (parallel, parallel.sharding, parallel.dist_ba,
     # parallel.multihost) and the row-sharded step's (parallel.sharded_step,
-    # parallel.mesh) included
-    assert int(n_modules) >= 57, out.stdout
+    # parallel.mesh) and the JPEG decoder's binding (io.jpeg) included
+    assert int(n_modules) >= 58, out.stdout
     assert leaked == "[]", leaked
     for name in ("backend/brief_pattern", "backend/features", "backend/reduce_plan",
                  "backend/ba", "backend/keyframes", "backend/bow", "backend/vocab",
                  "backend/posegraph", "backend/loop", "pipeline/full_slam", "io/traj",
                  "io/ply", "run_tum", "io/png", "io/tum", "io/klg", "io/native_loader",
-                 "utils/timing", "utils/params", "utils/checkpoint", "viz/stats",
+                 "io/jpeg", "utils/timing", "utils/params", "utils/checkpoint", "viz/stats",
                  "viz/viewer", "eval/recon", "eval/mesh", "parallel/sharding",
                  "parallel/dist_ba", "parallel/multihost", "parallel/sharded_step"):
         assert (ROOT / "hrbffusion3d_tpu_torch" / f"{name}.py").exists(), name
+
+
+def test_port_links_no_libjpeg():
+    """Nothing of the port includes ``jpeglib.h`` or links libjpeg: its JPEG
+    decoder is its own (``csrc/jpeg_decode.cpp``)."""
+    from hrbffusion3d_tpu_torch.io import native_loader
+
+    port = ROOT / "hrbffusion3d_tpu_torch"
+    sources = [p for p in port.rglob("*")
+               if p.suffix in (".c", ".cc", ".cpp", ".cu", ".h", ".hpp", ".cuh")]
+    assert any(p.name == "jpeg_decode.cpp" for p in sources)
+    including = [str(p) for p in sources if "jpeglib.h" in p.read_text()]
+    assert not including, including
+    flags = native_loader._CXXFLAGS + native_loader._LDFLAGS
+    assert not any("jpeg" in flag for flag in flags), flags
+
+
+def test_native_loader_builds_only_the_ports_sources():
+    """The native loader compiles files inside the port's package, never
+    ``native/dataloader.cpp``."""
+    from hrbffusion3d_tpu_torch.io import native_loader
+
+    port = (ROOT / "hrbffusion3d_tpu_torch").resolve()
+    assert native_loader._SOURCE.resolve().is_relative_to(port)
+    for src in native_loader._SOURCES + native_loader._HEADERS:
+        assert src.resolve().is_relative_to(port), src
+        assert src.exists(), src
 
 
 def test_numpy_copies_equal_their_originals():

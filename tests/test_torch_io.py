@@ -6,11 +6,12 @@
   back exactly;
 - ``io/tum``, ``io/klg`` and ``utils/params``: the same numpy as the JAX
   package's, so their results are equal;
-- ``io/native_loader``: built by the test from ``native/dataloader.cpp`` with the
-  host compiler, its frames equal the port's Python reader's: timestamps
-  and depth bit for bit, colour bytes bit for bit and colour floats within
-  one float32 ulp (the library scales by 1/255 as a product, the Python
-  reader divides by 255).
+- ``io/native_loader``: built by the test from the port's
+  ``csrc/klg_loader.cpp`` and ``csrc/jpeg_decode.cpp`` with the host
+  compiler, its frames equal the port's Python reader's: timestamps and
+  depth bit for bit, colour bytes bit for bit and colour floats within one
+  float32 ulp (the library scales by 1/255 as a product, the Python reader
+  divides by 255); a JPEG colour payload decodes in both to Pillow's bytes.
 """
 
 import io
@@ -191,14 +192,14 @@ def test_native_loader_matches_python_reader(tmp_path):
         np.testing.assert_array_equal(np.round(a.rgb * 255), np.round(b.rgb * 255))
         np.testing.assert_array_max_ulp(a.rgb, b.rgb, maxulp=1)
 
-    # a JPEG colour payload: libjpeg in the native loader, an error naming
-    # the missing decoder in the Python reader
+    # a JPEG colour payload: the port's own decoder in both readers, equal
+    # to Pillow's decode bit for bit
     pj = str(tmp_path / "jpeg.klg")
     ref = _append_jpeg_frame(pj, DEPTH, RGB)
     (fr,) = list(native_loader.frames(pj, W, H, 1 / 5000.0))
-    assert np.abs(np.round(fr.rgb * 255) - ref).max() <= 2
-    with pytest.raises(RuntimeError, match="JPEG"):
-        list(tklg.frames(pj, W, H, 1 / 5000.0))
+    np.testing.assert_array_equal(np.round(fr.rgb * 255), ref)
+    (fp,) = list(tklg.frames(pj, W, H, 1 / 5000.0))
+    np.testing.assert_array_equal(fp.rgb, ref.astype(np.float32) / 255.0)
 
 
 def test_parameter_file_matches_jax(tmp_path):
