@@ -41,7 +41,7 @@ and prints:
     on every keyframe its global BA determines (each keyframe's
     observations in it printed, and how far a 1e-7 nudge of the poses
     moves each keyframe on the CPU); (b) bench.py's
-    full-system protocol, 121 frames async through ``process_batch``
+    full-system protocol, 61 frames async through ``process_batch``
     (fps steady and all-in, worst chunk, ATE under 5 cm, loops,
     ``archive_dropped``, active and archive counts, keyframes inserted of
     due, the worker's stage seconds, host syncs per chunk) and 21 of its
@@ -50,7 +50,7 @@ and prints:
     run with the kernels' launch counts reset before it and every kernel
     launched; a JSON line ``{"full_system": {...}}``;
   - the real-data entry point (``phase_run_tum``) on a TUM-format
-    fixture it writes (bench.py's full-system frames, 41 at 640x480, PNG
+    fixture it writes (bench.py's full-system frames, 20 at 640x480, PNG
     rows through all five filters): (a) ``python -m
     hrbffusion3d_tpu_torch.run_tum`` as a subprocess (exit 0, every
     artefact parsed, ATE gate, keyframes inserted = due; fps, ATE,
@@ -71,14 +71,23 @@ and prints:
     two repeat), (e) 16 steps of splat prediction (``raycast_period`` 2;
     0 host syncs, the ray cast on the HRBF frames only), (f) the (a) map's
     accuracy against the scene and its mesh on the card, a subset against
-    the CPU; PNG decode ms per filter type; a JSON line
+    the CPU, (g) a TUM-layout sequence of the committed progressive JPEG
+    fixture ``tests/data/tum_jpeg_progressive`` (the same 20 frames as
+    (c)'s, progressive) as colour and the card's depth as 16-bit PNG, one
+    frame in five Adam7-interlaced: the decoder's library loaded, every
+    colour file decoded to its Pillow digest and its baseline frame's, the
+    depth read back as written, the CLI on it (all 20 frames, ATE gate)
+    and ``run_tum.main`` again in this process (0 host syncs and every
+    kernel in each dense step), the host's decode ms per frame progressive
+    beside baseline, the CLI's fps after its first frame beside (a)'s on
+    PNG colour; PNG decode ms per filter type; a JSON line
     ``{"run_tum": {...}}``;
   - every tracking and normal setting of ``SLAMConfig``
     (``phase_tracking_modes``): the correspondence search, sparse ICP,
     bilinear photometric lookups (separate and joint), fixed
     correspondences, the early exit (its live iterations per level),
     subsampling, top-k, the patch association, both together, central-
-    difference normals, ICP only and RGB only, each bootstrap + 7 steps of
+    difference normals, ICP only and RGB only, each bootstrap + 3 steps of
     the orbit beside the default mode's in one call: ATE (gated but for
     the one-term modes), 0 host syncs in every step, the kernels' launches
     (PCA none with central differences), the median step, and every
@@ -95,14 +104,14 @@ and prints:
     the same problem in 2 spawned ``gloo`` processes of 4 shards (their
     tensors on the card) and in 1 ``nccl`` process of 8, each bit for bit
     to the in-process 8-shard solve; (c) ``FullSLAM(mesh=make_mesh(4))``
-    on 41 frames of (b)'s protocol through a synchronous
+    on 21 frames of (b)'s protocol through a synchronous
     ``process_batch`` (every local BA sharded, ATE under 5 cm, 0 host
     syncs and every kernel in each dense step; the map's rows on the 4
     shards: its dense state is row-sharded) beside
     ``mesh=None`` on the same frames (the keyframe-pose gap printed); a
     JSON line ``{"distributed": {...}}``;
   - the row-sharded dense step (``phase_sharded_step``) on 4- and 8-shard
-    meshes of the card, the dense-step cell's 16 frames: (a) replayed at
+    meshes of the card, the dense-step cell's first 8 frames: (a) replayed at
     the main path's poses, equal to the unsharded step bit for bit after
     every step; (b) tracked beside the unsharded step (each frame's pose
     within 1e-4, equal counts; each step also against the unsharded step
@@ -114,7 +123,7 @@ and prints:
     ``phase_tracking_modes`` tracked on ``make_mesh(4)`` over its frames,
     bit for bit to that phase's unsharded run after every step, 0 host
     syncs per step; (g) 2 spawned ``gloo`` processes x 4 shards on the
-    card (the dense-step cell's 16 frames from the sharded bootstrap:
+    card (the same 8 frames from the sharded bootstrap:
     replayed, tracked, and tracked with the correspondence search), every
     step's pose and count and the last state bit for bit to the in-process
     ``make_mesh(8)`` run; ms per step beside the unsharded step, launches
@@ -122,7 +131,7 @@ and prints:
     per step in (g); a JSON line ``{"sharded_step": {...}}``;
   - ``FullSLAM`` over a process group (``phase_group_full_system``, (h)):
     2 spawned ``gloo`` processes x 2 shards on the card, launched once:
-    (i) phase_distributed (c)'s 41 frames sync through one
+    (i) phase_distributed (c)'s 21 frames sync through one
     ``process_batch``, bit for bit to (c)'s in-process ``make_mesh(4)``
     run (every pose and keyframe pose, each process's map rows, the
     count, the archive, ``archive_dropped``); (ii) the same frames
@@ -138,7 +147,8 @@ and prints:
   - a JSON line ``{"kernels": [...]}``: per kernel its launches on the main
     path (the bilateral kernel's keyframe call site apart, and the
     launches of each ``phase_run_tum`` path (the JPEG-colour .klg runs of
-    (c) included), each tracking mode,
+    (c) and the CLI and in-process runs of (g) included), each tracking
+    mode,
     ``phase_distributed`` (c) and each ``phase_sharded_step`` run, (f)'s
     modes, (g)'s runs and (h)'s parts beside them, with its slab check),
     max abs error
@@ -313,11 +323,12 @@ LOOP_ARGS = dict(min_score=0.05, min_inliers=12, consistency=1)
 STEP_XI = np.array([0.11, -0.05, 0.045, 0.014, -0.017, 0.022], np.float32)
 LOOP_KEEP = 0.7
 # (b): bench.py's full-system protocol (bench.py:132-147) with async BA in
-# chunks of keyframe_period frames, cut from 281 frames to FULL_FRAMES; a
+# chunks of keyframe_period frames, cut from 281 frames to FULL_FRAMES (121
+# until the script outgrew half its time limit); a
 # SYNC_FRAMES-frame synchronous run on the same frames beside it
 FULL_CFG = dataclasses.replace(BENCH_CFG, keyframe_period=10, use_global_ba=True,
                                active_capacity=393216, archive_capacity=2097152)
-FULL_FRAMES, SYNC_FRAMES, FULL_ATE_MAX = 121, 21, 0.05
+FULL_FRAMES, SYNC_FRAMES, FULL_ATE_MAX = 61, 21, 0.05
 
 
 def phase_card() -> str:
@@ -1590,9 +1601,12 @@ def phase_full_system(dev) -> dict:
 
 
 # phase_run_tum: the real-data entry point on a TUM-format fixture
-RUN_TUM_FRAMES, REPLAY_FRAMES, KLG_FRAMES = 41, 20, 8
-# (a) ATE gate, aligned (run_tum's metric): about 2.7x the 3.73 mm these
-# 41 frames give on an NVIDIA H100 80GB HBM3 at 700 W; phase_full_system
+# the fixture's trajectory has RUN_TUM_FRAMES poses; its first TUM_SEQ_FRAMES
+# are written (all 41 until the script outgrew half its time limit; 20 are
+# (g)'s length, so (a) and (g) run the same frames)
+RUN_TUM_FRAMES, TUM_SEQ_FRAMES, REPLAY_FRAMES, KLG_FRAMES = 41, 20, 20, 8
+# (a) ATE gate, aligned (run_tum's metric): about 2.7x the 3.73 mm the
+# 41 frames gave on an NVIDIA H100 80GB HBM3 at 700 W; phase_full_system
 # (b) runs the same scene, noise model and heading rate on bench.py's
 # config and gives 35.54 mm unaligned over 121 frames (gate 50 mm)
 RUN_TUM_ATE_MAX = 0.010
@@ -1611,6 +1625,12 @@ KLG_BAD_FRAMES, KLG_BAD_AT = 4, 2
 # frames into FullSLAM: the gap is the loader's decoding); "card" the card's
 # rendered colour stored raw
 KLG_RUN_ORDER = ("jpeg", "raw", "raw", "jpeg", "card")
+# (g) a TUM-layout sequence: the committed progressive JPEG fixture
+# (scripts/make_klg_jpeg_fixture.py, the same frames as KLG_JPEG_DIR's) as
+# colour, the card's depth as 16-bit PNG, every TUM_JPEG_ADAM7_EVERY-th
+# depth frame Adam7-interlaced
+TUM_JPEG_DIR = ROOT / "tests" / "data" / "tum_jpeg_progressive"
+TUM_JPEG_ADAM7_EVERY = 5
 
 
 def tum_frames(dev, intr=TUM1, n=RUN_TUM_FRAMES, first=None):
@@ -1630,11 +1650,14 @@ def tum_frames(dev, intr=TUM1, n=RUN_TUM_FRAMES, first=None):
     return gt, depths, rgbs
 
 
-def _tum_fixture(root: Path, dev, intr=TUM1, n=RUN_TUM_FRAMES):
-    """A TUM RGB-D layout at ``root``: ``tum_frames``, PNG rows cycling
-    through all five filter types.  Returns (ground truth poses,
-    timestamps, depths, colours) as numpy."""
-    gt, depths, rgbs = tum_frames(dev, intr, n)
+def _tum_fixture(root: Path, dev, intr=TUM1, n=RUN_TUM_FRAMES, first=None):
+    """A TUM RGB-D layout at ``root``: the first ``first`` (default n)
+    frames of ``tum_frames``, PNG rows cycling through all five filter
+    types.  Returns (ground truth poses, timestamps, depths, colours) as
+    numpy."""
+    gt, depths, rgbs = tum_frames(dev, intr, n, first)
+    n = len(depths)
+    gt = gt[:n]
     ts = 1305031102.175304 + np.arange(n) / 30.0
     tum.write_sequence(str(root), np.stack(depths), np.stack(rgbs), ts, gt,
                        filters=np.arange(intr.height) % 5)
@@ -1984,6 +2007,183 @@ def _klg_jpeg(tmp: Path, dev, depths, rgbs, gt, ts, smi) -> dict:
     return dict(frames=n, digests_equal=True, fullslam=runs, timing=timing, corrupt=raised)
 
 
+def _adam7_png(img: np.ndarray) -> bytes:
+    """An Adam7-interlaced PNG of a 16-bit grey image (the port's writer
+    writes non-interlaced files only), each pass's rows cycling through the
+    five filter types of the PNG standard."""
+    h, w = img.shape
+    data = bytearray()
+    k = 0
+    for r0, c0, dr, dc in png.ADAM7:
+        x = img[r0::dr, c0::dc]
+        if x.size == 0:
+            continue
+        x = x.astype(">u2").view(np.uint8).reshape(len(x), -1).astype(np.int16)
+        a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+        a[:, 2:], b[1:], c[1:, 2:] = x[:, :-2], x[:-1], x[:-1, :-2]
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        preds = (np.zeros_like(x), a, b, (a + b) >> 1,
+                 np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c)))
+        for i in range(len(x)):
+            f = (k + i) % 5
+            data.append(f)
+            data += ((x[i] - preds[f][i]) & 0xFF).astype(np.uint8).tobytes()
+        k += len(x)
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    return (png.SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 1))
+            + chunk(b"IDAT", zlib.compress(bytes(data))) + chunk(b"IEND", b""))
+
+
+def _tum_jpeg_fixture(root: Path, depths, gt, ts) -> tuple[list, list]:
+    """(g)'s TUM layout at ``root``: ``rgb/<ts>.jpg`` the progressive
+    fixture, ``depth/<ts>.png`` the card's depth; returns (the colour
+    files' bytes, the 16-bit depth images)."""
+    meta = json.loads((TUM_JPEG_DIR / "digests.json").read_text())["frames"]
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    colours, d16s, lines = [], [], []
+    for i, e in enumerate(meta):
+        name = f"{ts[i]:.6f}"
+        colours.append((TUM_JPEG_DIR / e["file"]).read_bytes())
+        (root / "rgb" / f"{name}.jpg").write_bytes(colours[-1])
+        d16 = np.clip(np.round(depths[i] / tum.TUM_DEPTH_SCALE), 0, 65535).astype(np.uint16)
+        d16s.append(d16)
+        (root / "depth" / f"{name}.png").write_bytes(
+            _adam7_png(d16) if i % TUM_JPEG_ADAM7_EVERY == 0 else png.encode(d16))
+        lines.append(f"{name} rgb/{name}.jpg {name} depth/{name}.png\n")
+    (root / "associations.txt").write_text("".join(lines))
+    traj.save_tum(str(root / "groundtruth.txt"), ts[:len(meta)], gt[:len(meta)])
+    return colours, d16s
+
+
+def _steady_fps(res: dict) -> float:
+    """A run_tum result's fps after its first frame (the decoder pool's
+    start and the first frame's wait left out)."""
+    return (res["frames"] - 1) / (res["seconds"] - res["first_frame_s"])
+
+
+def _tum_jpeg(tmp: Path, dev, depths, gt, ts, png_cli: dict, klg_jpeg: dict, cmd, smi) -> dict:
+    """(g) a TUM-layout sequence with progressive JPEG colour and partly
+    Adam7-interlaced depth: the decoder library loaded; every colour file
+    decoded to its Pillow digest and its baseline frame's; every depth file
+    read back as written; the CLI on the sequence (all frames, ATE);
+    ``run_tum.main`` on it again in this process, 0 host syncs and every
+    kernel in each dense step; decode ms, progressive beside baseline; the
+    CLI's fps beside (a)'s (``png_cli``) on PNG colour."""
+    root = tmp / "seq_jpeg"
+    colours, d16s = _tum_jpeg_fixture(root, depths, gt, ts)
+    n = len(colours)
+    if not native_loader.available():
+        raise RuntimeError("run_tum (g): the JPEG decoder's library did not build: "
+                           f"{native_loader.status()['build_error']}")
+    meta = json.loads((TUM_JPEG_DIR / "digests.json").read_text())["frames"]
+    base_meta = json.loads((KLG_JPEG_DIR / "digests.json").read_text())["frames"]
+    baseline = [(KLG_JPEG_DIR / e["file"]).read_bytes() for e in base_meta[:n]]
+    ms = {"progressive": [], "baseline": []}
+    wrong = []
+    for repeat in range(KLG_DECODE_REPEATS):    # the two encodings of a frame in turns
+        for i, (prog, base) in enumerate(zip(colours, baseline)):
+            for label, data in (("progressive", prog), ("baseline", base)):
+                t0 = time.perf_counter()
+                rgb = jpeg.decode(data)
+                ms[label].append(1e3 * (time.perf_counter() - t0))
+                digest = hashlib.sha256(rgb.tobytes()).hexdigest()
+                if repeat == 0 and (digest != meta[i]["rgb_sha256"]
+                                    or digest != base_meta[i]["rgb_sha256"]):
+                    wrong.append((label, i))
+    depth_bad = [i for i, d in enumerate(d16s)
+                 if not np.array_equal(png.read(str(root / "depth" / f"{ts[i]:.6f}.png")), d)]
+    adam7_ms = {}
+    for label, i in (("adam7", 0), ("plain", 1)):
+        data = (root / "depth" / f"{ts[i]:.6f}.png").read_bytes()
+        times = []
+        for _ in range(KLG_DECODE_REPEATS):
+            t0 = time.perf_counter()
+            png.decode(data)
+            times.append(1e3 * (time.perf_counter() - t0))
+        adam7_ms[label] = float(np.median(times))
+    decode_ms = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"run_tum (g): {n} progressive JPEG colour files (the library {native_loader.status()['library']}): "
+          f"io/jpeg.decode vs the Pillow digests and the baseline frames' digests: "
+          f"{n - len({i for _, i in wrong})} of {n} frames equal, differing {wrong}; depth "
+          f"files read back as written (every {TUM_JPEG_ADAM7_EVERY}th Adam7-interlaced): "
+          f"{n - len(depth_bad)} of {n}, differing {depth_bad}")
+    if wrong or depth_bad:
+        raise RuntimeError(f"run_tum (g): decoded colour {wrong} or depth {depth_bad} differ")
+    print(f"run_tum (g): host time on the card's machine ({smi}; {os.cpu_count()} CPUs): "
+          f"jpeg.decode of one {TUM1.width}x{TUM1.height} 4:2:0 frame, median of "
+          f"{len(ms['progressive'])}: progressive {decode_ms['progressive']:.2f} ms, baseline "
+          f"{decode_ms['baseline']:.2f} ms (each frame's two encodings in turns; "
+          f"{min(map(len, colours))}-{max(map(len, colours))} bytes progressive); png.decode of "
+          f"one 16-bit depth frame, median of {KLG_DECODE_REPEATS}: Adam7 {adam7_ms['adam7']:.1f} "
+          f"ms, non-interlaced {adam7_ms['plain']:.1f} ms")
+
+    cli = _tum_jpeg_cli(root, tmp / "out_g", n, cmd)
+    steps = []
+    with _sync_counts() as syncs, _per_frame(steps, syncs):
+        res = run_tum.main([str(root), "--camera", "TUM1", "--out", str(tmp / "out_g2")])
+    idle = [i for i, (_, per) in enumerate(steps) if min(per.values()) == 0]
+    step_syncs = [s for s, _ in steps]
+    ate_c = klg_jpeg["fullslam"]["jpeg"][0]["ate_mm"]
+    print(f"run_tum (g): `run_tum.main` on the same sequence in this process: {res['frames']} "
+          f"frames, {res['fps']:.2f} fps (under sync-debug mode), ATE {res['ate_m'] * 1e3:.3f} "
+          f"mm; host syncs per dense step {sorted(set(step_syncs))} over {len(steps)} steps, "
+          f"steps without every kernel {idle}; launches {json.dumps(res['launches'])}")
+    print(f"run_tum (g): ATE {cli['ate_m'] * 1e3:.3f} mm on the progressive JPEG sequence "
+          f"(the CLI) beside {ate_c:.3f} mm on (c)'s JPEG .klg of the same colour and depth "
+          f"(FullSLAM on the native loader's frames); the CLI's fps after its first frame "
+          f"{_steady_fps(cli):.2f} on progressive JPEG colour ({n} frames) beside "
+          f"{_steady_fps(png_cli):.2f} for (a) on PNG colour ({png_cli['frames']} frames), over all "
+          f"frames {cli['fps']:.2f} beside {png_cli['fps']:.2f} (the first frame after "
+          f"{cli['first_frame_s']:.2f} / {png_cli['first_frame_s']:.2f} s: the decoder pool's "
+          f"start)")
+    if res["frames"] != n or len(steps) != n or any(step_syncs) or idle:
+        raise RuntimeError(f"run_tum (g): in-process run of {res['frames']} frames, {len(steps)} "
+                           f"dense steps, host syncs {step_syncs}, steps without every kernel "
+                           f"{idle}")
+    _driven("run_tum (g) in process", res["launches"])
+    return dict(frames=n, library=native_loader.status()["library"], digests_equal=True,
+                decode_ms=decode_ms, decode_ms_all=ms, depth_png_ms=adam7_ms, cli=cli,
+                in_process=dict(fps=res["fps"], ate_mm=res["ate_m"] * 1e3,
+                                launches=res["launches"], host_syncs_per_step=step_syncs),
+                klg_jpeg_ate_mm=ate_c, steady_fps=_steady_fps(cli),
+                png_steady_fps=_steady_fps(png_cli), progressive_bytes=[len(c) for c in colours],
+                device=smi)
+
+
+def _tum_jpeg_cli(root: Path, out: Path, n: int, cmd) -> dict:
+    """(g) the command line on the JPEG-colour sequence: every frame
+    consumed, the ATE gate, every kernel launched."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([*cmd, str(root), "--camera", "TUM1", "--out", str(out)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"run_tum (g): exit {proc.returncode}\n{proc.stdout[-4000:]}\n"
+                           f"{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])["run_tum"]
+    _, poses = traj.load_tum(str(out / "hrbf_trajectory.freiburg"))
+    ate_m = res.get("ate_m", float("nan"))
+    print(f"run_tum (g): `python -m hrbffusion3d_tpu_torch.run_tum` on {n} progressive-JPEG "
+          f"{TUM1.width}x{TUM1.height} frames, exit 0 in {wall:.1f} s: {res['frames']} frames "
+          f"consumed, {res['fps']:.2f} fps over the frames ({res['seconds']:.2f} s, the first "
+          f"frame after {res['first_frame_s']:.2f} s), ATE {ate_m * 1e3:.3f} mm (aligned, "
+          f"{res.get('ate_matched')} matched), keyframes {res['keyframes']}, launches "
+          f"{json.dumps(res['launches'])}")
+    if res["frames"] != n or len(poses) != n:
+        raise RuntimeError(f"run_tum (g): {res['frames']} frames consumed, {len(poses)} poses "
+                           f"written, of {n}")
+    if not (np.isfinite(ate_m) and ate_m < RUN_TUM_ATE_MAX):
+        raise RuntimeError(f"run_tum (g): ATE {ate_m} (limit {RUN_TUM_ATE_MAX})")
+    _driven("run_tum (g)", res["launches"])
+    res["wall_s"] = wall
+    return res
+
+
 def _ckpt_run(dev, frames, gt, stop=None, path=None):
     sys_ = full_slam.FullSLAM(TUM1, CKPT_CFG, init_pose=gt[0], device=dev)
     for i, f in enumerate(frames):
@@ -2119,14 +2319,16 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
     """The real-data entry point on a TUM-format fixture written here:
     (a) the command line, (b) replay, (c) .klg through the native loader
     (raw colour, and JPEG colour into FullSLAM), (d) checkpoint / resume,
-    (e) splat prediction, (f) reconstruction accuracy.  ``cmd``: how (a)
-    starts the entry point; ``smi``: the card's name and power limit."""
+    (e) splat prediction, (f) reconstruction accuracy, (g) a TUM-layout
+    sequence with progressive JPEG colour and Adam7 depth.  ``cmd``: how
+    (a) and (g) start the entry point; ``smi``: the card's name and power
+    limit."""
     t_phase = time.perf_counter()
     cmd = cmd or [sys.executable, "-m", "hrbffusion3d_tpu_torch.run_tum"]
     with tempfile.TemporaryDirectory(prefix="run_tum_") as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        gt, ts, depths, rgbs = _tum_fixture(tmp / "seq", dev)
+        gt, ts, depths, rgbs = _tum_fixture(tmp / "seq", dev, first=TUM_SEQ_FRAMES)
         fixture_s = time.perf_counter() - t0
         decode = _png_decode_ms(depths[0], rgbs[0])
         h, w = depths[0].shape
@@ -2144,6 +2346,11 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
         out["checkpoint"] = _checkpoint(dev, depths, rgbs, gt, tmp)
         out["splat"] = _splat(dev)
         out["eval"] = _eval(ply_map, to_world, dev)
+        t0 = time.perf_counter()
+        out["tum_jpeg"] = _tum_jpeg(tmp, dev, depths, gt, ts, out["cli"], out["klg_jpeg"], cmd,
+                                    smi)
+        out["tum_jpeg"]["seconds"] = time.perf_counter() - t0
+        print(f"run_tum (g): {out['tum_jpeg']['seconds']:.1f} s")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"run_tum: phase {out['seconds']:.1f} s")
     return out
@@ -2153,7 +2360,9 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
 # phase_tracking_modes: every tracking and normal setting of SLAMConfig on
 # the dense step's cell (bench.py's config, the orbit at 640x480)
 # ---------------------------------------------------------------------- #
-MODE_STEPS = 7
+# bootstrap + MODE_STEPS steps per mode (7 until the script outgrew half its
+# time limit: every track is repeated on the CPU, most of the phase's time)
+MODE_STEPS = 3
 # the finest level's Gauss-Newton increments at 640x480 on this orbit fall
 # to 1e-4-1e-3 while the coarser levels' stay above 1.8e-3 (the port on
 # the CPU, three steps), so 1e-3 stops finest-level loops early only
@@ -2354,11 +2563,12 @@ def phase_tracking_modes(poses, frames, smi) -> tuple[dict, dict]:
 # (Mesh.psum adds every shard's system in the global shard order over a
 # group too; tests/test_multihost_2proc.py bounds the JAX pair by 2e-5);
 # FullSLAM(mesh=make_mesh(4)) on
-# phase_full_system (b)'s protocol cut to DIST_FRAMES frames (5 keyframes),
+# phase_full_system (b)'s protocol cut to DIST_FRAMES frames (3 keyframes;
+# 41 frames, 5 keyframes, until the script outgrew half its time limit),
 # its keyframe poses within DIST_TOL of mesh=None's
 DIST_SHARDS = (1, 4, 8)
 DIST_TOL, DIST_CHI2_RTOL = 1e-4, 1e-4
-DIST_FRAMES, DIST_FULL_SHARDS = 41, 4
+DIST_FRAMES, DIST_FULL_SHARDS = 21, 4
 # (b): (backend, processes, shards per process); NCCL refuses two ranks on
 # one card, so the gloo ranks share it and the nccl group has one rank
 DIST_PROCESS_RUNS = (("gloo", 2, 4), ("nccl", 1, 8))
@@ -2668,6 +2878,9 @@ def phase_distributed(problem, dev, smi) -> tuple[dict, dict]:
 # phase_distributed (c): FullSLAM with a 4-shard mesh, whose dense state
 # is sharded
 SHARD_MESHES = (4, 8)
+# (a), (b) and (g) run the dense-step cell's first SHARD_FRAMES frames (all
+# N_FRAMES until the script outgrew half its time limit)
+SHARD_FRAMES = 8
 SHARD_POSE_TOL = 1e-4
 SHARD_ATE_MAX = 0.025
 SHARD_SLAB_MESH, SHARD_SLAB_SHARD = 4, 1
@@ -2946,6 +3159,7 @@ def _group_rank(addr, n_processes, rank, local_shards, est, device, out_dir):
         dev = torch.device(device)
         mesh = multihost.global_mesh(local_shards=local_shards, device=dev)
         poses, frames = _render_frames(dev)
+        poses, frames = poses[:SHARD_FRAMES], frames[:SHARD_FRAMES]
         for run in GROUP_RUNS:
             cfg = _group_cfg(run)
             torch.cuda.synchronize()
@@ -3044,7 +3258,7 @@ def _group(records, est, frames) -> dict:
             if differing:
                 raise RuntimeError(f"sharded step (g) {run}: differs from the in-process mesh "
                                    f"in {differing}")
-            want = N_FRAMES * n
+            want = len(frames) * n
             if any(v != want for v in r["launches"].values()):
                 raise RuntimeError(f"sharded step (g) {run}: launches {r['launches']}, "
                                    f"expected {want}")
@@ -3060,25 +3274,27 @@ def phase_sharded_step(poses, frames, est, state, smi, full_system, mode_runs) -
     t_phase = time.perf_counter()
     out = {"replay": {}, "tracked": {}}
     records = {}
+    slab_frames = frames
+    poses, frames, est = poses[:SHARD_FRAMES], frames[:SHARD_FRAMES], est[:SHARD_FRAMES]
     for n in SHARD_MESHES:
         mesh = sharding.make_mesh(n, devices=[frames[0].depth.device])
         r, records[("replay", n)] = _lockstep("(a) replay", mesh, frames, poses, est)
         out["replay"][str(n)] = r
-        if r["differing_fields"] or r["steps_bit_for_bit"] != N_FRAMES - 1:
+        if r["differing_fields"] or r["steps_bit_for_bit"] != SHARD_FRAMES - 1:
             raise RuntimeError(f"sharded replay on {n} shards differs from the unsharded step: "
                                f"{r['differing_fields']}")
         r, records[("tracked", n)] = _lockstep("(b) tracked", mesh, frames, poses, None)
         out["tracked"][str(n)] = r
         if not (max(r["pose_gaps"] + r["anchored_pose_gaps"]) <= SHARD_POSE_TOL
-                and r["counts_equal"] and r["anchored_counts_equal"] == N_FRAMES - 1
-                and r["replayed_at_pose_bit_for_bit"] == N_FRAMES - 1
+                and r["counts_equal"] and r["anchored_counts_equal"] == SHARD_FRAMES - 1
+                and r["replayed_at_pose_bit_for_bit"] == SHARD_FRAMES - 1
                 and r["ate_mm"] < SHARD_ATE_MAX * 1e3):
             raise RuntimeError(f"sharded tracked run on {n} shards: pose gaps "
                                f"{r['pose_gaps']} (to the unsharded step from the same state "
                                f"{r['anchored_pose_gaps']}), counts equal {r['counts_equal']} "
                                f"(count gaps {r['anchored_count_gaps']}), at its pose "
                                f"{r['replayed_differing_fields']}, ATE {r['ate_mm']} mm")
-    out["slabs"] = _slab_checks(frames, state, sharding.make_mesh(
+    out["slabs"] = _slab_checks(slab_frames, state, sharding.make_mesh(
         SHARD_SLAB_MESH, devices=[frames[0].depth.device]))
     out["full_system"] = {k: full_system[k] for k in (
         "shards", "map_row_shards", "fps", "ate_mm", "keyframes", "local_ba_problems",
@@ -3409,6 +3625,8 @@ def main() -> None:
         row["splat_launches"] = real["splat"]["launches"][kname]
         row["klg_jpeg_launches"] = [r["launches"][kname]
                                     for r in real["klg_jpeg"]["fullslam"]["jpeg"]]
+        row["tum_jpeg_launches"] = [real["tum_jpeg"]["cli"]["launches"][kname],
+                                    real["tum_jpeg"]["in_process"]["launches"][kname]]
         row["tracking_modes_launches"] = {k: v["launches"][kname] for k, v in modes.items()
                                           if isinstance(v, dict) and "launches" in v}
         row["distributed_launches"] = distributed["full_system"]["launches"][kname]

@@ -1,10 +1,15 @@
-// Baseline JPEG decoder with no library (see jpeg_decode.h).
+// JPEG decoder with no library (see jpeg_decode.h).
 //
 // The numbers follow libjpeg-turbo's C code, which is what Pillow decodes
 // with (its SIMD paths give the same bytes):
 //   - Huffman decoding (jdhuff.c): canonical codes, a lookahead table of
 //     kLook bits and the maxcode / valoffset search for longer codes; the
 //     DC prediction per component, reset at each scan and restart marker;
+//   - progressive scans (jdphuff.c): DC first and refinement, AC first with
+//     end-of-band runs, AC refinement with its correction bits, into a
+//     whole-image coefficient buffer per component (jdcoefct.c), each
+//     component's quantisation table latched at its first scan (jdinput.c
+//     latch_quant_tables); the IDCT runs after the last scan;
 //   - dequantisation and the ISLOW integer IDCT (jidctint.c: CONST_BITS 13,
 //     PASS1_BITS 2), whose outputs index the range-limit table of
 //     jdmaster.c's prepare_range_limit_table (values beyond +-512 of the
@@ -18,8 +23,12 @@
 //     means YCbCr, an Adobe APP14 marker's transform flag is honoured, else
 //     the component ids decide.
 // libjpeg-turbo warns and goes on where a stream is corrupt (a bad Huffman
-// code, data that ends early, bytes before a marker); this decoder refuses
-// each of those, so it never returns a partial or guessed image.
+// code, data that ends early, bytes before a marker, a progression that
+// skips or repeats a bit); this decoder refuses each of those, so it never
+// returns a partial or guessed image.  It also refuses a progressive image
+// whose first AC coefficients are not fully refined after its last scan:
+// libjpeg-turbo smooths such blocks (jdcoefct.c decompress_smooth_data),
+// which this decoder does not reproduce.
 
 #include "jpeg_decode.h"
 
@@ -377,9 +386,14 @@ struct Component {
   int bw = 0, bh = 0;  // blocks of the plane: whole MCUs
   int dw = 0, dh = 0;  // its samples inside the image (downsampled_width / height)
   int td = 0, ta = 0, pred = 0;
-  bool scanned = false;
-  int32_t quant[64] = {};  // natural order, latched when its scan starts
+  bool scanned = false, latched = false;
+  int32_t quant[64] = {};  // natural order, latched when its first scan starts
   std::vector<uint8_t> plane;
+  // progressive frames: bw x bh blocks of 64 coefficients in natural order,
+  // and per zigzag position the Al of the last scan that coded it (-1: none)
+  std::vector<int16_t> coef;
+  int coef_bits[64];
+  int16_t* block(int bx, int by) { return coef.data() + ((size_t)by * bw + bx) * 64; }
   int stride() const { return bw * 8; }
   const uint8_t* row(int r) const {  // rows past the edge replicate it
     r = r < 0 ? 0 : (r >= dh ? dh - 1 : r);
@@ -409,11 +423,11 @@ class Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
+          progressive_ = m == 0xC2;
           frame_header(seg, len);
           if (size_only) return;
           break;
-        case 0xC2:
-          refuse("progressive JPEG (SOF2) is not supported");
         case 0xC3:
           refuse("lossless JPEG (SOF3) is not supported");
         case 0xC5:
@@ -467,6 +481,7 @@ class Decoder {
     for (int c = 0; c < ncomp_; ++c)
       if (!comp_[c].scanned)
         refuse("truncated JPEG: component %d has no scan before EOI", comp_[c].id);
+    if (progressive_) finish_progressive();
   }
 
   int width() const { return width_; }
@@ -521,10 +536,11 @@ class Decoder {
   const uint8_t* pos_;
   const uint8_t* end_;
   size_t segment_len_ = 0;
-  bool frame_ = false, jfif_ = false, adobe_ = false;
+  bool frame_ = false, jfif_ = false, adobe_ = false, progressive_ = false;
   int adobe_transform_ = 0;
   int width_ = 0, height_ = 0, ncomp_ = 0, max_h_ = 1, max_v_ = 1, mcus_x_ = 0, mcus_y_ = 0;
   int restart_interval_ = 0, scans_ = 0;
+  int eobrun_ = 0;  // blocks left in the current end-of-band run
   Component comp_[3];
   int32_t quant_[4][64] = {};
   bool quant_defined_[4] = {};
@@ -602,6 +618,10 @@ class Decoder {
       k.bh = mcus_y_ * k.v;
       k.dw = ceil_div((long)width_ * k.h, max_h_);
       k.dh = ceil_div((long)height_ * k.v, max_v_);
+      if (progressive_) {
+        k.coef.assign((size_t)k.bw * k.bh * 64, 0);
+        std::fill(k.coef_bits, k.coef_bits + 64, -1);
+      }
     }
     frame_ = true;
   }
@@ -642,6 +662,20 @@ class Decoder {
     int ns = s[0];
     if (ns < 1 || ns > ncomp_ || len != 4 + 2 * (size_t)ns)
       refuse("corrupt JPEG data: SOS segment of %zu bytes for %d components", len, ns);
+    const uint8_t* p = s + 1 + 2 * ns;
+    const int ss = p[0], se = p[1], ah = p[2] >> 4, al = p[2] & 15;
+    if (!progressive_ && (ss != 0 || se != 63 || ah != 0 || al != 0))
+      refuse("corrupt JPEG data: a sequential scan with Ss=%d Se=%d Ah=%d Al=%d", ss, se, ah,
+             al);
+    const bool dc = ss == 0;
+    // jdphuff.c start_pass_phuff_decoder's checks of the scan's parameters
+    if (progressive_ && ((dc && se != 0) || (!dc && (ss > se || se > 63 || ns != 1)) ||
+                         (ah != 0 && al != ah - 1) || al > 13))
+      refuse("corrupt JPEG data: a progressive scan of %d components with Ss=%d Se=%d Ah=%d "
+             "Al=%d", ns, ss, se, ah, al);
+    // the Huffman tables the scan decodes with
+    const bool need_dc = !progressive_ || (dc && ah == 0);
+    const bool need_ac = !progressive_ || !dc;
     Component* in_scan[3];
     int blocks = 0;
     for (int i = 0; i < ns; ++i) {
@@ -650,52 +684,82 @@ class Decoder {
       for (int c = 0; c < ncomp_; ++c)
         if (comp_[c].id == id) k = &comp_[c];
       if (!k) refuse("corrupt JPEG data: scan names component %d, not in the frame", id);
-      if (k->scanned) refuse("corrupt JPEG data: component %d in two scans", id);
+      for (int j = 0; j < i; ++j)
+        if (in_scan[j] == k) refuse("corrupt JPEG data: component %d twice in a scan", id);
+      if (!progressive_ && k->scanned) refuse("corrupt JPEG data: component %d in two scans", id);
       k->td = tables >> 4;
       k->ta = tables & 15;
-      if (k->td > 3 || k->ta > 3 || !dc_[k->td].defined || !ac_[k->ta].defined)
+      if (k->td > 3 || k->ta > 3 || (need_dc && !dc_[k->td].defined) ||
+          (need_ac && !ac_[k->ta].defined))
         refuse("corrupt JPEG data: scan uses Huffman tables %d/%d, not defined", k->td, k->ta);
-      for (int j = 0; j < dc_[k->td].n_symbols; ++j)
-        if (dc_[k->td].vals[j] > 15) refuse("corrupt JPEG data: bad DC Huffman table");
-      if (!quant_defined_[k->tq])
-        refuse("corrupt JPEG data: quantisation table %d not defined", k->tq);
-      memcpy(k->quant, quant_[k->tq], sizeof k->quant);
-      k->plane.assign((size_t)k->bw * 8 * k->bh * 8, 0);
+      if (need_dc)
+        for (int j = 0; j < dc_[k->td].n_symbols; ++j)
+          if (dc_[k->td].vals[j] > 15) refuse("corrupt JPEG data: bad DC Huffman table");
+      if (!k->latched) {
+        if (!quant_defined_[k->tq])
+          refuse("corrupt JPEG data: quantisation table %d not defined", k->tq);
+        memcpy(k->quant, quant_[k->tq], sizeof k->quant);
+        k->latched = true;
+      }
+      if (progressive_) {
+        if (!dc && k->coef_bits[0] < 0)
+          refuse("corrupt JPEG data: an AC scan of component %d before its DC scan", id);
+        for (int c = ss; c <= se; ++c) {
+          if (ah != std::max(k->coef_bits[c], 0))
+            refuse("corrupt JPEG data: scan %d refines coefficient %d of component %d from bit "
+                   "%d, where the scans before left it at bit %d", scans_, c, id, ah,
+                   std::max(k->coef_bits[c], 0));
+          k->coef_bits[c] = al;
+        }
+      } else {
+        k->plane.assign((size_t)k->bw * 8 * k->bh * 8, 0);
+      }
       k->pred = 0;
       in_scan[i] = k;
       blocks += k->h * k->v;
     }
-    const uint8_t* p = s + 1 + 2 * ns;
-    if (p[0] != 0 || p[1] != 63 || p[2] != 0)
-      refuse("corrupt JPEG data: a sequential scan with Ss=%d Se=%d Ah=%d Al=%d", p[0], p[1],
-             p[2] >> 4, p[2] & 15);
     if (ns > 1 && blocks > 10) refuse("corrupt JPEG data: %d blocks in an MCU", blocks);
 
     BitReader br(pos_, end_, scans_++);
-    int16_t coef[64];
-    auto block = [&](Component& k, int bx, int by) {
-      memset(coef, 0, sizeof coef);
-      int t = br.decode(dc_[k.td]);
-      int diff = t ? extend(br.get(t), t) : 0;
-      k.pred += diff;
-      coef[0] = (int16_t)k.pred;
-      const Huffman& ac = ac_[k.ta];
-      for (int i = 1; i < 64; ++i) {
-        int rs = br.decode(ac);
-        int run = rs >> 4, size = rs & 15;
-        if (size) {
-          i += run;
-          if (i > 63) refuse("corrupt JPEG data: a coefficient past the 64th in scan %d", br.scan);
-          coef[kNatural[i]] = (int16_t)extend(br.get(size), size);
-        } else {
-          if (run != 15) break;
-          i += 15;
-        }
-      }
-      idct_islow(coef, k.quant, k.plane.data() + (size_t)by * 8 * k.stride() + bx * 8,
-                 k.stride());
-    };
+    eobrun_ = 0;
+    if (!progressive_) {
+      int16_t coef[64];
+      each_block(br, in_scan, ns, [&](Component& k, int bx, int by) {
+        memset(coef, 0, sizeof coef);
+        sequential_block(br, k, coef);
+        idct_islow(coef, k.quant, k.plane.data() + (size_t)by * 8 * k.stride() + bx * 8,
+                   k.stride());
+      });
+    } else if (dc && ah == 0) {
+      each_block(br, in_scan, ns, [&](Component& k, int bx, int by) {
+        k.pred += dc_diff(br, dc_[k.td]);
+        k.block(bx, by)[0] = shifted(k.pred, al);
+      });
+    } else if (dc) {
+      each_block(br, in_scan, ns, [&](Component& k, int bx, int by) {
+        if (br.get(1)) k.block(bx, by)[0] |= (int16_t)(1 << al);
+      });
+    } else {
+      const Huffman& ac = ac_[in_scan[0]->ta];
+      each_block(br, in_scan, ns, [&](Component& k, int bx, int by) {
+        if (ah == 0)
+          ac_first(br, ac, k.block(bx, by), ss, se, al);
+        else
+          ac_refine(br, ac, k.block(bx, by), ss, se, al);
+      });
+    }
+    br.align("the marker after the scan");
+    pos_ = br.p;
+    for (int i = 0; i < ns; ++i) in_scan[i]->scanned = true;
+  }
 
+  // Calls block(component, bx, by) for every block of the scan in the
+  // stream's order, reading a restart marker between intervals (which
+  // resets the DC predictions and the end-of-band run).  A scan of one
+  // component covers its ceil(dw / 8) x ceil(dh / 8) blocks; an interleaved
+  // scan covers whole MCUs, padding blocks included.
+  template <class Block>
+  void each_block(BitReader& br, Component* const* in_scan, int ns, Block&& block) {
     long mcus;
     int cols;
     if (ns == 1) {
@@ -712,6 +776,7 @@ class Decoder {
           br.restart(next_rst);
           next_rst = (next_rst + 1) & 7;
           for (int i = 0; i < ns; ++i) in_scan[i]->pred = 0;
+          eobrun_ = 0;
           to_go = restart_interval_;
         }
         --to_go;
@@ -727,9 +792,133 @@ class Decoder {
           for (int bx = 0; bx < k.h; ++bx) block(k, mx * k.h + bx, my * k.v + by);
       }
     }
-    br.align("the marker after the scan");
-    pos_ = br.p;
-    for (int i = 0; i < ns; ++i) in_scan[i]->scanned = true;
+  }
+
+  // jdhuff.c decode_mcu: one block of a sequential scan into ``coef``
+  // (zeroed by the caller)
+  void sequential_block(BitReader& br, Component& k, int16_t* coef) {
+    k.pred += dc_diff(br, dc_[k.td]);
+    coef[0] = (int16_t)k.pred;
+    const Huffman& ac = ac_[k.ta];
+    for (int i = 1; i < 64; ++i) {
+      int rs = br.decode(ac);
+      int run = rs >> 4, size = rs & 15;
+      if (size) {
+        i += run;
+        if (i > 63) refuse("corrupt JPEG data: a coefficient past the 64th in scan %d", br.scan);
+        coef[kNatural[i]] = (int16_t)extend(br.get(size), size);
+      } else {
+        if (run != 15) break;
+        i += 15;
+      }
+    }
+  }
+
+  // the DC difference of one block (F.2.2.1)
+  static int dc_diff(BitReader& br, const Huffman& t) {
+    int size = br.decode(t);
+    return size ? extend(br.get(size), size) : 0;
+  }
+
+  // jdphuff.c LEFT_SHIFT into a JCOEF
+  static int16_t shifted(int v, int al) { return (int16_t)(uint32_t)((uint32_t)v << al); }
+
+  // An end-of-band run of 2^r blocks plus r more bits, this block's included.
+  void read_eobrun(BitReader& br, int r) { eobrun_ = (1 << r) + (r ? br.get(r) : 0); }
+
+  // jdphuff.c decode_mcu_AC_first
+  void ac_first(BitReader& br, const Huffman& ac, int16_t* blk, int ss, int se, int al) {
+    if (eobrun_ > 0) {
+      --eobrun_;
+      return;
+    }
+    for (int i = ss; i <= se; ++i) {
+      int rs = br.decode(ac);
+      int r = rs >> 4, size = rs & 15;
+      if (size) {
+        i += r;
+        if (i > se)
+          refuse("corrupt JPEG data: a coefficient past the end of the band in scan %d", br.scan);
+        blk[kNatural[i]] = shifted(extend(br.get(size), size), al);
+      } else if (r == 15) {
+        i += 15;
+      } else {
+        read_eobrun(br, r);
+        --eobrun_;
+        return;
+      }
+    }
+  }
+
+  // jdphuff.c decode_mcu_AC_refine: a correction bit for each coefficient
+  // already nonzero, in band order, the new +-1 coefficients between them
+  void ac_refine(BitReader& br, const Huffman& ac, int16_t* blk, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -p1;
+    auto correct = [&](int16_t& c) {
+      if (br.get(1) && (c & p1) == 0) c = (int16_t)(c + (c >= 0 ? p1 : m1));
+    };
+    int i = ss;
+    if (eobrun_ == 0) {
+      for (; i <= se; ++i) {
+        int rs = br.decode(ac);
+        int r = rs >> 4, size = rs & 15, value = 0;
+        if (size) {
+          if (size != 1)
+            refuse("corrupt JPEG data: a refined coefficient of %d bits in scan %d", size,
+                   br.scan);
+          value = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          read_eobrun(br, r);
+          break;
+        }
+        // skip r zero coefficients (16 for ZRL), correcting the nonzero ones
+        for (; i <= se; ++i) {
+          int16_t& c = blk[kNatural[i]];
+          if (c != 0)
+            correct(c);
+          else if (--r < 0)
+            break;
+        }
+        if (value) {
+          if (i > se)
+            refuse("corrupt JPEG data: a coefficient past the end of the band in scan %d",
+                   br.scan);
+          blk[kNatural[i]] = (int16_t)value;
+        }
+      }
+    }
+    if (eobrun_ > 0) {
+      for (; i <= se; ++i)
+        if (blk[kNatural[i]] != 0) correct(blk[kNatural[i]]);
+      --eobrun_;
+    }
+  }
+
+  // After the last scan of a progressive frame: the IDCT of every block
+  // inside each component's samples.  libjpeg-turbo smooths the blocks
+  // (jdcoefct.c smoothing_ok) when any of the zigzag coefficients 1-9 of a
+  // component is coarser than its last bit; that is refused here.
+  void finish_progressive() {
+    for (int c = 0; c < ncomp_; ++c) {
+      Component& k = comp_[c];
+      if (k.coef_bits[0] < 0)
+        refuse("corrupt JPEG data: progressive JPEG with no DC scan of component %d", k.id);
+      for (int z = 1; z < 10; ++z)
+        if (k.coef_bits[z] != 0)
+          refuse("progressive JPEG with coefficients not fully refined (component %d, "
+                 "coefficient %d %s): libjpeg-turbo would smooth its blocks", k.id, z,
+                 k.coef_bits[z] < 0 ? "never coded" : "coarse");
+    }
+    for (int c = 0; c < ncomp_; ++c) {
+      Component& k = comp_[c];
+      k.plane.assign((size_t)k.bw * 8 * k.bh * 8, 0);
+      const int wb = ceil_div(k.dw, 8), hb = ceil_div(k.dh, 8);
+      for (int by = 0; by < hb; ++by)
+        for (int bx = 0; bx < wb; ++bx)
+          idct_islow(k.block(bx, by), k.quant,
+                     k.plane.data() + (size_t)by * 8 * k.stride() + bx * 8, k.stride());
+      std::vector<int16_t>().swap(k.coef);
+    }
   }
 
   // jdhuff.c HUFF_EXTEND

@@ -1,11 +1,14 @@
-// Baseline JPEG decoder with no library: the colour payload of .klg logs.
+// JPEG decoder with no library: the colour of .klg logs and of TUM-layout
+// sequences.
 //
-// Decodes what libjpeg-turbo decodes for Pillow, bit for bit: sequential
-// Huffman-coded 8-bit streams (SOF0 / SOF1) of 1 or 3 components, sampling
-// factors up to 2x2, restart intervals, non-interleaved scans.  Refuses
-// progressive, arithmetic-coded, lossless, hierarchical, 12-bit and
-// 4-component streams, and truncated or corrupt data, with a message that
-// names the reason; no partial image is ever returned.
+// Decodes what libjpeg-turbo decodes for Pillow, bit for bit: Huffman-coded
+// 8-bit streams, sequential (SOF0 / SOF1) or progressive (SOF2), of 1 or 3
+// components, sampling factors up to 2x2, restart intervals, non-interleaved
+// scans.  Refuses arithmetic-coded, lossless, hierarchical, 12-bit and
+// 4-component streams, a progressive stream whose first AC coefficients are
+// not fully refined (libjpeg-turbo smooths those), and truncated or corrupt
+// data, with a message that names the reason; no partial image is ever
+// returned.
 #pragma once
 
 #include <cstddef>

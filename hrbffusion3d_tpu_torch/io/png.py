@@ -2,22 +2,35 @@
 
 The JAX package reads the TUM RGB-D frames through Pillow
 (``hrbffusion3d_tpu/io/tum.py``); the port decodes them itself, so that it
-needs no imaging library: non-interlaced PNG of 8 or 16 bits per sample,
-grey, grey + alpha, RGB or RGBA (TUM's 8-bit RGB colour and 16-bit
-big-endian grey depth among them), every chunk's CRC checked.
+needs no imaging library.  It reads every PNG that the standard defines:
+grey at 1, 2, 4, 8 or 16 bits, palette at 1-8 bits (``tRNS`` skipped,
+as Pillow's ``convert("RGB")`` ignores it), RGB, grey + alpha and
+RGBA at 8 or 16 bits, each non-interlaced or Adam7-interlaced, every
+chunk's CRC checked.  ``decode`` returns what
+``np.asarray(Image.open(...))`` returns in Pillow, ``decode_rgb`` what
+``Image.open(...).convert("RGB")`` gives (the two differ in Pillow's
+modes: 16-bit colour keeps the high byte of each sample, 16-bit grey stays
+16-bit in ``decode`` and clamps at 255 in ``decode_rgb``, 1-bit grey is
+boolean in ``decode`` and 0 / 255 in ``decode_rgb``, 2- and 4-bit grey are
+scaled to 0-255 in both, palette indices beyond ``PLTE`` are black).
 
 Decoding undoes the five row filters of the PNG standard (None, Sub, Up,
-Average, Paeth).  Sub, Up and None are whole-row numpy operations, so an
-image that uses only them is decoded row by row.  Average and Paeth predict
-each byte from its decoded left neighbour, which a row cannot vectorise;
-an image that has such rows is decoded as one wavefront instead: pixel
-(r, j) depends on (r, j-1), (r-1, j) and (r-1, j-1) only, so every pixel
-with r + j = s is decoded in step s, all rows at once, in W + H - 1 numpy
-steps over a skewed copy of the image.
+Average, Paeth) on each of the image's passes (one, or Adam7's seven, each
+with its own row width; a pass that is empty in either direction has no
+bytes), over bytes with the filter's byte step ``bpp`` (1 below 8 bits);
+samples below 8 bits are unpacked most significant bits first.  Sub, Up
+and None are whole-row numpy operations, so a pass that uses only them is
+decoded row by row.  Average and Paeth predict each byte from its decoded
+left neighbour, which a row cannot vectorise; a pass that has such rows is
+decoded as one wavefront instead: pixel (r, j) depends on (r, j-1),
+(r-1, j) and (r-1, j-1) only, so every pixel with r + j = s is decoded in
+step s, all rows at once, in W + H - 1 numpy steps over a skewed copy of
+the pass.
 
-The writer filters each row with the type the caller names (one for all
-rows, or one per row) or, by default, with the type whose filtered bytes
-have the least sum of absolute values as signed bytes (libpng's
+The writer writes 8- or 16-bit grey, grey + alpha, RGB or RGBA,
+non-interlaced, and filters each row with the type the caller names (one
+for all rows, or one per row) or, by default, with the type whose filtered
+bytes have the least sum of absolute values as signed bytes (libpng's
 heuristic).
 """
 
@@ -30,8 +43,15 @@ import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NONE, SUB, UP, AVERAGE, PAETH = range(5)
-# colour type -> samples per pixel (grey, RGB, grey + alpha, RGBA)
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+GREY, RGB, PALETTE, GREY_ALPHA, RGBA = 0, 2, 3, 4, 6
+# colour type -> samples per pixel
+_CHANNELS = {GREY: 1, RGB: 3, PALETTE: 1, GREY_ALPHA: 2, RGBA: 4}
+# colour type -> the bit depths the PNG standard allows
+_DEPTHS = {GREY: (1, 2, 4, 8, 16), RGB: (8, 16), PALETTE: (1, 2, 4, 8), GREY_ALPHA: (8, 16),
+           RGBA: (8, 16)}
+# Adam7's passes: (first row, first column, row step, column step)
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+         (1, 0, 2, 1))
 
 
 def _chunks(data: bytes):
@@ -105,37 +125,110 @@ def _unfilter_wavefront(ftype: np.ndarray, raw: np.ndarray, bpp: int) -> np.ndar
     return T[rows + cols + 2, rows + 1].astype(np.uint8).reshape(h, stride)
 
 
-def decode(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) or (H, W, C) array, uint8 or uint16."""
-    header, idat = None, []
+def _samples(rows: np.ndarray, n: int, depth: int) -> np.ndarray:
+    """Unfiltered rows (h, stride) -> (h, n) samples, uint8 or uint16; below
+    8 bits each byte holds 8 / depth samples, most significant bits first."""
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16)
+    if depth == 8:
+        return rows
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    return ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(len(rows), -1)[:, :n]
+
+
+def _passes(w: int, h: int, interlace: int):
+    """(first row, first column, row step, column step, rows, columns) of
+    each pass that holds pixels."""
+    for r0, c0, dr, dc in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        ph, pw = (h - r0 + dr - 1) // dr, (w - c0 + dc - 1) // dc
+        if ph > 0 and pw > 0:
+            yield r0, c0, dr, dc, ph, pw
+
+
+def _decode(data: bytes):
+    """(the array ``np.asarray(Image.open(...))`` gives, the palette as
+    (256, 3) uint8 or None)."""
+    header, palette, idat = None, None, []
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"PLTE":
+            palette = payload
         elif kind == b"IDAT":
             idat.append(payload)
     if header is None:
         raise ValueError("PNG file has no IHDR chunk")
     w, h, depth, colour, compression, filter_method, interlace = header
     if colour not in _CHANNELS:
-        raise ValueError(f"PNG colour type {colour} (palette) is not supported")
-    if depth not in (8, 16):
-        raise ValueError(f"PNG bit depth {depth} is not supported (8 or 16)")
-    if compression != 0 or filter_method != 0 or interlace != 0:
-        raise ValueError("interlaced or non-standard PNG is not supported")
+        raise ValueError(f"PNG colour type {colour} is not defined")
+    if depth not in _DEPTHS[colour]:
+        raise ValueError(f"PNG bit depth {depth} is not defined for colour type {colour} "
+                         f"(allowed: {_DEPTHS[colour]})")
+    if compression != 0 or filter_method != 0 or interlace not in (0, 1):
+        raise ValueError(f"PNG compression {compression}, filter method {filter_method} or "
+                         f"interlace method {interlace} is not defined")
+    if colour == PALETTE:
+        if palette is None or len(palette) % 3 or not 0 < len(palette) <= 768:
+            raise ValueError("palette PNG without a valid PLTE chunk")
+        entries = np.zeros((256, 3), np.uint8)     # indices beyond PLTE are black
+        entries[:len(palette) // 3] = np.frombuffer(palette, np.uint8).reshape(-1, 3)
+        palette = entries
+    else:
+        palette = None
     ch = _CHANNELS[colour]
-    bpp = ch * depth // 8
+    bpp = max(1, ch * depth // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (w * bpp + 1):
-        raise ValueError(f"PNG image data holds {raw.size} bytes, expected {h * (w * bpp + 1)}")
-    raw = raw.reshape(h, w * bpp + 1)
-    ftype = raw[:, 0]
-    if ftype.size and ftype.max() > PAETH:
-        raise ValueError(f"PNG row filter {int(ftype.max())} is not defined")
-    hard = np.isin(ftype, (AVERAGE, PAETH)).any()
-    out = (_unfilter_wavefront if hard else _unfilter_rows)(ftype, raw[:, 1:], bpp)
-    if depth == 16:
-        out = out.view(">u2").astype(np.uint16)
-    return out.reshape((h, w) if ch == 1 else (h, w, ch))
+    passes = list(_passes(w, h, interlace))
+    strides = [(pw * ch * depth + 7) // 8 for *_, pw in passes]
+    need = sum(ph * (stride + 1) for (*_, ph, _), stride in zip(passes, strides))
+    if raw.size != need:
+        raise ValueError(f"PNG image data holds {raw.size} bytes, expected {need}")
+    out = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for (r0, c0, dr, dc, ph, pw), stride in zip(passes, strides):
+        part = raw[pos:pos + ph * (stride + 1)].reshape(ph, stride + 1)
+        pos += part.size
+        ftype = part[:, 0]
+        if ftype.max() > PAETH:
+            raise ValueError(f"PNG row filter {int(ftype.max())} is not defined")
+        hard = np.isin(ftype, (AVERAGE, PAETH)).any()
+        rows = (_unfilter_wavefront if hard else _unfilter_rows)(ftype, part[:, 1:], bpp)
+        out[r0::dr, c0::dc] = _samples(rows, pw * ch, depth).reshape(ph, pw, ch)
+    # Pillow's mode for the file (PngImagePlugin's rawmodes)
+    if colour in (GREY, PALETTE):
+        out = out[..., 0]
+        if colour == GREY and depth == 1:
+            out = out.astype(bool)                          # "1"
+        elif colour == GREY and depth < 8:
+            out *= 255 // ((1 << depth) - 1)                # "L;2", "L;4"
+    elif depth == 16:
+        out = (out >> 8).astype(np.uint8)                   # the high byte
+        if colour == GREY_ALPHA:
+            out = out[..., [0, 0, 0, 1]]                    # "LA;16B" -> RGBA
+    return out, palette
+
+
+def decode(data: bytes) -> np.ndarray:
+    """PNG bytes -> the array ``np.asarray(Image.open(...))`` gives in
+    Pillow: (H, W) or (H, W, C), uint8, uint16 (16-bit grey) or bool (1-bit
+    grey); a palette image's indices."""
+    return _decode(data)[0]
+
+
+def decode_rgb(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8, what Pillow's
+    ``Image.open(...).convert("RGB")`` gives: palette colours from PLTE,
+    grey replicated (16-bit grey clamped at 255), alpha dropped."""
+    img, palette = _decode(data)
+    if palette is not None:
+        return palette[img]
+    if img.dtype == bool:
+        img = img.astype(np.uint8) * np.uint8(255)
+    elif img.dtype == np.uint16:
+        img = np.minimum(img, 255).astype(np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    return np.repeat(img[..., :1], 3, axis=2) if img.shape[2] <= 2 else img[..., :3]
 
 
 def read(path: str) -> np.ndarray:
@@ -165,7 +258,7 @@ def encode(img: np.ndarray, filters=None) -> bytes:
         raise TypeError(f"PNG samples must be uint8 or uint16, got {img.dtype}")
     h, w = img.shape[:2]
     ch = 1 if img.ndim == 2 else img.shape[2]
-    colour = {v: k for k, v in _CHANNELS.items()}.get(ch)
+    colour = {1: GREY, 2: GREY_ALPHA, 3: RGB, 4: RGBA}.get(ch)
     if colour is None:
         raise ValueError(f"PNG images have 1-4 channels, got {ch}")
     depth = 8 * img.dtype.itemsize

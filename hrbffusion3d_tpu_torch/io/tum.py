@@ -3,12 +3,14 @@
 
 Replaces the reference's ``RawImageLogReader`` + the direct OpenCV reads in
 ``HRBFFusion::inputFrame`` (HRBFFusion.cpp:240-270): association-file
-parsing, 16-bit PNG depth (1/5000 m units), 8-bit RGB.  The PNG files are
-decoded by the port's own ``io/png`` (zlib and numpy), so no imaging
-library is needed; grey colour images are expanded to RGB and an alpha
-channel is dropped, as Pillow's ``convert("RGB")`` does in the JAX package.
-``write_sequence`` writes a sequence in the same layout (tests, synthetic
-fixtures).
+parsing, 16-bit PNG depth (1/5000 m units), 8-bit RGB.  The JAX package
+opens every image with Pillow, which picks the format from the file's
+bytes; so does the port, with no imaging library: a colour file that
+starts with a JPEG SOI marker is decoded by the port's own JPEG decoder
+(``io/jpeg``), a PNG by its own ``io/png`` (zlib and numpy), each to what
+Pillow's ``convert("RGB")`` gives in the JAX package; depth is a PNG,
+read as ``np.asarray(Image.open(...))`` reads it.  ``write_sequence``
+writes a sequence in the same layout (tests, synthetic fixtures).
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ from typing import Iterator, NamedTuple
 
 import numpy as np
 
-from . import png
+from . import jpeg, png
 
 TUM_DEPTH_SCALE = 1.0 / 5000.0  # TUM PNG depth unit -> meters
+JPEG_SOI = b"\xff\xd8"
 
 
 class TUMFrame(NamedTuple):
@@ -50,23 +53,27 @@ def read_associations(path: str):
     return out
 
 
-def _as_rgb(img: np.ndarray) -> np.ndarray:
-    """8-bit grey / grey + alpha / RGB / RGBA -> (H,W,3) uint8."""
-    if img.dtype != np.uint8:
-        raise ValueError(f"colour image must have 8-bit samples, got {img.dtype}")
-    if img.ndim == 2:
-        img = img[..., None]
-    if img.shape[2] in (1, 2):
-        return np.repeat(img[..., :1], 3, axis=2)
-    return img[..., :3]
+def _read_colour(path: str) -> np.ndarray:
+    """A colour file as (H,W,3) uint8, decoded by its content (JPEG or
+    PNG), as Pillow's ``Image.open(path).convert("RGB")``; an error names
+    the file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        if data[:2] == JPEG_SOI:
+            return jpeg.decode(data)
+        if data[:8] == png.SIGNATURE:
+            return png.decode_rgb(data)
+    except (RuntimeError, ValueError) as e:
+        raise type(e)(f"{path}: {e}") from e
+    raise ValueError(f"{path}: neither a JPEG nor a PNG file (it starts with {data[:8]!r})")
 
 
 def load_frame(root: str, rgb_path: str, depth_path: str,
                timestamp: float, depth_scale: float = TUM_DEPTH_SCALE) -> TUMFrame:
     depth_img = png.read(os.path.join(root, depth_path))
     depth = depth_img.astype(np.float32) * depth_scale
-    rgb_img = _as_rgb(png.read(os.path.join(root, rgb_path)))
-    rgb = rgb_img.astype(np.float32) / 255.0
+    rgb = _read_colour(os.path.join(root, rgb_path)).astype(np.float32) / 255.0
     return TUMFrame(timestamp=timestamp, depth=depth, rgb=rgb)
 
 
@@ -85,16 +92,18 @@ def frames_prefetched(root: str, associations: str = "associations.txt",
                       start: int = 0, end: int | None = None,
                       depth_scale: float = TUM_DEPTH_SCALE,
                       workers: int = 3, depth_ahead: int = 8) -> Iterator[TUMFrame]:
-    """Like :func:`frames`, but PNG decoding runs ahead of the consumer in a
+    """Like :func:`frames`, but decoding runs ahead of the consumer in a
     pool of ``workers`` processes (the runtime analogue of the native .klg
-    prefetcher, native/dataloader.cpp).  The decoder is numpy, which holds
-    the interpreter lock between its many small array operations: in
+    prefetcher, native/dataloader.cpp).  The PNG decoder is numpy, which
+    holds the interpreter lock between its many small array operations: in
     threads it would take the lock from the consumer's own Python (the
     dense step's launches), so the pool is of processes, started with
     ``spawn`` (safe beside CUDA and threads) and shut down when the
-    iteration ends.  Each worker imports the caller's main module, so a
-    script that calls this keeps its own work under
-    ``if __name__ == "__main__":``."""
+    iteration ends.  When a colour file is a JPEG, the native library that
+    holds the JPEG decoder is built or loaded here first (``RuntimeError``
+    naming the build error if it cannot be), so that the workers only load
+    it.  Each worker imports the caller's main module, so a script that
+    calls this keeps its own work under ``if __name__ == "__main__":``."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -102,6 +111,8 @@ def frames_prefetched(root: str, associations: str = "associations.txt",
     if end is not None:
         assoc = assoc[:end]
     assoc = assoc[start:]
+    if any(_starts_with(os.path.join(root, rgb_p), JPEG_SOI) for _, rgb_p, _ in assoc):
+        jpeg.library()
     with ProcessPoolExecutor(max_workers=workers,
                              mp_context=multiprocessing.get_context("spawn")) as pool:
         pending = []
@@ -121,6 +132,16 @@ def frames_prefetched(root: str, associations: str = "associations.txt",
                 pending.append(pool.submit(load_frame, root, rgb_p, depth_p,
                                            ts, depth_scale))
             yield fut.result()
+
+
+def _starts_with(path: str, magic: bytes) -> bool:
+    """Whether the file starts with ``magic`` (False when it cannot be read:
+    the worker that loads it raises)."""
+    try:
+        with open(path, "rb") as f:
+            return f.read(len(magic)) == magic
+    except OSError:
+        return False
 
 
 def load_groundtruth(path: str):

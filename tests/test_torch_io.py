@@ -5,7 +5,9 @@
   types and a per-row mix of them; Pillow reads the port writer's files
   back exactly;
 - ``io/tum``, ``io/klg`` and ``utils/params``: the same numpy as the JAX
-  package's, so their results are equal;
+  package's, so their results are equal; a TUM-layout sequence with JPEG
+  colour (baseline and progressive) reads, through ``frames`` and
+  ``frames_prefetched``, as the JAX reader (Pillow) reads it;
 - ``io/native_loader``: built by the test from the port's
   ``csrc/klg_loader.cpp`` and ``csrc/jpeg_decode.cpp`` with the host
   compiler, its frames equal the port's Python reader's: timestamps and
@@ -78,10 +80,16 @@ def test_png_rejects_corrupt_and_unsupported():
         png.decode(bytes(data))
     with pytest.raises(ValueError, match="not a PNG"):
         png.decode(b"GIF89a" + bytes(20))
-    buf = io.BytesIO()
-    Image.fromarray(RGB).convert("P").save(buf, format="PNG")
-    with pytest.raises(ValueError, match="palette"):
-        png.decode(buf.getvalue())
+    # forms that Pillow refuses too: a 16-bit palette, colour type 5
+    for depth, colour, cause in ((16, 3, "bit depth 16 is not defined for colour type 3"),
+                                 (8, 5, "colour type 5 is not defined")):
+        bad = bytearray(png.encode(RGB[..., 0]))
+        bad[24:26] = bytes((depth, colour))
+        bad[29:33] = struct.pack(">I", zlib.crc32(bytes(bad[12:29])))
+        with pytest.raises(Exception):
+            Image.open(io.BytesIO(bytes(bad))).load()
+        with pytest.raises(ValueError, match=cause):
+            png.decode(bytes(bad))
 
 
 def _write_tum(root, writer):
@@ -116,6 +124,43 @@ def test_tum_frames_match_jax(tmp_path, writer):
             assert a.depth.dtype == b.depth.dtype and a.rgb.dtype == b.rgb.dtype
             np.testing.assert_array_equal(a.depth, b.depth)
             np.testing.assert_array_equal(a.rgb, b.rgb)
+
+
+@pytest.mark.parametrize("progressive", [False, True], ids=["baseline", "progressive"])
+def test_tum_jpeg_colour_matches_jax(tmp_path, monkeypatch, progressive):
+    def write(path, a):
+        if a.ndim == 3:                     # colour: a JPEG, whatever its name says
+            Image.fromarray(a).save(path, format="JPEG", quality=90, progressive=progressive)
+        else:
+            png.write(str(path), a)
+
+    _write_tum(tmp_path, write)
+    root = str(tmp_path)
+    ref = list(jtum.frames(root))
+    got = list(ttum.frames(root))
+    built = []       # the parent builds or loads the library before the pool starts
+
+    def library(real=ttum.jpeg.library):
+        built.append(real())
+        return built[-1]
+
+    monkeypatch.setattr(ttum.jpeg, "library", library)
+    got_ahead = list(ttum.frames_prefetched(root, workers=2, depth_ahead=2))
+    assert len(built) == 1 and built[0] is native_loader._LIB
+    for frames in (got, got_ahead):
+        assert len(frames) == len(ref) == 5
+        for a, b in zip(frames, ref):
+            assert a.timestamp == b.timestamp
+            np.testing.assert_array_equal(a.depth, b.depth)
+            np.testing.assert_array_equal(a.rgb, b.rgb)
+    (tmp_path / "rgb" / "2.png").write_bytes(b"GIF89a" + bytes(20))
+    with pytest.raises(ValueError, match="rgb/2.png: neither a JPEG nor a PNG"):
+        list(ttum.frames(root))
+    # a library that cannot build: the parent raises, naming the build error
+    monkeypatch.setattr(native_loader, "_LIB", None)
+    monkeypatch.setitem(native_loader._STATUS, "build_error", "RuntimeError: g++ failed (1)")
+    with pytest.raises(RuntimeError, match=r"did not build: RuntimeError: g\+\+ failed"):
+        next(ttum.frames_prefetched(root, workers=2, depth_ahead=2))
 
 
 def test_tum_groundtruth_and_write_sequence(tmp_path):

@@ -1,22 +1,28 @@
-"""The port's baseline JPEG decoder and the .klg readers built on it.
+"""The port's JPEG decoder and the .klg readers built on it.
 
 - ``io/jpeg.decode`` equals Pillow's ``Image.open(...).convert("RGB")``
-  bit for bit: qualities 50-100 at 4:4:4, 4:2:2 and 4:2:0 on sides that
-  are and are not multiples of the MCU, a 640x480 frame of the committed
-  fixture, greyscale, restart intervals (per block and per MCU row),
-  optimised Huffman tables, an Adobe RGB stream and a 4:4:0 stream;
-- progressive, arithmetic-coded, lossless, 12-bit, 4-component, truncated
-  and corrupt streams (a marker inside the entropy-coded data, a byte
-  between it and the next marker) raise ``RuntimeError`` naming the cause;
+  bit for bit, on baseline and on progressive streams: qualities 50-100 at
+  4:4:4, 4:2:2 and 4:2:0 on sides that are and are not multiples of the
+  MCU, a 640x480 frame of each committed fixture, greyscale, restart
+  intervals (per block and per MCU row), optimised Huffman tables, an
+  Adobe RGB stream, a 4:4:0 stream and images of 7x3 and 1x1 pixels;
+- a progressive stream with its refinement scans cut out (EOI kept), or
+  with its DC scans only, raises the named error: libjpeg-turbo smooths
+  such an image's blocks, which the decoder does not reproduce;
+- arithmetic-coded (sequential and progressive), lossless, 12-bit,
+  4-component, truncated and corrupt streams (a marker inside the
+  entropy-coded data, a byte between it and the next marker) raise
+  ``RuntimeError`` naming the cause;
 - on a JPEG-colour .klg the port's Python reader equals the JAX reader
   (Pillow) bit for bit, and the native loader equals the Python reader
   (timestamps and depth bit for bit, colour bytes equal, colour floats
   within one ulp: the library multiplies by 1/255, the reader divides);
 - a corrupt frame in the middle of a .klg makes both readers raise with
   its index after the frames before it, never a shorter sequence;
-- the committed fixture (``tests/data/klg_jpeg``, written by
-  ``scripts/make_klg_jpeg_fixture.py``) still decodes, in Pillow here, to
-  its digests.
+- the committed fixtures (``tests/data/klg_jpeg``, baseline, and
+  ``tests/data/tum_jpeg_progressive``, the same frames progressive; both
+  written by ``scripts/make_klg_jpeg_fixture.py``) still decode, in Pillow
+  here, to their digests, the progressive frames to the baseline frames'.
 """
 
 import hashlib
@@ -35,10 +41,12 @@ from hrbffusion3d_tpu_torch.io import jpeg, native_loader
 from hrbffusion3d_tpu_torch.io import klg as tklg
 
 FIXTURE = Path(__file__).resolve().parent / "data" / "klg_jpeg"
+PROGRESSIVE_FIXTURE = FIXTURE.parent / "tum_jpeg_progressive"
 SIZES = ((47, 61), (48, 64))
 QUALITIES = (50, 75, 90, 95, 100)
 OTHER_CASES = ("fixture", "grey", "restart_blocks", "restart_rows", "optimize", "adobe_rgb",
-               "440")
+               "440", "tiny", "one_pixel")
+REFINED_ERROR = "progressive JPEG with coefficients not fully refined"
 W, H = 640, 480
 SCALE = 1.0 / 5000.0
 
@@ -68,6 +76,37 @@ def _save(img, **kwargs) -> bytes:
     return buf.getvalue()
 
 
+def _segments(data: bytes):
+    """(marker, bytes) of each segment after SOI, a scan with its
+    entropy-coded data (up to the next marker that is not RSTn)."""
+    pos, out = 2, []
+    while pos < len(data):
+        m = data[pos + 1]
+        if m == 0xD9:
+            out.append((m, data[pos:pos + 2]))
+            break
+        end = pos + 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if m == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] not in (0x00, *range(0xD0, 0xD8))):
+                end += 1
+        out.append((m, data[pos:end]))
+        pos = end
+    return out
+
+
+def _scans_kept(data: bytes, keep) -> bytes:
+    """The stream with only the scans for which ``keep(Ss, Ah)`` holds."""
+    out = data[:2]
+    for m, seg in _segments(data):
+        if m == 0xDA:
+            ns = seg[4]
+            ss, ah = seg[5 + 2 * ns], seg[7 + 2 * ns] >> 4
+            if not keep(ss, ah):
+                continue
+        out += seg
+    return out
+
+
 def _pillow(data: bytes) -> np.ndarray:
     return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
 
@@ -76,28 +115,36 @@ def _fixture_meta():
     return json.loads((FIXTURE / "digests.json").read_text())["frames"]
 
 
-def _stream(case) -> bytes:
+def _stream(case, progressive=False) -> bytes:
+    def save(img, **kwargs):
+        return _save(img, progressive=progressive, **kwargs)
+
     if isinstance(case, tuple):
         quality, subsampling, (h, w) = case
-        return _save(_image(h, w), quality=quality, subsampling=subsampling)
+        return save(_image(h, w), quality=quality, subsampling=subsampling)
     if case == "fixture":
-        return (FIXTURE / _fixture_meta()[7]["file"]).read_bytes()
+        return ((PROGRESSIVE_FIXTURE if progressive else FIXTURE)
+                / _fixture_meta()[7]["file"]).read_bytes()
     if case == "grey":
-        return _save(_image(47, 61, grey=True), quality=85)
+        return save(_image(47, 61, grey=True), quality=85)
     if case == "restart_blocks":
-        return _save(_image(47, 61), quality=90, subsampling=2, restart_marker_blocks=3)
+        return save(_image(47, 61), quality=90, subsampling=2, restart_marker_blocks=3)
     if case == "restart_rows":
-        return _save(_image(48, 64), quality=75, subsampling=1, restart_marker_rows=1)
+        return save(_image(48, 64), quality=75, subsampling=1, restart_marker_rows=1)
     if case == "optimize":
-        return _save(_image(47, 61), quality=80, subsampling=2, optimize=True)
+        return save(_image(47, 61), quality=80, subsampling=2, optimize=True)
     if case == "adobe_rgb":       # no colour transform (Adobe APP14, transform 0)
-        data = _save(_image(47, 61), quality=80, subsampling=0, keep_rgb=True)
+        data = save(_image(47, 61), quality=80, subsampling=0, keep_rgb=True)
         assert b"Adobe" in data
         return data
+    if case == "tiny":
+        return save(_image(3, 7), quality=90, subsampling=2)
+    if case == "one_pixel":
+        return save(_image(1, 1), quality=95, subsampling=2)
     # 4:4:0 (luma 1x2): a 4:2:2 stream of W x H relabelled as H x W with the
     # luma's factors swapped is a valid 4:4:0 stream of the same blocks
-    data = bytearray(_save(_image(47, 61), quality=80, subsampling=1))
-    sof = data.index(b"\xff\xc0")
+    data = bytearray(save(_image(47, 61), quality=80, subsampling=1))
+    sof = data.index(b"\xff\xc2" if progressive else b"\xff\xc0")
     h, w = struct.unpack(">HH", data[sof + 5:sof + 9])
     assert data[sof + 11] == 0x21
     data[sof + 5:sof + 9] = struct.pack(">HH", w, h)
@@ -105,24 +152,46 @@ def _stream(case) -> bytes:
     return bytes(data)
 
 
+def _case_id(case) -> str:
+    return case if isinstance(case, str) else f"q{case[0]}-ss{case[1]}-{case[2][1]}x{case[2][0]}"
+
+
 DECODE_CASES = [(q, s, hw) for hw in SIZES for q in QUALITIES for s in (0, 1, 2)] + \
     list(OTHER_CASES)
 
 
-@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: c if isinstance(c, str) else
-                         f"q{c[0]}-ss{c[1]}-{c[2][1]}x{c[2][0]}")
-def test_decode_matches_pillow(lib, case):
-    data = _stream(case)
+@pytest.mark.parametrize("progressive,case",
+                         [(False, c) for c in DECODE_CASES] + [(True, c) for c in DECODE_CASES],
+                         ids=[_case_id(c) for c in DECODE_CASES]
+                         + [f"progressive-{_case_id(c)}" for c in DECODE_CASES])
+def test_decode_matches_pillow(lib, progressive, case):
+    data = _stream(case, progressive)
+    assert (b"\xff\xc2" in data) == progressive
     ref = _pillow(data)
     got = jpeg.decode(data)
     assert got.dtype == np.uint8 and got.shape == ref.shape
     np.testing.assert_array_equal(got, ref)
 
 
-def _patched(offset_from_sof: int, value: int) -> bytes:
-    """A baseline stream with one byte of its SOF0 segment changed."""
-    data = bytearray(_save(_image(48, 64), quality=90))
-    data[data.index(b"\xff\xc0") + offset_from_sof] = value
+@pytest.mark.parametrize("kept", ["no_refinement", "dc_only"])
+def test_unrefined_progressive_raises(lib, kept):
+    """Scans cut out of a progressive stream, EOI kept: Pillow smooths the
+    blocks of what is left; the decoder names the cause instead."""
+    full = _save(_image(48, 64), quality=90, subsampling=2, progressive=True)
+    keep = {"no_refinement": lambda ss, ah: ah == 0, "dc_only": lambda ss, ah: ss == 0}[kept]
+    data = _scans_kept(full, keep)
+    n_scans = sum(m == 0xDA for m, _ in _segments(data))
+    assert 0 < n_scans < sum(m == 0xDA for m, _ in _segments(full))
+    assert _pillow(data).shape == (48, 64, 3)
+    with pytest.raises(RuntimeError, match=REFINED_ERROR):
+        jpeg.decode(data)
+
+
+def _patched(offset_from_sof: int, value: int, progressive=False) -> bytes:
+    """A baseline (progressive) stream with one byte of its SOF0 (SOF2)
+    segment changed."""
+    data = bytearray(_save(_image(48, 64), quality=90, progressive=progressive))
+    data[data.index(b"\xff\xc2" if progressive else b"\xff\xc0") + offset_from_sof] = value
     return bytes(data)
 
 
@@ -144,8 +213,8 @@ def _cmyk() -> bytes:
 
 
 REFUSED = {
-    "progressive": (lambda: _save(_image(48, 64), quality=90, progressive=True),
-                    "progressive JPEG"),
+    "progressive": (lambda: _patched(1, 0xCA, progressive=True),
+                    r"arithmetic-coded JPEG \(SOF10, progressive\)"),
     "arithmetic": (lambda: _patched(1, 0xC9), "arithmetic-coded JPEG"),
     "lossless": (lambda: _patched(1, 0xC3), "lossless JPEG"),
     "12-bit": (lambda: _patched(4, 12), "12-bit JPEG"),
@@ -257,6 +326,23 @@ def test_fixture_digests_match_pillow(lib):
         total += len(data)
         assert len(data) == e["bytes"]
         assert (e["width"], e["height"], e["quality"], e["subsampling"]) == (W, H, 90, "4:2:0")
+        ref = _pillow(data)
+        assert hashlib.sha256(ref.tobytes()).hexdigest() == e["rgb_sha256"], e["file"]
+        np.testing.assert_array_equal(jpeg.decode(data), ref)
+    assert total < 1 << 20
+
+
+def test_progressive_fixture_digests_match_baseline(lib):
+    meta = json.loads((PROGRESSIVE_FIXTURE / "digests.json").read_text())["frames"]
+    base = _fixture_meta()
+    assert len(meta) == len(base) == 20
+    total = 0
+    for e, b in zip(meta, base):
+        data = (PROGRESSIVE_FIXTURE / e["file"]).read_bytes()
+        total += len(data)
+        assert len(data) == e["bytes"] and b"\xff\xc2" in data and b"\xff\xc0" not in data
+        assert (e["width"], e["height"], e["quality"], e["subsampling"]) == (W, H, 90, "4:2:0")
+        assert e["rgb_sha256"] == b["rgb_sha256"], e["file"]
         ref = _pillow(data)
         assert hashlib.sha256(ref.tobytes()).hexdigest() == e["rgb_sha256"], e["file"]
         np.testing.assert_array_equal(jpeg.decode(data), ref)
