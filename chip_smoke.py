@@ -80,8 +80,15 @@ and prints:
     and ``run_tum.main`` again in this process (0 host syncs and every
     kernel in each dense step), the host's decode ms per frame progressive
     beside baseline, the CLI's fps after its first frame beside (a)'s on
-    PNG colour; PNG decode ms per filter type; a JSON line
-    ``{"run_tum": {...}}``;
+    PNG colour, (h) a TUM-layout sequence of the committed JPEG-forms
+    fixture ``tests/data/jpeg_forms`` (the same 20 frames in CMYK, YCCK,
+    luma 4x1, lossless, arithmetic sequential and progressive, and
+    progressive left unrefined) with the card's depth as 16-bit PNG: every
+    file to its Pillow digest through ``jpeg.decode`` and both .klg
+    readers, the host's decode ms per form beside the baseline frame's,
+    ``run_tum.main`` in this process (all 20 frames, ATE gate, 0 host
+    syncs and every kernel in each dense step); PNG decode ms per filter
+    type; a JSON line ``{"run_tum": {...}}``;
   - every tracking and normal setting of ``SLAMConfig``
     (``phase_tracking_modes``): the correspondence search, sparse ICP,
     bilinear photometric lookups (separate and joint), fixed
@@ -147,7 +154,8 @@ and prints:
   - a JSON line ``{"kernels": [...]}``: per kernel its launches on the main
     path (the bilateral kernel's keyframe call site apart, and the
     launches of each ``phase_run_tum`` path (the JPEG-colour .klg runs of
-    (c) and the CLI and in-process runs of (g) included), each tracking
+    (c), the CLI and in-process runs of (g) and the run of (h) included),
+    each tracking
     mode,
     ``phase_distributed`` (c) and each ``phase_sharded_step`` run, (f)'s
     modes, (g)'s runs and (h)'s parts beside them, with its slab check),
@@ -1631,6 +1639,11 @@ KLG_RUN_ORDER = ("jpeg", "raw", "raw", "jpeg", "card")
 # depth frame Adam7-interlaced
 TUM_JPEG_DIR = ROOT / "tests" / "data" / "tum_jpeg_progressive"
 TUM_JPEG_ADAM7_EVERY = 5
+# (h) a TUM-layout sequence of the JPEG forms beyond Huffman DCT of 1 or 3
+# components sampled at most 2x2 (scripts/make_jpeg_forms_fixture.py: the
+# same frames as KLG_JPEG_DIR's, frame i in form i mod 7) as colour, the
+# card's depth as 16-bit PNG
+FORMS_DIR = ROOT / "tests" / "data" / "jpeg_forms"
 
 
 def tum_frames(dev, intr=TUM1, n=RUN_TUM_FRAMES, first=None):
@@ -2184,6 +2197,103 @@ def _tum_jpeg_cli(root: Path, out: Path, n: int, cmd) -> dict:
     return res
 
 
+def _tum_forms(tmp: Path, depths, gt, ts, smi) -> dict:
+    """(h) a TUM-layout sequence whose colour files are the JPEG forms
+    fixture (CMYK, YCCK, luma 4x1, lossless, arithmetic sequential and
+    progressive, progressive left unrefined): the decoder's library
+    loaded; every file decoded by ``jpeg.decode`` and read from a .klg of
+    the same payloads by both readers to its Pillow digest; the host's
+    decode ms per form, each file in turns with the baseline fixture's
+    frame; ``run_tum.main`` in this process on the sequence: every frame
+    consumed, the ATE gate, 0 host syncs and every kernel in each dense
+    step."""
+    meta = json.loads((FORMS_DIR / "digests.json").read_text())
+    entries = meta["frames"]
+    n = len(entries)
+    if not native_loader.available():
+        raise RuntimeError("run_tum (h): the JPEG decoder's library did not build: "
+                           f"{native_loader.status()['build_error']}")
+    root = tmp / "seq_forms"
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    colours, lines = [], []
+    for i, e in enumerate(entries):
+        name = f"{ts[i]:.6f}"
+        colours.append((FORMS_DIR / e["file"]).read_bytes())
+        (root / "rgb" / f"{name}.jpg").write_bytes(colours[-1])
+        d16 = np.clip(np.round(depths[i] / tum.TUM_DEPTH_SCALE), 0, 65535).astype(np.uint16)
+        (root / "depth" / f"{name}.png").write_bytes(png.encode(d16))
+        lines.append(f"{name} rgb/{name}.jpg {name} depth/{name}.png\n")
+    (root / "associations.txt").write_text("".join(lines))
+    traj.save_tum(str(root / "groundtruth.txt"), ts[:n], gt[:n])
+
+    # (i) every file to its Pillow digest: io/jpeg and both .klg readers
+    h, w = depths[0].shape
+    wrong = {"jpeg.decode": [i for i, (c, e) in enumerate(zip(colours, entries))
+                             if hashlib.sha256(jpeg.decode(c).tobytes()).hexdigest()
+                             != e["rgb_sha256"]]}
+    path = tmp / "forms.klg"
+    _write_klg(path, [_zlib_depth(d) for d in depths[:n]], colours,
+               np.round(ts[:n] * 1e6).astype(np.int64))
+    for label, reader in (("native", native_loader.frames), ("python", klg.frames)):
+        got, _ = _klg_read(reader, path, w, h)
+        digests = [hashlib.sha256(np.round(f.rgb * 255).astype(np.uint8).tobytes()).hexdigest()
+                   for f in got]
+        wrong[label] = [i for i, e in enumerate(entries)
+                        if i >= len(digests) or digests[i] != e["rgb_sha256"]]
+    if native_loader.status()["reader"] != "native":
+        raise RuntimeError("run_tum (h): the native loader did not run")
+    print(f"run_tum (h): {n} colour files in {len(meta['forms'])} forms "
+          f"({', '.join(meta['forms'])}; the library {native_loader.status()['library']}): "
+          f"equal to their Pillow digests through "
+          + ", ".join(f"{k} {n - len(v)} of {n}" for k, v in wrong.items())
+          + f"; differing {wrong}")
+    if any(wrong.values()):
+        raise RuntimeError(f"run_tum (h): decoded colour differs from Pillow's: {wrong}")
+
+    # (ii) host decode ms per form, each file in turns with its baseline frame
+    base_meta = json.loads((KLG_JPEG_DIR / "digests.json").read_text())["frames"]
+    baseline = [(KLG_JPEG_DIR / e["file"]).read_bytes() for e in base_meta[:n]]
+    ms = {label: [] for label in meta["forms"] + ["baseline"]}
+    for _ in range(KLG_DECODE_REPEATS):
+        for e, data, base in zip(entries, colours, baseline):
+            for label, payload in ((e["form"], data), ("baseline", base)):
+                t0 = time.perf_counter()
+                jpeg.decode(payload)
+                ms[label].append(1e3 * (time.perf_counter() - t0))
+    decode_ms = {k: float(np.median(v)) for k, v in ms.items()}
+    sizes = {f: [e["bytes"] for e in entries if e["form"] == f] for f in meta["forms"]}
+    print(f"run_tum (h): host time on the card's machine ({smi}; {os.cpu_count()} CPUs): "
+          f"jpeg.decode of one {w}x{h} frame, median per form (of {KLG_DECODE_REPEATS} x its "
+          f"frames, each in turns with the baseline fixture's frame): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in decode_ms.items())
+          + "; bytes per form " + json.dumps(sizes))
+
+    # (iii) run_tum.main on the sequence in this process
+    steps = []
+    with _sync_counts() as syncs, _per_frame(steps, syncs):
+        res = run_tum.main([str(root), "--camera", "TUM1", "--out", str(tmp / "out_h")])
+    idle = [i for i, (_, per) in enumerate(steps) if min(per.values()) == 0]
+    step_syncs = [s for s, _ in steps]
+    ate_m = res.get("ate_m", float("nan"))
+    print(f"run_tum (h): `run_tum.main` on the JPEG-forms sequence in this process: "
+          f"{res['frames']} frames of {n} consumed, {res['fps']:.2f} fps (under sync-debug mode, "
+          f"the first frame after {res['first_frame_s']:.2f} s), ATE {ate_m * 1e3:.3f} mm "
+          f"(aligned, {res.get('ate_matched')} matched), keyframes {res['keyframes']}; host "
+          f"syncs per dense step {sorted(set(step_syncs))} over {len(steps)} steps, steps "
+          f"without every kernel {idle}; launches {json.dumps(res['launches'])}")
+    if res["frames"] != n or len(steps) != n or any(step_syncs) or idle:
+        raise RuntimeError(f"run_tum (h): {res['frames']} frames consumed, {len(steps)} dense "
+                           f"steps, host syncs {step_syncs}, steps without every kernel {idle}")
+    if not (np.isfinite(ate_m) and ate_m < RUN_TUM_ATE_MAX):
+        raise RuntimeError(f"run_tum (h): ATE {ate_m} (limit {RUN_TUM_ATE_MAX})")
+    _driven("run_tum (h)", res["launches"])
+    return dict(frames=n, forms=meta["forms"], library=native_loader.status()["library"],
+                digests_equal=True, decode_ms=decode_ms, decode_ms_all=ms, bytes=sizes,
+                fps=res["fps"], first_frame_s=res["first_frame_s"], ate_mm=ate_m * 1e3,
+                launches=res["launches"], host_syncs_per_step=step_syncs, device=smi)
+
+
 def _ckpt_run(dev, frames, gt, stop=None, path=None):
     sys_ = full_slam.FullSLAM(TUM1, CKPT_CFG, init_pose=gt[0], device=dev)
     for i, f in enumerate(frames):
@@ -2320,7 +2430,9 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
     (a) the command line, (b) replay, (c) .klg through the native loader
     (raw colour, and JPEG colour into FullSLAM), (d) checkpoint / resume,
     (e) splat prediction, (f) reconstruction accuracy, (g) a TUM-layout
-    sequence with progressive JPEG colour and Adam7 depth.  ``cmd``: how
+    sequence with progressive JPEG colour and Adam7 depth, (h) one with
+    colour in the JPEG forms beyond Huffman DCT (CMYK, YCCK, 4x1, lossless,
+    arithmetic, unrefined progressive).  ``cmd``: how
     (a) and (g) start the entry point; ``smi``: the card's name and power
     limit."""
     t_phase = time.perf_counter()
@@ -2351,6 +2463,10 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
                                     smi)
         out["tum_jpeg"]["seconds"] = time.perf_counter() - t0
         print(f"run_tum (g): {out['tum_jpeg']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        out["tum_forms"] = _tum_forms(tmp, depths, gt, ts, smi)
+        out["tum_forms"]["seconds"] = time.perf_counter() - t0
+        print(f"run_tum (h): {out['tum_forms']['seconds']:.1f} s")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"run_tum: phase {out['seconds']:.1f} s")
     return out
@@ -3627,6 +3743,7 @@ def main() -> None:
                                     for r in real["klg_jpeg"]["fullslam"]["jpeg"]]
         row["tum_jpeg_launches"] = [real["tum_jpeg"]["cli"]["launches"][kname],
                                     real["tum_jpeg"]["in_process"]["launches"][kname]]
+        row["tum_forms_launches"] = real["tum_forms"]["launches"][kname]
         row["tracking_modes_launches"] = {k: v["launches"][kname] for k, v in modes.items()
                                           if isinstance(v, dict) and "launches" in v}
         row["distributed_launches"] = distributed["full_system"]["launches"][kname]

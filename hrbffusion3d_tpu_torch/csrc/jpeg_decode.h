@@ -1,12 +1,14 @@
 // JPEG decoder with no library: the colour of .klg logs and of TUM-layout
 // sequences.
 //
-// Decodes what libjpeg-turbo decodes for Pillow, bit for bit: Huffman-coded
-// 8-bit streams, sequential (SOF0 / SOF1) or progressive (SOF2), of 1 or 3
-// components, sampling factors up to 2x2, restart intervals, non-interleaved
-// scans.  Refuses arithmetic-coded, lossless, hierarchical, 12-bit and
-// 4-component streams, a progressive stream whose first AC coefficients are
-// not fully refined (libjpeg-turbo smooths those), and truncated or corrupt
+// Decodes what libjpeg-turbo decodes for Pillow, bit for bit: 8-bit
+// streams, Huffman- or arithmetic-coded, sequential (SOF0 / SOF1 / SOF9),
+// progressive (SOF2 / SOF10; left unrefined too, smoothed as libjpeg-turbo
+// smooths) or lossless (SOF3), of 1, 3 or 4 components (greyscale, RGB,
+// YCbCr, CMYK, YCCK), sampling factors 1-4 in integer ratios, restart
+// intervals, non-interleaved scans.  Refuses what Pillow refuses
+// (hierarchical, arithmetic lossless, 12-bit and other precisions,
+// fractional sampling, lossless YCbCr or YCCK) and truncated or corrupt
 // data, with a message that names the reason; no partial image is ever
 // returned.
 #pragma once

@@ -6,18 +6,24 @@ logs (``hrbffusion3d_tpu/io/klg.py``) and the colour files of TUM-layout
 sequences (``hrbffusion3d_tpu/io/tum.py``).  The port's decoder is
 compiled into the native loader's library (``io/native_loader``, one build
 for both) and gives the bytes that Pillow's
-``Image.open(...).convert("RGB")`` gives: libjpeg-turbo's progressive
-scans, its ISLOW integer IDCT, its "fancy" chroma upsampling and its
-fixed-point YCbCr -> RGB.
+``Image.open(...).convert("RGB")`` gives: libjpeg-turbo's entropy
+decoders, its ISLOW integer IDCT and block smoothing, its upsampling and
+its fixed-point colour conversion.
 
-It decodes Huffman-coded 8-bit JPEG, sequential (SOF0 / SOF1) or
-progressive (SOF2), of 1 or 3 components with sampling factors up to 2x2
-(4:4:4, 4:2:2, 4:2:0, 4:4:0), restart intervals and non-interleaved scans;
-greyscale comes back replicated to RGB.  It refuses arithmetic-coded,
-lossless, hierarchical, 12-bit and 4-component streams, a progressive
-stream whose first AC coefficients are not fully refined (libjpeg-turbo
-smooths its blocks, which the decoder does not reproduce), and truncated
-or corrupt data, raising ``RuntimeError`` with the reason.
+It decodes 8-bit JPEG of 1, 3 or 4 components: Huffman- or
+arithmetic-coded, sequential (SOF0 / SOF1 / SOF9) or progressive (SOF2 /
+SOF10), and lossless (SOF3, predictors 1-7, point transforms, Huffman);
+greyscale, RGB, YCbCr, CMYK and YCCK (what Pillow makes of four channels:
+its inverted "CMYK;I", then its CMYK -> RGB); sampling factors 1-4 in
+integer ratios (libjpeg-turbo's fancy filters for a ratio of 2,
+replication for others and for lossless); restart intervals and
+non-interleaved scans; a progressive image whose first AC coefficients
+are not fully refined, smoothed as libjpeg-turbo smooths it.  Greyscale
+comes back replicated to RGB.  It refuses, as Pillow does, hierarchical
+and arithmetic-coded lossless streams, 12-bit and other precisions,
+fractional sampling ratios and lossless YCbCr or YCCK, and it refuses
+truncated or corrupt data (where libjpeg-turbo warns and goes on),
+raising ``RuntimeError`` with the reason.
 """
 
 from __future__ import annotations

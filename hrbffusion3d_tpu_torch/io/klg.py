@@ -7,7 +7,7 @@ ElasticFusion log format — header ``int32 numFrames``; per frame
 zlib-compressed u16 depth and JPEG rgb (sizes equal to raw -> uncompressed).
 
 The JAX package decodes a JPEG colour payload with Pillow.  The port has no
-imaging library: a JPEG payload goes through the port's own baseline
+imaging library: a JPEG payload goes through the port's own JPEG
 decoder (``io/jpeg``, compiled into the native loader's library), which
 gives Pillow's bytes.  A frame that fails to decode (a corrupt zlib or JPEG
 payload, a payload cut short, a JPEG whose size is not ``width`` x

@@ -5,7 +5,7 @@ built or loaded.
 
 The JAX package loads a prebuilt ``native/libhrbfio.so``.  The port never
 reads that file and builds nothing outside its package: at first use it
-compiles ``csrc/klg_loader.cpp`` and the port's baseline JPEG decoder
+compiles ``csrc/klg_loader.cpp`` and the port's JPEG decoder
 ``csrc/jpeg_decode.cpp`` with the host C++ compiler into one library in
 ``hrbffusion3d_tpu_torch/_build/`` (named by the hash of every source file
 it reads and the command, so a changed source is rebuilt), beside the CUDA
