@@ -7,6 +7,10 @@ against its plain PyTorch version, drives the sparse keyframe backend
 (which has no hand-written kernel) and the full system (``FullSLAM``),
 and prints:
   - the card's name and power limit (nvidia-smi);
+  - the float32 square root: the share of 4 M draws on which the card's
+    ``torch.sqrt`` and the port's ``tensors.sqrt`` differ from the
+    correctly rounded root, and the host CPU's beside them (the helper must
+    be bit-exact on both), a JSON line ``{"sqrt": {...}}``;
   - each kernel source's build time, each kernel's ptxas registers and
     spills, and for every kernel the registers, spilled bytes and resident
     warps per SM the runtime reports (the K = 10 ray cast must stay within
@@ -87,8 +91,16 @@ and prints:
     file to its Pillow digest through ``jpeg.decode`` and both .klg
     readers, the host's decode ms per form beside the baseline frame's,
     ``run_tum.main`` in this process (all 20 frames, ATE gate, 0 host
-    syncs and every kernel in each dense step); PNG decode ms per filter
-    type; a JSON line ``{"run_tum": {...}}``;
+    syncs and every kernel in each dense step), (i) a TUM-layout sequence
+    of the committed depth-forms fixture ``tests/data/depth_forms`` (the
+    first 9 frames' depth as 16-bit PGM and as 16-bit TIFF with no
+    compression, PackBits, deflate and LZW with predictor 2, each in both
+    byte orders) with (c)'s JPEGs as colour, every second one as PNG:
+    every file to its Pillow digest through the TUM reader's decoders, the
+    host's decode ms per depth form beside the baseline JPEG's,
+    ``run_tum.main`` in this process (every frame, ATE gate, 0 host syncs
+    and every kernel in each dense step); PNG decode ms per filter type; a
+    JSON line ``{"run_tum": {...}}``;
   - every tracking and normal setting of ``SLAMConfig``
     (``phase_tracking_modes``): the correspondence search, sparse ICP,
     bilinear photometric lookups (separate and joint), fixed
@@ -197,13 +209,13 @@ from hrbffusion3d_tpu_torch.config import TUM1, SLAMConfig
 from hrbffusion3d_tpu_torch.core import camera, lie
 from hrbffusion3d_tpu_torch.eval import mesh, recon, synth
 from hrbffusion3d_tpu_torch.eval.ate import ate_rmse
-from hrbffusion3d_tpu_torch.io import jpeg, klg, native_loader, ply, png, traj, tum
+from hrbffusion3d_tpu_torch.io import image, jpeg, klg, native_loader, ply, png, traj, tum
 from hrbffusion3d_tpu_torch.map import surfel_map as sm
 from hrbffusion3d_tpu_torch.ops import kernels, preprocess, pyramid, raycast
 from hrbffusion3d_tpu_torch.parallel import dist_ba, multihost, sharded_step, sharding
 from hrbffusion3d_tpu_torch.pipeline import full_slam, slam
 from hrbffusion3d_tpu_torch.tracking import odometry
-from hrbffusion3d_tpu_torch.utils import checkpoint
+from hrbffusion3d_tpu_torch.utils import checkpoint, tensors
 
 N_FRAMES = 16
 N_PALLAS_FRAMES = 6
@@ -384,6 +396,45 @@ def phase_build() -> dict:
         if attrs[name]["local_bytes"] > 0:
             raise RuntimeError(f"the {name} kernel spills: {attrs[name]}")
     return attrs
+
+
+# phase_sqrt: float32 draws, half uniform over every finite non-negative
+# bit pattern, half uniform in [0, 4)
+SQRT_DRAWS = 1 << 22
+
+
+def _mismatch(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The share of float32 elements whose bits differ."""
+    return float((got.view(torch.int32) != ref.view(torch.int32)).double().mean())
+
+
+def phase_sqrt(dev) -> dict:
+    """The card's float32 ``torch.sqrt`` and the port's ``tensors.sqrt``
+    (its only float32 square root) against the float64 square root rounded
+    to float32, which is correctly rounded, on SQRT_DRAWS draws; beside
+    them the host's: torch's CPU float32 ``sqrt`` and ``tensors.sqrt`` on
+    the CPU against numpy's.  Fails unless the helper is bit-exact on
+    both."""
+    g = torch.Generator(dev).manual_seed(16)
+    half = SQRT_DRAWS // 2
+    bits = torch.randint(0, 0x7F800000, (half,), generator=g, device=dev, dtype=torch.int64)
+    x = torch.cat([bits.to(torch.int32).view(torch.float32),
+                   4.0 * torch.rand(half, generator=g, device=dev)])
+    ref = torch.sqrt(x.double()).to(torch.float32)
+    out = dict(draws=SQRT_DRAWS, card_torch_sqrt=_mismatch(torch.sqrt(x), ref),
+               card_helper=_mismatch(tensors.sqrt(x), ref))
+    xc = x.cpu()
+    ref_c = torch.from_numpy(np.sqrt(xc.numpy()))
+    out["cpu_torch_sqrt"] = _mismatch(torch.sqrt(xc), ref_c)
+    out["cpu_helper"] = _mismatch(tensors.sqrt(xc), ref_c)
+    print(f"sqrt: float32 square roots on {SQRT_DRAWS} draws, share differing from the "
+          f"correctly rounded root: card torch.sqrt {out['card_torch_sqrt']:.6f}, card "
+          f"tensors.sqrt {out['card_helper']:.6f} (against the float64 root rounded); host "
+          f"CPU torch.sqrt {out['cpu_torch_sqrt']:.6f}, CPU tensors.sqrt "
+          f"{out['cpu_helper']:.6f} (against numpy's)")
+    if out["card_helper"] or out["cpu_helper"]:
+        raise RuntimeError(f"sqrt: tensors.sqrt is not correctly rounded: {out}")
+    return out
 
 
 def _render_frames(dev):
@@ -1644,6 +1695,11 @@ TUM_JPEG_ADAM7_EVERY = 5
 # same frames as KLG_JPEG_DIR's, frame i in form i mod 7) as colour, the
 # card's depth as 16-bit PNG
 FORMS_DIR = ROOT / "tests" / "data" / "jpeg_forms"
+# (i) a TUM-layout sequence of depth in PGM and TIFF (the committed fixture,
+# scripts/make_depth_forms_fixture.py: the first frames of KLG_JPEG_DIR's,
+# frame i in form i) with KLG_JPEG_DIR's JPEGs as colour, every second one
+# written as PNG here
+DEPTH_FORMS_DIR = ROOT / "tests" / "data" / "depth_forms"
 
 
 def tum_frames(dev, intr=TUM1, n=RUN_TUM_FRAMES, first=None):
@@ -2294,6 +2350,101 @@ def _tum_forms(tmp: Path, depths, gt, ts, smi) -> dict:
                 launches=res["launches"], host_syncs_per_step=step_syncs, device=smi)
 
 
+def _sha(a: np.ndarray) -> str:
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def _tum_depth_forms(tmp: Path, gt, ts, smi) -> dict:
+    """(i) a TUM-layout sequence whose depth files are the depth-forms
+    fixture (16-bit PGM; 16-bit TIFF with no compression, PackBits,
+    deflate and LZW with predictor 2, in both byte orders) and whose colour
+    is the baseline JPEG fixture's, every second frame re-encoded as PNG:
+    every depth file through ``image.read_depth`` to its Pillow digest and
+    every colour file through ``image.read_colour`` to its JPEG's; the
+    host's decode ms per depth form, each file in turns with its baseline
+    JPEG; ``run_tum.main`` in this process on the sequence: every frame
+    consumed, the ATE gate, 0 host syncs and every kernel in each dense
+    step."""
+    meta = json.loads((DEPTH_FORMS_DIR / "digests.json").read_text())
+    entries = meta["frames"]
+    n = len(entries)
+    base = json.loads((KLG_JPEG_DIR / "digests.json").read_text())["frames"][:n]
+    root = tmp / "seq_depth_forms"
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    lines, depth_files, jpegs = [], [], []
+    for i, (e, b) in enumerate(zip(entries, base)):
+        name = f"{ts[i]:.6f}"
+        jpegs.append((KLG_JPEG_DIR / b["file"]).read_bytes())
+        rgb = f"rgb/{name}.png" if i % 2 else f"rgb/{name}.jpg"
+        (root / rgb).write_bytes(png.encode(jpeg.decode(jpegs[-1])) if i % 2 else jpegs[-1])
+        depth_files.append((DEPTH_FORMS_DIR / e["file"]).read_bytes())
+        dep = f"depth/{name}{Path(e['file']).suffix}"
+        (root / dep).write_bytes(depth_files[-1])
+        lines.append(f"{name} {rgb} {name} {dep}\n")
+    (root / "associations.txt").write_text("".join(lines))
+    traj.save_tum(str(root / "groundtruth.txt"), ts[:n], gt[:n])
+
+    # (i) every file to its digest, read as the TUM reader reads it
+    rows = [ln.split() for ln in lines]
+    wrong = {"depth": [i for i, (r, e) in enumerate(zip(rows, entries))
+                       if _sha(image.read_depth(str(root / r[3]))) != e["depth_sha256"]],
+             "colour": [i for i, (r, b) in enumerate(zip(rows, base))
+                        if _sha(image.read_colour(str(root / r[1]))) != b["rgb_sha256"]]}
+    print(f"run_tum (i): {n} depth files in {len(meta['forms'])} forms "
+          f"({', '.join(meta['forms'])}) beside JPEG and PNG colour: equal to their Pillow "
+          f"digests through image.read_depth {n - len(wrong['depth'])} of {n} and "
+          f"image.read_colour {n - len(wrong['colour'])} of {n}; differing {wrong}")
+    if any(wrong.values()):
+        raise RuntimeError(f"run_tum (i): decoded frames differ from Pillow's: {wrong}")
+
+    # (ii) host decode ms per depth form, each file in turns with its JPEG
+    ms = {label: [] for label in meta["forms"] + ["baseline_jpeg", "png_colour"]}
+    colour_png = [(root / r[1]).read_bytes() for r in rows[1::2]]
+    for _ in range(KLG_DECODE_REPEATS):
+        for i, (e, data) in enumerate(zip(entries, depth_files)):
+            for label, fn, payload in ((e["form"], image.decode_depth, data),
+                                       ("baseline_jpeg", jpeg.decode, jpegs[i])):
+                t0 = time.perf_counter()
+                fn(payload)
+                ms[label].append(1e3 * (time.perf_counter() - t0))
+        for data in colour_png:
+            t0 = time.perf_counter()
+            png.decode_rgb(data)
+            ms["png_colour"].append(1e3 * (time.perf_counter() - t0))
+    decode_ms = {k: float(np.median(v)) for k, v in ms.items()}
+    h, w = entries[0]["height"], entries[0]["width"]
+    print(f"run_tum (i): host time on the card's machine ({smi}; {os.cpu_count()} CPUs): "
+          f"decode of one {w}x{h} frame, median (of {KLG_DECODE_REPEATS} x its files, each "
+          f"depth file in turns with its baseline JPEG colour): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in decode_ms.items())
+          + "; bytes per form " + json.dumps({e["form"]: e["bytes"] for e in entries}))
+
+    # (iii) run_tum.main on the sequence in this process
+    steps = []
+    with _sync_counts() as syncs, _per_frame(steps, syncs):
+        res = run_tum.main([str(root), "--camera", "TUM1", "--out", str(tmp / "out_i")])
+    idle = [i for i, (_, per) in enumerate(steps) if min(per.values()) == 0]
+    step_syncs = [s for s, _ in steps]
+    ate_m = res.get("ate_m", float("nan"))
+    print(f"run_tum (i): `run_tum.main` on the depth-forms sequence in this process: "
+          f"{res['frames']} frames of {n} consumed, {res['fps']:.2f} fps (under sync-debug mode, "
+          f"the first frame after {res['first_frame_s']:.2f} s), ATE {ate_m * 1e3:.3f} mm "
+          f"(aligned, {res.get('ate_matched')} matched), keyframes {res['keyframes']}; host "
+          f"syncs per dense step {sorted(set(step_syncs))} over {len(steps)} steps, steps "
+          f"without every kernel {idle}; launches {json.dumps(res['launches'])}")
+    if res["frames"] != n or len(steps) != n or any(step_syncs) or idle:
+        raise RuntimeError(f"run_tum (i): {res['frames']} frames consumed, {len(steps)} dense "
+                           f"steps, host syncs {step_syncs}, steps without every kernel {idle}")
+    if not (np.isfinite(ate_m) and ate_m < RUN_TUM_ATE_MAX):
+        raise RuntimeError(f"run_tum (i): ATE {ate_m} (limit {RUN_TUM_ATE_MAX})")
+    _driven("run_tum (i)", res["launches"])
+    return dict(frames=n, forms=meta["forms"], digests_equal=True, decode_ms=decode_ms,
+                decode_ms_all=ms, bytes={e["form"]: e["bytes"] for e in entries},
+                fps=res["fps"], first_frame_s=res["first_frame_s"], ate_mm=ate_m * 1e3,
+                launches=res["launches"], host_syncs_per_step=step_syncs, device=smi)
+
+
 def _ckpt_run(dev, frames, gt, stop=None, path=None):
     sys_ = full_slam.FullSLAM(TUM1, CKPT_CFG, init_pose=gt[0], device=dev)
     for i, f in enumerate(frames):
@@ -2432,7 +2583,8 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
     (e) splat prediction, (f) reconstruction accuracy, (g) a TUM-layout
     sequence with progressive JPEG colour and Adam7 depth, (h) one with
     colour in the JPEG forms beyond Huffman DCT (CMYK, YCCK, 4x1, lossless,
-    arithmetic, unrefined progressive).  ``cmd``: how
+    arithmetic, unrefined progressive), (i) one with depth in PGM and TIFF
+    and JPEG and PNG colour.  ``cmd``: how
     (a) and (g) start the entry point; ``smi``: the card's name and power
     limit."""
     t_phase = time.perf_counter()
@@ -2467,6 +2619,10 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
         out["tum_forms"] = _tum_forms(tmp, depths, gt, ts, smi)
         out["tum_forms"]["seconds"] = time.perf_counter() - t0
         print(f"run_tum (h): {out['tum_forms']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        out["tum_depth_forms"] = _tum_depth_forms(tmp, gt, ts, smi)
+        out["tum_depth_forms"]["seconds"] = time.perf_counter() - t0
+        print(f"run_tum (i): {out['tum_depth_forms']['seconds']:.1f} s")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"run_tum: phase {out['seconds']:.1f} s")
     return out
@@ -3693,9 +3849,11 @@ def phase_group_full_system(dev, ref_sync, smi) -> dict:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     name, smi = phase_card()
     dev = torch.device("cuda", 0)
     attrs = phase_build()
+    print(json.dumps({"sqrt": phase_sqrt(dev)}))
     poses, frames = phase_frames(dev)
     state, launches, _, est = phase_main_path(poses, frames)
     ray = phase_raycast_vs_plain(state)
@@ -3744,6 +3902,7 @@ def main() -> None:
         row["tum_jpeg_launches"] = [real["tum_jpeg"]["cli"]["launches"][kname],
                                     real["tum_jpeg"]["in_process"]["launches"][kname]]
         row["tum_forms_launches"] = real["tum_forms"]["launches"][kname]
+        row["tum_depth_forms_launches"] = real["tum_depth_forms"]["launches"][kname]
         row["tracking_modes_launches"] = {k: v["launches"][kname] for k, v in modes.items()
                                           if isinstance(v, dict) and "launches" in v}
         row["distributed_launches"] = distributed["full_system"]["launches"][kname]
@@ -3763,6 +3922,7 @@ def main() -> None:
         elif kname in attrs:
             row["attributes"] = attrs[kname]
         rows.append(row)
+    print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s ({smi})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import lie
-from ..utils.tensors import device_or_card, einsum, full_float32, host, matmul
+from ..utils.tensors import device_or_card, einsum, full_float32, host, matmul, sqrt
 from . import reduce_plan as rp
 
 HUBER_DELTA2 = 7.815  # Optimizer.cc: thHuberRGBD^2 (chi2 95%, 3 DoF)
@@ -127,7 +127,7 @@ def _robust_weight(e: torch.Tensor, info: torch.Tensor, robust: bool):
         return torch.ones_like(chi2), chi2
     # Huber: w = 1 for chi2 <= d2 else delta/sqrt(chi2)
     d = HUBER_DELTA2 ** 0.5
-    w = torch.where(chi2 <= HUBER_DELTA2, 1.0, d / torch.sqrt(torch.clamp(chi2, min=1e-12)))
+    w = torch.where(chi2 <= HUBER_DELTA2, 1.0, d / sqrt(torch.clamp(chi2, min=1e-12)))
     return w, chi2
 
 
@@ -181,7 +181,7 @@ def _solve_dense(prob: BAProblem, W_e, Y_e, Hcc, rhs, damping, plans: rp.SchurPl
     Sm = S.permute(0, 2, 1, 3).reshape(6 * C, 6 * C)
     rv = rhs.reshape(6 * C)
     # diagonal preconditioning for f32
-    dpre = torch.sqrt(torch.abs(torch.diagonal(Sm)) + 1e-10)
+    dpre = sqrt(torch.abs(torch.diagonal(Sm)) + 1e-10)
     x = torch.linalg.solve_ex(Sm / dpre[:, None] / dpre[None, :], rv / dpre).result / dpre
     return x.reshape(C, 6)
 

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..core import lie
-from ..utils.tensors import einsum, full_float32, host, matmul
+from ..utils.tensors import einsum, full_float32, host, matmul, sqrt
 from . import reduce_plan as rp
 
 # above this keyframe count the dense (6K,6K) assembly+solve switches to
@@ -108,7 +108,7 @@ def _solve_dense(g: PoseGraph, e, Ji, Jj, Iw, damping: float, plans: GraphPlans)
 
     Hm = H.permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
     bv = b.reshape(6 * K)
-    d = torch.sqrt(torch.abs(torch.diagonal(Hm)) + 1e-10)
+    d = sqrt(torch.abs(torch.diagonal(Hm)) + 1e-10)
     x = torch.linalg.solve_ex(Hm / d[:, None] / d[None, :], bv / d).result / d
     return x.reshape(K, 6)
 

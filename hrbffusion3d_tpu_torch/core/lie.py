@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.tensors import matmul
+from ..utils.tensors import matmul, sqrt
 
 _EPS = 1e-8
 
@@ -30,7 +30,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues' formula, (...,3) -> (...,3,3), with series fallbacks at
     theta -> 0."""
     theta2 = torch.sum(w * w, dim=-1)
-    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    theta = sqrt(theta2 + _EPS * _EPS)
     small = theta2 < 1e-8
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
@@ -62,7 +62,7 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     (...,4,4)."""
     v, w = xi[..., :3], xi[..., 3:]
     theta2 = torch.sum(w * w, dim=-1)
-    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    theta = sqrt(theta2 + _EPS * _EPS)
     small = theta2 < 1e-8
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
@@ -79,7 +79,7 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
     """(...,4,4) -> (...,6) as [v | w]."""
     w = so3_log(T[..., :3, :3])
     theta2 = torch.sum(w * w, dim=-1)
-    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    theta = sqrt(theta2 + _EPS * _EPS)
     small = theta2 < 1e-8
     half = 0.5 * theta
     # V^-1 = I - W/2 + (1/theta^2)(1 - a/(2b)) W^2

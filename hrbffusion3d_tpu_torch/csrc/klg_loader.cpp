@@ -7,7 +7,8 @@
 // decompression (the reference decodes synchronously on the GUI thread,
 // GUI/src/HRBF_fusion.cpp:216).  It differs from that file in three ways:
 //   - JPEG colour goes through the port's own decoder (jpeg_decode.cpp,
-//     linked into the same library), not libjpeg;
+//     linked into the same library), not libjpeg; like that file it reads
+//     no other colour payload, and a PNG one is an error that names it;
 //   - a frame that fails to decode is an error, not the end of the stream:
 //     klg_next returns -1 once the frames before it are consumed, and
 //     klg_error names the frame index and the cause (zlib's return code,
@@ -121,6 +122,10 @@ Next Loader::decode_next(Frame& out, std::string& err) {
   if ((size_t)isize == raw_rgb) {
     for (size_t i = 0; i < raw_rgb; ++i) out.rgb[i] = ibuf[i] * (1.0f / 255.0f);
   } else if (isize > 0) {
+    static const uint8_t kPng[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1A, '\n'};
+    if (isize >= 8 && memcmp(ibuf.data(), kPng, 8) == 0)
+      return fail("PNG colour payload: this loader decodes JPEG colour only (io/klg.frames "
+                  "reads PNG colour)");
     int w = 0, h = 0;
     std::string why;
     if (!hrbf_jpeg::decode_rgb(ibuf.data(), isize, &w, &h, &rgb8, &why))

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..map.surfel_map import SurfelMap
-from ..utils.tensors import host
+from ..utils.tensors import host, norm
 from .synth import Scene
 
 
@@ -28,7 +28,7 @@ def point_to_scene_distance(points: torch.Tensor, scene: Scene) -> torch.Tensor:
         d = torch.minimum(d, torch.abs(points @ planes[i, :3] - planes[i, 3]))
     for i in range(spheres.shape[0]):
         d = torch.minimum(d, torch.abs(
-            torch.linalg.vector_norm(points - spheres[i, :3], dim=-1) - spheres[i, 3]))
+            norm(points - spheres[i, :3], dim=-1) - spheres[i, 3]))
     return d
 
 

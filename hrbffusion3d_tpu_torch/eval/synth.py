@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..config import CameraIntrinsics
-from ..utils.tensors import const, device_or_card
+from ..utils.tensors import const, device_or_card, norm, sqrt
 
 
 class Scene(NamedTuple):
@@ -134,7 +134,7 @@ def render_frame_full(scene: Scene, pose_wc: torch.Tensor, intr: CameraIntrinsic
         B = 2.0 * torch.einsum("hwi,i->hw", d, oc)
         C = torch.dot(oc, oc) - r * r
         disc = B * B - 4.0 * A * C
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        sq = sqrt(torch.clamp(disc, min=0.0))
         t0 = (-B - sq) / (2.0 * A)
         t1 = (-B + sq) / (2.0 * A)
         t = torch.where(t0 > 0.05, t0, torch.where(t1 > 0.05, t1, big))
@@ -146,7 +146,7 @@ def render_frame_full(scene: Scene, pose_wc: torch.Tensor, intr: CameraIntrinsic
         for i in range(scene.quads.shape[0]):
             c, e1, e2 = scene.quads[i, 0:3], scene.quads[i, 3:6], scene.quads[i, 6:9]
             n = torch.linalg.cross(e1, e2)
-            n = n / torch.linalg.vector_norm(n)
+            n = n / norm(n)
             denom = torch.einsum("hwi,i->hw", d, n)
             t = torch.dot(n, c - o) / torch.where(torch.abs(denom) > 1e-9, denom, 1e-9)
             rel = o + t[..., None] * d - c
@@ -212,7 +212,7 @@ def kinect_depth(depth: torch.Tensor, normal_world: torch.Tensor,
     if quantize_mm:
         z = torch.round(z * 1000.0) / 1000.0
     cosi = torch.abs(torch.sum(normal_world * dirs_world, dim=-1)
-                     / (torch.linalg.vector_norm(dirs_world, dim=-1) + 1e-12))
+                     / (norm(dirs_world, dim=-1) + 1e-12))
     ramp = torch.clamp((2.0 * dropout_cos - cosi) / max(dropout_cos, 1e-6), 0.0, 1.0)
     drop = (cosi < dropout_cos) | (uniform_draw < edge_dropout * ramp)
     return torch.where(valid & ~drop, z, 0.0)

@@ -6,12 +6,14 @@ ElasticFusion log format — header ``int32 numFrames``; per frame
 ``int64 timestamp, int32 depthSize, int32 imageSize`` followed by
 zlib-compressed u16 depth and JPEG rgb (sizes equal to raw -> uncompressed).
 
-The JAX package decodes a JPEG colour payload with Pillow.  The port has no
-imaging library: a JPEG payload goes through the port's own JPEG
-decoder (``io/jpeg``, compiled into the native loader's library), which
-gives Pillow's bytes.  A frame that fails to decode (a corrupt zlib or JPEG
-payload, a payload cut short, a JPEG whose size is not ``width`` x
-``height``) raises ``RuntimeError`` naming the frame's index.
+The JAX package decodes a non-raw colour payload with Pillow, whatever
+its format.  The port has no imaging library: the payload is decoded by
+its content (``io/image.decode_colour``): a JPEG by the port's own JPEG
+decoder (``io/jpeg``, compiled into the native loader's library), a PNG by
+``io/png``, each to Pillow's bytes.  A frame that fails to decode (a
+corrupt zlib, JPEG or PNG payload, a payload of another format, a payload
+cut short, an image whose size is not ``width`` x ``height``) raises
+``RuntimeError`` naming the frame's index.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Iterator, NamedTuple
 
 import numpy as np
 
-from . import jpeg
+from . import image
 
 
 class KLGFrame(NamedTuple):
@@ -68,12 +70,13 @@ def frames(path: str, width: int = 640, height: int = 480,
             elif isize == 0:
                 rgb = np.zeros((height, width, 3), np.uint8)
             else:
+                form = "JPEG" if ibuf[:2] == image.JPEG_SOI else "PNG"
                 try:
-                    rgb = jpeg.decode(ibuf)
-                except RuntimeError as e:
-                    raise fail(f"JPEG colour payload: {e}") from e
+                    rgb = image.decode_colour(ibuf)
+                except (RuntimeError, ValueError) as e:
+                    raise fail(f"colour payload: {e}") from e
                 if rgb.shape != (height, width, 3):
-                    raise fail(f"JPEG colour payload is {rgb.shape[1]}x{rgb.shape[0]}, "
+                    raise fail(f"{form} colour payload is {rgb.shape[1]}x{rgb.shape[0]}, "
                                f"expected {width}x{height}")
             yield KLGFrame(ts, depth, rgb.astype(np.float32) / 255.0)
 

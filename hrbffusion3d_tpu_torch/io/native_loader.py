@@ -5,13 +5,15 @@ built or loaded.
 
 The JAX package loads a prebuilt ``native/libhrbfio.so``.  The port never
 reads that file and builds nothing outside its package: at first use it
-compiles ``csrc/klg_loader.cpp`` and the port's JPEG decoder
-``csrc/jpeg_decode.cpp`` with the host C++ compiler into one library in
+compiles ``csrc/klg_loader.cpp``, the port's JPEG decoder
+``csrc/jpeg_decode.cpp`` and its TIFF strip decompressors
+``csrc/tiff_decode.cpp`` with the host C++ compiler into one library in
 ``hrbffusion3d_tpu_torch/_build/`` (named by the hash of every source file
 it reads and the command, so a changed source is rebuilt), beside the CUDA
 kernels.  It links zlib and nothing else: no libjpeg.  The loader decodes
-zlib depth and JPEG colour on a worker thread of its own; ``io/jpeg``
-calls the same library's decoder.
+zlib depth and JPEG colour on a worker thread of its own (a PNG colour
+payload is an error that says so: ``io/klg.frames`` reads it); ``io/jpeg``
+and ``io/tiff`` call the same library's decoders.
 
 A frame that fails to decode (a corrupt zlib or JPEG payload, a payload cut
 short, a JPEG whose size is not ``width`` x ``height``) raises
@@ -34,14 +36,14 @@ from typing import Iterator
 
 import numpy as np
 
-# klg imports io/jpeg, which imports this module: klg's names are read at
-# call time, not bound here
+# klg imports io/image, whose io/jpeg and io/tiff import this module: klg's
+# names are read at call time, not bound here
 from . import klg
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCE = _CSRC / "klg_loader.cpp"
 # every file the build reads: the compiled sources and the header
-_SOURCES = (_SOURCE, _CSRC / "jpeg_decode.cpp")
+_SOURCES = (_SOURCE, _CSRC / "jpeg_decode.cpp", _CSRC / "tiff_decode.cpp")
 _HEADERS = (_CSRC / "jpeg_decode.h",)
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
 # native/Makefile's flags, without libjpeg
@@ -106,6 +108,11 @@ def _load_lib():
         ctypes.c_char_p, ctypes.c_size_t,
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p, ctypes.c_int,
+    ]
+    lib.tiff_decompress.restype = ctypes.c_int
+    lib.tiff_decompress.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t, ctypes.c_char_p, ctypes.c_int,
     ]
     _STATUS["library"] = str(path)
     return lib

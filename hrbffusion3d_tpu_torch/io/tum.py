@@ -5,12 +5,13 @@ Replaces the reference's ``RawImageLogReader`` + the direct OpenCV reads in
 ``HRBFFusion::inputFrame`` (HRBFFusion.cpp:240-270): association-file
 parsing, 16-bit PNG depth (1/5000 m units), 8-bit RGB.  The JAX package
 opens every image with Pillow, which picks the format from the file's
-bytes; so does the port, with no imaging library: a colour file that
-starts with a JPEG SOI marker is decoded by the port's own JPEG decoder
-(``io/jpeg``), a PNG by its own ``io/png`` (zlib and numpy), each to what
-Pillow's ``convert("RGB")`` gives in the JAX package; depth is a PNG,
-read as ``np.asarray(Image.open(...))`` reads it.  ``write_sequence``
-writes a sequence in the same layout (tests, synthetic fixtures).
+bytes; so does the port, with no imaging library (``io/image``): a colour
+file that starts with a JPEG SOI marker is decoded by the port's own JPEG
+decoder (``io/jpeg``), a PNG by its own ``io/png`` (zlib and numpy), each
+to what Pillow's ``convert("RGB")`` gives in the JAX package; a depth file
+is a PNG (``io/png``), a PGM (``io/pnm``) or a TIFF (``io/tiff``), read as
+``np.asarray(Image.open(...))`` reads it.  ``write_sequence`` writes a
+sequence in the same layout (tests, synthetic fixtures).
 """
 
 from __future__ import annotations
@@ -20,10 +21,9 @@ from typing import Iterator, NamedTuple
 
 import numpy as np
 
-from . import jpeg, png
+from . import image, jpeg, png, tiff
 
 TUM_DEPTH_SCALE = 1.0 / 5000.0  # TUM PNG depth unit -> meters
-JPEG_SOI = b"\xff\xd8"
 
 
 class TUMFrame(NamedTuple):
@@ -53,27 +53,11 @@ def read_associations(path: str):
     return out
 
 
-def _read_colour(path: str) -> np.ndarray:
-    """A colour file as (H,W,3) uint8, decoded by its content (JPEG or
-    PNG), as Pillow's ``Image.open(path).convert("RGB")``; an error names
-    the file."""
-    with open(path, "rb") as f:
-        data = f.read()
-    try:
-        if data[:2] == JPEG_SOI:
-            return jpeg.decode(data)
-        if data[:8] == png.SIGNATURE:
-            return png.decode_rgb(data)
-    except (RuntimeError, ValueError) as e:
-        raise type(e)(f"{path}: {e}") from e
-    raise ValueError(f"{path}: neither a JPEG nor a PNG file (it starts with {data[:8]!r})")
-
-
 def load_frame(root: str, rgb_path: str, depth_path: str,
                timestamp: float, depth_scale: float = TUM_DEPTH_SCALE) -> TUMFrame:
-    depth_img = png.read(os.path.join(root, depth_path))
+    depth_img = image.read_depth(os.path.join(root, depth_path))
     depth = depth_img.astype(np.float32) * depth_scale
-    rgb = _read_colour(os.path.join(root, rgb_path)).astype(np.float32) / 255.0
+    rgb = image.read_colour(os.path.join(root, rgb_path)).astype(np.float32) / 255.0
     return TUMFrame(timestamp=timestamp, depth=depth, rgb=rgb)
 
 
@@ -99,11 +83,12 @@ def frames_prefetched(root: str, associations: str = "associations.txt",
     threads it would take the lock from the consumer's own Python (the
     dense step's launches), so the pool is of processes, started with
     ``spawn`` (safe beside CUDA and threads) and shut down when the
-    iteration ends.  When a colour file is a JPEG, the native library that
-    holds the JPEG decoder is built or loaded here first (``RuntimeError``
-    naming the build error if it cannot be), so that the workers only load
-    it.  Each worker imports the caller's main module, so a script that
-    calls this keeps its own work under ``if __name__ == "__main__":``."""
+    iteration ends.  When a colour file is a JPEG or a depth file a TIFF,
+    the native library that holds the JPEG decoder and the TIFF
+    decompressors is built or loaded here first (``RuntimeError`` naming
+    the build error if it cannot be), so that the workers only load it.
+    Each worker imports the caller's main module, so a script that calls
+    this keeps its own work under ``if __name__ == "__main__":``."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -111,7 +96,9 @@ def frames_prefetched(root: str, associations: str = "associations.txt",
     if end is not None:
         assoc = assoc[:end]
     assoc = assoc[start:]
-    if any(_starts_with(os.path.join(root, rgb_p), JPEG_SOI) for _, rgb_p, _ in assoc):
+    if any(_head(os.path.join(root, rgb_p), 2) == image.JPEG_SOI
+           or _head(os.path.join(root, depth_p), 4) in tiff.MAGICS
+           for _, rgb_p, depth_p in assoc):
         jpeg.library()
     with ProcessPoolExecutor(max_workers=workers,
                              mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -134,14 +121,14 @@ def frames_prefetched(root: str, associations: str = "associations.txt",
             yield fut.result()
 
 
-def _starts_with(path: str, magic: bytes) -> bool:
-    """Whether the file starts with ``magic`` (False when it cannot be read:
-    the worker that loads it raises)."""
+def _head(path: str, n: int) -> bytes:
+    """The file's first ``n`` bytes (none when it cannot be read: the worker
+    that loads it raises)."""
     try:
         with open(path, "rb") as f:
-            return f.read(len(magic)) == magic
+            return f.read(n)
     except OSError:
-        return False
+        return b""
 
 
 def load_groundtruth(path: str):

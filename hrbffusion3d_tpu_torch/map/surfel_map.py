@@ -33,7 +33,7 @@ from ..config import CameraIntrinsics, SLAMConfig
 from ..core import camera, lie
 from ..ops.patches import extract_patches
 from ..ops.preprocess import CurvatureResult, VertexNormalRadius
-from ..utils.tensors import const
+from ..utils.tensors import const, norm, sqrt
 
 CURV_SENTINEL = 1000.0
 N_CHANNELS = 24
@@ -124,7 +124,7 @@ def measurement_from_preprocess(pre: VertexNormalRadius, curv: CurvatureResult,
 def _measurement_valid(m: FrameMeasurement, cfg: SLAMConfig) -> torch.Tensor:
     """Validity gate shared by initialise and fuse (data.vert:113-119)."""
     t = cfg.curv_valid_threshold
-    return ((torch.linalg.vector_norm(m.normal, dim=-1) > 0.8)
+    return ((norm(m.normal, dim=-1) > 0.8)
             & (m.vertex[..., 2] > cfg.depth_min)
             & (m.vertex[..., 2] <= cfg.depth_cutoff)
             & (m.k1 > -t) & (m.k1 < t) & (m.k2 > -t) & (m.k2 < t))
@@ -395,16 +395,16 @@ def fuse_pixels(meas_q: FrameMeasurement, patch: torch.Tensor, cand: torch.Tenso
 
     xl = (gx.reshape(P) - intr.cx) / intr.fx
     yl = (gy.reshape(P) - intr.cy) / intr.fy
-    lam = torch.sqrt(xl * xl + yl * yl + 1.0)
+    lam = sqrt(xl * xl + yl * yl + 1.0)
     ray = torch.stack([xl, yl, torch.ones_like(xl)], dim=-1)
-    ray_len = torch.linalg.vector_norm(ray, dim=-1)
+    ray_len = norm(ray, dim=-1)
 
     has = (cand >= 0) & (patch[..., 6] > 0.5)
     cpos = patch[..., 0:3]
     cnrm = patch[..., 3:6]
     depth_ok = torch.abs(cpos[..., 2] * lam[:, None]
                          - (v_local[:, 2] * lam)[:, None]) < cfg.depth_consistency
-    dist = torch.linalg.vector_norm(
+    dist = norm(
         torch.linalg.cross(ray[:, None, :].expand(cpos.shape), cpos, dim=-1),
         dim=-1) / ray_len[:, None]
     cosang = torch.sum(cnrm * n_local[:, None, :], dim=-1)
@@ -440,7 +440,7 @@ def merge_rows(old: torch.Tensor, meas_rows: torch.Tensor,
     blended = (c_k[:, None] * old + a[:, None] * meas_rows) / denom[:, None]
     nrm = blended[:, NORMAL]
     blended[:, NORMAL] = nrm / torch.clamp(
-        torch.linalg.vector_norm(nrm, dim=-1, keepdim=True), min=1e-12)
+        norm(nrm, dim=-1, keepdim=True), min=1e-12)
     merged = torch.where(r_ok[:, None], blended, old)
     merged[:, CONF] = c_k + a
     merged[:, SUBMAP] = old[:, SUBMAP]
@@ -511,7 +511,7 @@ def clean_mask_rows(data: torch.Tensor, pose: torch.Tensor, patches: torch.Tenso
         cpos_z = rows9[..., 2]
         stable = rows9[..., 3] > cfg.confidence_threshold
         behind = cpos_z > lz[:, None]
-        overlap = torch.linalg.vector_norm(rows9[..., 0:2] - local[:, None, :2], dim=-1) < \
+        overlap = norm(rows9[..., 0:2] - local[:, None, :2], dim=-1) < \
             (radius * 1.4)[:, None]
         red = (has & (rows9[..., 4] < data[:, INIT_TIME][:, None]) & stable
                & behind & (cpos_z - lz[:, None] < 0.01) & overlap)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tensors import norm, sqrt
+
 _EPS = 1e-12
 # Hermite coefficient scale applied to normals (hrbfbase.glsl:132 "10.0 *")
 HERMITE_SCALE = 10.0
@@ -21,7 +23,7 @@ HERMITE_SCALE = 10.0
 
 def phi(d2: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
     T2 = support * support
-    r = torch.sqrt(torch.clamp(d2, min=0.0) / torch.clamp(T2, min=_EPS))
+    r = sqrt(torch.clamp(d2, min=0.0) / torch.clamp(T2, min=_EPS))
     s = torch.clamp(1.0 - r, min=0.0)
     return torch.where(d2 <= T2, (s ** 4) * (4.0 * r + 1.0), 0.0)
 
@@ -30,7 +32,7 @@ def grad_phi(v: torch.Tensor, d2: torch.Tensor, support: torch.Tensor) -> torch.
     """grad phi: (...,3) = t v with t = -20 s^3 / T^2 inside the support."""
     T2 = support * support
     safe_T2 = torch.clamp(T2, min=_EPS)
-    r = torch.sqrt(torch.clamp(d2, min=0.0) / safe_T2)
+    r = sqrt(torch.clamp(d2, min=0.0) / safe_T2)
     s = torch.clamp(1.0 - r, min=0.0)
     t = -20.0 * (s ** 3) / safe_T2
     inside = (d2 <= T2) & (d2 > 0.0)
@@ -41,7 +43,7 @@ def hess_phi(v: torch.Tensor, d2: torch.Tensor, support: torch.Tensor) -> torch.
     """Hessian of phi: (...,3,3); -(20/T^2) I at d2 == 0."""
     T2 = support * support
     safe_T2 = torch.clamp(T2, min=_EPS)
-    r = torch.sqrt(torch.clamp(d2, min=0.0) / safe_T2)
+    r = sqrt(torch.clamp(d2, min=0.0) / safe_T2)
     safe_r = torch.clamp(r, min=1e-20)
     s = torch.clamp(1.0 - r, min=0.0)
     b = s * s / safe_r
@@ -62,7 +64,7 @@ def third_phi(v: torch.Tensor, d2: torch.Tensor, support: torch.Tensor) -> torch
     d2 == 0 and outside the support."""
     T2 = support * support
     safe_T2 = torch.clamp(T2, min=_EPS)
-    r = torch.sqrt(torch.clamp(d2, min=0.0) / safe_T2)
+    r = sqrt(torch.clamp(d2, min=0.0) / safe_T2)
     safe_r = torch.clamp(r, min=1e-20)
     s = torch.clamp(1.0 - r, min=0.0)
     b = s * s / safe_r
@@ -141,7 +143,7 @@ def hrbf_projection(x, nb_pos, nb_normal, nb_support, nb_mask,
         wsum = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-20)
         mean = torch.sum(w[..., None] * nb_pos, dim=-2) / wsum
         g = hrbf_gradient(p, nb_pos, nb_normal, nb_support, nb_mask)
-        gn = g / torch.clamp(torch.linalg.vector_norm(g, dim=-1, keepdim=True), min=1e-12)
+        gn = g / torch.clamp(norm(g, dim=-1, keepdim=True), min=1e-12)
         s = torch.sum(gn * (p - mean), dim=-1, keepdim=True)
         p = p - s * gn
     return p
@@ -153,7 +155,7 @@ def grad_hess_direct(v, d2, nb_normal, nb_support, nb_mask):
     returns (g (...,3), h6 (...,6) = [h00, h01, h02, h11, h12, h22])."""
     T2 = nb_support * nb_support
     safe_T2 = torch.clamp(T2, min=_EPS)
-    r = torch.sqrt(torch.clamp(d2, min=0.0) / safe_T2)
+    r = sqrt(torch.clamp(d2, min=0.0) / safe_T2)
     safe_r = torch.clamp(r, min=1e-20)
     s = torch.clamp(1.0 - r, min=0.0)
     b = s * s / safe_r
@@ -212,7 +214,7 @@ def principal_curvatures(gradient: torch.Tensor, hessian: torch.Tensor):
     E = 1.0 + h_x * h_x
     F = h_x * h_y
     G = 1.0 + h_y * h_y
-    ln = torch.sqrt(h_x * h_x + h_y * h_y + 1.0)
+    ln = sqrt(h_x * h_x + h_y * h_y + 1.0)
     L = h_xx / ln
     M = h_xy / ln
     N = h_yy / ln
@@ -221,7 +223,7 @@ def principal_curvatures(gradient: torch.Tensor, hessian: torch.Tensor):
     safe_denom = torch.where(torch.abs(denom) > 1e-12, denom, 1e-12)
     k_gauss = (L * N - M * M) / safe_denom
     k_mean = (E * N + G * L - 2.0 * F * M) / (2.0 * safe_denom)
-    sq = torch.sqrt(torch.clamp(k_mean * k_mean - k_gauss, min=0.0))
+    sq = sqrt(torch.clamp(k_mean * k_mean - k_gauss, min=0.0))
     k1 = k_mean + sq
     k2 = k_mean - sq
 
@@ -234,7 +236,7 @@ def principal_curvatures(gradient: torch.Tensor, hessian: torch.Tensor):
     r_v = torch.stack([zero, one, h_y], dim=-1)
 
     def _norm(v):
-        return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-12)
+        return v / torch.clamp(norm(v, dim=-1, keepdim=True), min=1e-12)
 
     dir1 = _norm(r_u + lam1[..., None] * r_v)
     dir2 = _norm(r_u + lam2[..., None] * r_v)

@@ -26,8 +26,10 @@ elementwise, one tensor op per IEEE operation (``mat3_apply``, ``_dot``,
 blocked summation order, and the card and the CPU compute the same
 values; a division by a constant is a multiplication by its reciprocal
 (on the card PyTorch turns ``x / c`` into ``x * (1 / c)``, on the CPU it
-divides).  ``sparse_icp_lambda_update`` keeps its matrix products (JAX's
-lambda values are matched to 1e-6 there).
+divides).  ``sparse_icp_lambda_update`` rotates its points in float64
+and rounds once: XLA's CPU dot rounds that product once per component (a
+chain of fused multiply-adds), where a float32 sum of rounded products
+parts from it by an ulp that the lambda values (matched to 1e-6) show.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch.nn.functional as F
 
 from ..config import CameraIntrinsics, SLAMConfig
 from ..core import camera
+from ..utils.tensors import sqrt
 from .patches import extract_patches
 
 
@@ -77,7 +80,7 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(_dot(x, x))
+    return sqrt(_dot(x, x))
 
 
 def mat3_apply(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
@@ -170,7 +173,8 @@ def sparse_icp_lambda_update(lam: torch.Tensor, extras: SparseICPExtras,
     """ADMM dual update after the pose solve (updateLambdaMapKernel):
     lambda += mu * (s_cp(new pose) - d_cp - z) at found correspondences."""
     vcurr = vmap_curr.reshape(lam.shape[0], 3)
-    s_cp = ((vcurr @ R_curr_new.T + t_curr_new) - t_prev) @ R_prev_inv.T
+    rot = mat3_apply(vcurr.to(torch.float64), R_curr_new.to(torch.float64)).to(torch.float32)
+    s_cp = mat3_apply((rot + t_curr_new) - t_prev, R_prev_inv)
     delta = s_cp - extras.d_cp - extras.z
     return torch.where(extras.found[:, None], lam + mu * delta, lam)
 
@@ -735,7 +739,7 @@ def rgb_step(corres: RGBCorres, sigma_val: torch.Tensor, d_idx: torch.Tensor,
     rows = torch.stack([v0, v1, v2, r3, r4, r5, r6], dim=-1)
     rows = torch.where(valid[:, None], rows, 0.0)
     if cfg.rgb_use_gradient_weight:
-        gmag = torch.sqrt(dix * dix + diy * diy)
+        gmag = sqrt(dix * dix + diy * diy)
         weight = torch.where(valid, torch.exp(
             -0.5 * (10.0 / torch.clamp(gmag, min=1e-12)) ** 2), 0.0)
     else:
@@ -852,7 +856,7 @@ def solve_system(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = A.shape[0]
     if n > 8:
         raise NotImplementedError("solve_system is ported for n <= 8")
-    dinv = 1.0 / torch.sqrt(torch.abs(torch.diagonal(A)) + 1e-12)
+    dinv = 1.0 / sqrt(torch.abs(torch.diagonal(A)) + 1e-12)
     As = A * dinv[:, None] * dinv[None, :]
     As = As + 1e-6 * torch.eye(n, dtype=A.dtype, device=A.device)
     x = _ldlt_solve_unrolled(As, b * dinv) * dinv

@@ -40,7 +40,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import CameraIntrinsics, SLAMConfig
-from ..utils.tensors import const
+from ..utils.tensors import const, sqrt
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -403,7 +403,7 @@ def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfi
             q = ts[..., None] * ray[:, None, :]                # (C, L, 3)
             v = q[:, :, None, :] - pos[:, None]                # (C, L, T, 3)
             d2 = v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2]
-            r = torch.sqrt(d2 * iT2[:, None])
+            r = sqrt(d2 * iT2[:, None])
             s = torch.clamp(1.0 - r, min=0.0)
             vc = (v[..., 0] * c[:, None, :, 0] + v[..., 1] * c[:, None, :, 1]
                   + v[..., 2] * c[:, None, :, 2])
@@ -470,7 +470,7 @@ def raycast_core_ref(attr9: torch.Tensor, intr: CameraIntrinsics, cfg: SLAMConfi
 
         v = p_surf[:, None, :] - pos                            # (C, T, 3)
         d2 = v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2]
-        r = torch.sqrt(d2 * iT2)
+        r = sqrt(d2 * iT2)
         safe_r = torch.clamp(r, min=1e-20)
         s = torch.clamp(1.0 - r, min=0.0)
         vc = v[..., 0] * c[..., 0] + v[..., 1] * c[..., 1] + v[..., 2] * c[..., 2]

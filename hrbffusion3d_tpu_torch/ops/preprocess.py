@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..config import CameraIntrinsics, SLAMConfig
 from ..core import camera
+from ..utils.tensors import norm, sqrt
 from . import hrbf, kernels
 from .patches import extract_patches
 
@@ -84,8 +85,8 @@ def _smallest_eigvec_3x3(A: torch.Tensor) -> torch.Tensor:
     ao3 = torch.clamp((c1 - c2 * c2o3) * inv3, max=0.0)
     half_b = 0.5 * (c0 + c2o3 * (2.0 * c2o3 * c2o3 - c1))
     q = torch.clamp(half_b * half_b + ao3 * ao3 * ao3, max=0.0)
-    rho = torch.sqrt(-ao3)
-    theta = torch.atan2(torch.sqrt(-q), half_b) * inv3
+    rho = sqrt(-ao3)
+    theta = torch.atan2(sqrt(-q), half_b) * inv3
     sqrt3 = math.sqrt(3.0)
     lam_min = c2o3 - rho * (torch.cos(theta) + sqrt3 * torch.sin(theta))
     lam_min = torch.minimum(lam_min, c2o3 - rho * (torch.cos(theta) - sqrt3 * torch.sin(theta)))
@@ -98,7 +99,7 @@ def _smallest_eigvec_3x3(A: torch.Tensor) -> torch.Tensor:
     l1 = torch.sum(v1 * v1, -1); l2 = torch.sum(v2 * v2, -1); l3 = torch.sum(v3 * v3, -1)  # noqa: E702
     v = torch.where((l1 >= l2)[..., None] & (l1 >= l3)[..., None], v1,
                     torch.where((l2 >= l3)[..., None], v2, v3))
-    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-20)
+    return v / torch.clamp(norm(v, dim=-1, keepdim=True), min=1e-20)
 
 
 def _radius_scale(intr: CameraIntrinsics) -> float:
@@ -183,7 +184,7 @@ def normal_central_diff(vertex_f: torch.Tensor, depth_raw: torch.Tensor,
     del_x = (torch.roll(vertex_f, 1, dims=1) - torch.roll(vertex_f, -1, dims=1)) * 0.5
     del_y = (torch.roll(vertex_f, 1, dims=0) - torch.roll(vertex_f, -1, dims=0)) * 0.5
     n = torch.linalg.cross(del_x, del_y, dim=-1)
-    n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-20)
+    n = n / torch.clamp(norm(n, dim=-1, keepdim=True), min=1e-20)
     n = n * torch.where(n[..., 2:3] < 0, -1.0, 1.0)
     dz = depth_raw
     ok = ((torch.roll(dz, 1, 1) > 0) & (torch.roll(dz, -1, 1) > 0)
@@ -216,7 +217,7 @@ def vertex_normal_radius(depth_raw: torch.Tensor, depth_filtered: torch.Tensor,
     n = (normal_pca(v_f, cfg) if cfg.normal_pca
          else normal_central_diff(v_f, depth_raw, cfg, row0, intr.height))
     rad = cfg.radius_multiplier * surfel_radius(v_f[..., 2], n[..., 2], intr)
-    valid = ((torch.linalg.vector_norm(n, dim=-1) >= 0.3)
+    valid = ((norm(n, dim=-1) >= 0.3)
              & (v_raw[..., 2] >= cfg.depth_min) & (v_f[..., 2] >= cfg.depth_min))
     vm = valid[..., None]
     return VertexNormalRadius(
@@ -353,8 +354,8 @@ def _curvature_epilogue(acc: torch.Tensor, pre: VertexNormalRadius,
     H = hrbf.hess_from_h6(acc[:, 3:9])
     k1, k2, d1, d2, kvalid = hrbf.principal_curvatures(grad, H)
     gmag = torch.abs(torch.sum(grad * nc, dim=-1))
-    gn = grad / torch.clamp(torch.linalg.vector_norm(grad, dim=-1, keepdim=True), min=1e-20)
-    center_ok = (vc[..., 2] > cfg.depth_min) & (torch.linalg.vector_norm(nc, dim=-1) > 0.5)
+    gn = grad / torch.clamp(norm(grad, dim=-1, keepdim=True), min=1e-20)
+    center_ok = (vc[..., 2] > cfg.depth_min) & (norm(nc, dim=-1) > 0.5)
     ok = (cnt > 15) & kvalid & center_ok
     ok3 = ok[..., None]
     gn = torch.where(ok3, gn, 0.0)
@@ -376,7 +377,7 @@ def update_normal_rad(pre: VertexNormalRadius, curv: CurvatureResult,
                       cfg: SLAMConfig) -> VertexNormalRadius:
     """depth_update_normalrad.frag: take the HRBF-gradient normal where the
     curvature pass succeeded; the radius keeps its original estimate."""
-    use = curv.valid & (torch.linalg.vector_norm(curv.normal_opt, dim=-1) > 0.5)
+    use = curv.valid & (norm(curv.normal_opt, dim=-1) > 0.5)
     return pre._replace(normal=torch.where(use[..., None], curv.normal_opt, pre.normal))
 
 
@@ -390,9 +391,9 @@ def confidence_map(pre: VertexNormalRadius, curv: CurvatureResult,
     yy, xx = camera.pixel_grid(h, w, pre.radius.device, row0=row0)
     dx = xx - intr.cx
     dy = yy - intr.cy
-    radial = torch.sqrt(dx * dx + dy * dy) / camera.max_radial_dist(intr)
+    radial = sqrt(dx * dx + dy * dy) / camera.max_radial_dist(intr)
     conf = torch.exp(-(radial * radial) / 0.72) * weighting
     if cfg.use_conf_eval:
         conf = conf * torch.exp(
-            -cfg.conf_eval_epsilon / torch.sqrt(torch.clamp(curv.gradient_mag, min=1e-12)))
+            -cfg.conf_eval_epsilon / sqrt(torch.clamp(curv.gradient_mag, min=1e-12)))
     return conf

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.tensors import const
+from ..utils.tensors import const, norm
 from .patches import extract_patches
 
 
@@ -82,7 +82,7 @@ def resize_maps_fused(vmaps: list[torch.Tensor], nmaps: list[torch.Tensor],
     for _ in nmaps:
         avg = pooled[..., c:c + 3] * 0.25
         ok = pooled[..., c + 3] > 3.5
-        avg = avg / torch.clamp(torch.linalg.vector_norm(avg, dim=-1, keepdim=True), min=1e-12)
+        avg = avg / torch.clamp(norm(avg, dim=-1, keepdim=True), min=1e-12)
         out_n.append(torch.where(ok[..., None], avg, 0.0))
         c += 4
     for _ in scalars:

@@ -21,7 +21,7 @@ import torch
 from ..config import CameraIntrinsics, SLAMConfig
 from ..map import surfel_map as smod
 from ..map.surfel_map import SurfelMap
-from ..utils.tensors import const
+from ..utils.tensors import const, norm
 from . import kernels
 
 _GEOMETRIC_LADDER = (1, 2, 3, 5, 8, 13, 18, 25)
@@ -81,7 +81,7 @@ def predict_hrbf(m: SurfelMap, pose_inv: torch.Tensor, index_map: torch.Tensor,
                        attr_ext[..., smod.A_VALID:smod.A_VALID + 1]], dim=-1)
     p_surf, grad, nearest, found = kernels.raycast_core(attr9, intr, cfg)
     grad = grad.reshape(P, 3)
-    nrm = grad / torch.clamp(torch.linalg.vector_norm(grad, dim=-1, keepdim=True), min=1e-12)
+    nrm = grad / torch.clamp(norm(grad, dim=-1, keepdim=True), min=1e-12)
     return _assemble_prediction(attr_ext, pose_inv, p_surf.reshape(P, 3), nrm,
                                 nearest.reshape(P), found.reshape(P), intr, cfg)
 

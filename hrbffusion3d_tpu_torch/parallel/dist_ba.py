@@ -41,7 +41,7 @@ import torch.distributed as dist
 
 from ..backend import ba, reduce_plan as rp
 from ..core import lie
-from ..utils.tensors import const, einsum, full_float32, host, matmul
+from ..utils.tensors import const, einsum, full_float32, host, matmul, sqrt
 from .sharding import Mesh
 
 
@@ -143,7 +143,7 @@ def _local_system(cams, sh: Shard, robust: bool, damping: float):
     chi2 = einsum("ei,eij,ej->e", e, sh.info, e)
     if robust:
         d = ba.HUBER_DELTA2 ** 0.5
-        w = torch.where(chi2 <= ba.HUBER_DELTA2, 1.0, d / torch.sqrt(torch.clamp(chi2, min=1e-12)))
+        w = torch.where(chi2 <= ba.HUBER_DELTA2, 1.0, d / sqrt(torch.clamp(chi2, min=1e-12)))
     else:
         w = torch.ones_like(chi2)
     w = w * sh.edge_valid
@@ -181,7 +181,7 @@ def _solve(S, rhs, fixed, damping: float):
     S[ar, ar] = S[ar, ar] + (damping + gauge)[..., None] * eye6
     Sm = S.permute(0, 2, 1, 3).reshape(6 * C, 6 * C)
     rv = rhs.reshape(6 * C)
-    dpre = torch.sqrt(torch.abs(torch.diagonal(Sm)) + 1e-10)
+    dpre = sqrt(torch.abs(torch.diagonal(Sm)) + 1e-10)
     x = torch.linalg.solve_ex(Sm / dpre[:, None] / dpre[None, :], rv / dpre).result / dpre
     dx_cam = x.reshape(C, 6)
     dx_cam = torch.where(torch.isfinite(dx_cam), dx_cam, 0.0)

@@ -75,7 +75,7 @@ from ..ops import kernels, preprocess, pyramid, raycast
 from ..ops.patches import extract_patches
 from ..pipeline import slam
 from ..tracking import odometry
-from ..utils.tensors import const
+from ..utils.tensors import const, norm
 from .mesh import Mesh, On
 from .sharding import ShardedRows, gather, is_sharded, row_bounds, row_unit
 
@@ -258,8 +258,8 @@ def step(state: slam.SLAMState, frame: slam.FrameInput, intr: CameraIntrinsics,
     pose = lie.rt_to_mat(new_R, new_t)
     pose_inv = lie.se3_inverse(pose)
 
-    dt = torch.linalg.vector_norm(new_t - state.t)
-    w_rot = torch.linalg.vector_norm(lie.so3_log(state.R.T @ new_R))
+    dt = norm(new_t - state.t)
+    w_rot = norm(lie.so3_log(state.R.T @ new_R))
     weighting = On(torch.clamp(1.0 - (dt * 5.0 + w_rot * 2.0), 0.25, 1.0))
     pose_on, pose_inv_on = On(pose), On(pose_inv)
     meas = []
@@ -360,7 +360,7 @@ def _predict_hrbf_slab(attr_ext: torch.Tensor, s0: int, a: int, b: int,
                                                         height=b - a, row0=a)
     P = (b - a) * intr.width
     grad = grad.reshape(P, 3)
-    nrm = grad / torch.clamp(torch.linalg.vector_norm(grad, dim=-1, keepdim=True), min=1e-12)
+    nrm = grad / torch.clamp(norm(grad, dim=-1, keepdim=True), min=1e-12)
     return raycast._assemble_prediction(attr_ext, pose_inv, p_surf.reshape(P, 3), nrm,
                                         nearest.reshape(P), found.reshape(P), intr, cfg,
                                         row0=a, attr_row0=s0)

@@ -28,7 +28,7 @@ from ..core import lie
 from ..map import surfel_map as sm
 from ..ops import preprocess, pyramid, raycast
 from ..tracking import odometry
-from ..utils.tensors import const
+from ..utils.tensors import const, norm
 
 
 class SLAMState(NamedTuple):
@@ -141,8 +141,8 @@ def step(state: SLAMState, frame: FrameInput, intr: CameraIntrinsics,
     pose_inv = lie.se3_inverse(pose)
 
     # velocity weighting (l.1112-1126): down-weight fast motion
-    dt = torch.linalg.vector_norm(new_t - state.t)
-    w_rot = torch.linalg.vector_norm(lie.so3_log(state.R.T @ new_R))
+    dt = norm(new_t - state.t)
+    w_rot = norm(lie.so3_log(state.R.T @ new_R))
     weighting = torch.clamp(1.0 - (dt * 5.0 + w_rot * 2.0), 0.25, 1.0)
     conf = preprocess.confidence_map(pre, curv, intr, cfg, weighting=weighting)
     meas = sm.measurement_from_preprocess(pre, curv, frame.rgb, conf)

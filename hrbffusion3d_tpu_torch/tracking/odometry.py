@@ -47,7 +47,7 @@ from ..core import lie
 from ..ops import icp as icp_ops
 from ..ops import pyramid as pyr_ops
 from ..parallel.mesh import Mesh, On
-from ..utils.tensors import const
+from ..utils.tensors import const, norm, sqrt
 
 
 class TrackingInputs(NamedTuple):
@@ -188,7 +188,7 @@ def rgb_warp(K: torch.Tensor, Kinv: torch.Tensor, result_rt: torch.Tensor):
 def robust_sigma(count: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """The photometric robustifier's scale: sigmaVal = sqrt(count) (the
     reference's quirk, RGBDOdometry.cpp:1017) times ``scale``."""
-    return torch.sqrt(torch.clamp(count, min=1.0)) * scale
+    return sqrt(torch.clamp(count, min=1.0)) * scale
 
 
 def joint_system(icp_res: icp_ops.StepResult, rgb_res: icp_ops.StepResult,
@@ -198,9 +198,9 @@ def joint_system(icp_res: icp_ops.StepResult, rgb_res: icp_ops.StepResult,
     float32 once, and the iteration's stats."""
     A = (rgb_res.A + (w * w) * icp_res.A).to(torch.float32)
     b = (rgb_res.b + w * icp_res.b).to(torch.float32)
-    st = {"rgb_e": torch.sqrt(rgb_sigma_sum) / torch.clamp(rgb_count, min=1.0),
+    st = {"rgb_e": sqrt(rgb_sigma_sum) / torch.clamp(rgb_count, min=1.0),
           "rgb_c": rgb_count,
-          "icp_e": torch.sqrt(icp_res.residual2.to(torch.float32))
+          "icp_e": sqrt(icp_res.residual2.to(torch.float32))
           / torch.clamp(icp_res.count, min=1.0),
           "icp_c": icp_res.count}
     return A, b, st
@@ -218,7 +218,7 @@ def so3_loop(sums, K: torch.Tensor, Kinv: torch.Tensor, n_iters: int) -> torch.T
     for _ in range(n_iters):
         A, b, r2, cnt = sums(*so3_bases(K, R_lr, Kinv))
         A, b, r2 = (x.to(torch.float32) for x in (A, b, r2))
-        err = torch.sqrt(r2) / torch.clamp(cnt, min=1.0)
+        err = sqrt(r2) / torch.clamp(cnt, min=1.0)
         diverged = err > last_err + 0.001
         upd = so3_update(icp_ops.solve_system(A, b), R_lr)
         new_done = done | diverged
@@ -491,7 +491,7 @@ def track_levels(prev_R: torch.Tensor, prev_t: torch.Tensor, levels: list, mesh:
                     A, b = mesh.psum([list(icp_ops.rgb_step(c, sigma(dev), p.gx, p.gy, li,
                                                             cfg)[:2])
                                       for dev, c, p in zip(devs, cors, pix)])[0]
-                    st = {**st, "rgb_e": torch.sqrt(ssum) / torch.clamp(n_rgb, min=1.0),
+                    st = {**st, "rgb_e": sqrt(ssum) / torch.clamp(n_rgb, min=1.0),
                           "rgb_c": n_rgb}
                 if use_icp:
                     outs = [icp_ops.icp_step(
@@ -508,7 +508,7 @@ def track_levels(prev_R: torch.Tensor, prev_t: torch.Tensor, levels: list, mesh:
                     wt = cfg.icp_weight if use_rgb else 1.0
                     A = (wt * wt) * icp_res.A if A is None else A + (wt * wt) * icp_res.A
                     b = wt * icp_res.b if b is None else b + wt * icp_res.b
-                    st = {**st, "icp_e": torch.sqrt(icp_res.residual2.to(torch.float32))
+                    st = {**st, "icp_e": sqrt(icp_res.residual2.to(torch.float32))
                           / torch.clamp(icp_res.count, min=1.0), "icp_c": icp_res.count}
                 # the float64 sums rounded once
                 A, b = A.to(torch.float32), b.to(torch.float32)
@@ -524,7 +524,7 @@ def track_levels(prev_R: torch.Tensor, prev_t: torch.Tensor, levels: list, mesh:
                     extra[k], outs[k][1], R2(dev), t2(dev), prev_R_inv(dev), prev_t_on(dev),
                     s["next_vmap"], cfg.sparse_icp_mu)
                     for k, (dev, s) in enumerate(zip(devs, lv.shards)))
-            return (result_rt, A, b, st, extra), torch.linalg.vector_norm(x)
+            return (result_rt, A, b, st, extra), norm(x)
 
         # sparse ICP's lambda map is zeroed at each level (RGBDOdometry.cpp:965-978)
         chans = 3 if use_sparse else 9 if reassoc > 1 else 0
@@ -614,7 +614,7 @@ def track_result(carry, prev_R: torch.Tensor, prev_t: torch.Tensor, live: dict,
     R_new = lie.orthonormalise(cur[:3, :3])
     t_new = cur[:3, 3]
     # divergence guard (RGBDOdometry.cpp:1232-1236)
-    too_far = torch.linalg.vector_norm(t_new - prev_t) > cfg.tracking_divergence_limit
+    too_far = norm(t_new - prev_t) > cfg.tracking_divergence_limit
     live_iters = torch.stack([
         live[lvl] if isinstance(live[lvl], torch.Tensor)
         else torch.full((), live[lvl], dtype=torch.int32, device=dev)

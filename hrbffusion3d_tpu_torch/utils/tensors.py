@@ -20,6 +20,19 @@ during the solve.  Outside the block, and on the CPU, they are
 ``torch.einsum`` and ``@``.
 
 ``host`` brings an index array to numpy for the host-side plan builds.
+
+``sqrt`` and ``norm`` are the port's only float32 square roots.  On the
+CPU, torch's vectorised float32 ``sqrt`` (and ``pow(x, 0.5)`` and
+``linalg.vector_norm``, built on it) is not correctly rounded: it is one
+ulp off IEEE on about a fifth of inputs, where XLA and CUDA's ``sqrtf``
+round correctly.  The float64 square root rounded to float32 is correctly
+rounded: the square root of a float32 lies at least 2^-50 (relative) from
+a float32 rounding midpoint, further than the float64 result can be off
+(torch's float64 ``sqrt`` is itself a float64 ulp off at times), so the
+CPU takes that route; on the card ``torch.sqrt`` is
+IEEE already (``chip_smoke.py`` checks it bit for bit against the float64
+route).  ``norm`` is ``sqrt(sum(v * v))`` summed along ``dim`` in index
+order, the formula and order of ``jnp.linalg.norm``.
 """
 
 from __future__ import annotations
@@ -117,6 +130,18 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _exact_needed(a):
         return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
     return a @ b
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of ``x`` on every device."""
+    if x.dtype == torch.float32 and not x.is_cuda:
+        return torch.sqrt(x.double()).to(torch.float32)
+    return torch.sqrt(x)
+
+
+def norm(v: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
+    """Euclidean norm of ``v`` along ``dim``: ``sqrt(sum(v * v))``."""
+    return sqrt((v * v).sum(dim, keepdim=keepdim))
 
 
 def host(x) -> np.ndarray:

@@ -27,7 +27,7 @@ from ..config import CameraIntrinsics
 from ..core import lie
 from ..io import png
 from ..map import surfel_map as sm
-from ..utils.tensors import const, host
+from ..utils.tensors import const, host, norm
 
 
 def render_view(m: sm.SurfelMap, cam_pose, intr: CameraIntrinsics,
@@ -51,7 +51,7 @@ def render_view(m: sm.SurfelMap, cam_pose, intr: CameraIntrinsics,
 
     # headlight at the camera origin
     view = t - pos_w
-    view = view / torch.clamp(torch.linalg.vector_norm(view, dim=-1, keepdim=True), min=1e-9)
+    view = view / torch.clamp(norm(view, dim=-1, keepdim=True), min=1e-9)
     lam = torch.abs(torch.sum(nrm_w * view, dim=-1))           # (H,W)
 
     if mode == "color":

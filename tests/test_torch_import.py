@@ -3,8 +3,8 @@ package: importing the package, every one of its submodules (the sparse
 backend's, the full system's, the real-data entry point's, the
 distributed BA's, the row-sharded dense step's and the mesh's included) and
 ``chip_smoke``'s imports
-leaves ``jax`` and every ``hrbffusion3d_tpu`` module out of ``sys.modules``,
-and succeeds with both blocked.  Nothing of the port includes
+leaves ``jax``, ``PIL`` and every ``hrbffusion3d_tpu`` module out of
+``sys.modules``, and succeeds with the three blocked.  Nothing of the port includes
 ``jpeglib.h`` or links libjpeg, and its native loader compiles only
 sources inside the port's package.  The port's copies of the JAX package's
 numpy-only code (the BRIEF pattern, the reduction-plan construction,
@@ -27,7 +27,7 @@ import importlib, importlib.abc, pkgutil, sys
 
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "hrbffusion3d_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "hrbffusion3d_tpu", "PIL"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -38,8 +38,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # its imports only: main() runs under __main__
 leaked = sorted(m for m in sys.modules
-                if m in ("jax", "hrbffusion3d_tpu")
-                or m.startswith(("jax.", "jaxlib", "hrbffusion3d_tpu.")))
+                if m in ("jax", "hrbffusion3d_tpu", "PIL")
+                or m.startswith(("jax.", "jaxlib", "hrbffusion3d_tpu.", "PIL.")))
 print(len(names), leaked)
 """
 
@@ -56,15 +56,16 @@ def test_port_imports_without_jax_or_the_jax_package():
     # utils.checkpoint, viz.stats, viz.viewer, eval.recon, eval.mesh) and
     # the distributed BA's (parallel, parallel.sharding, parallel.dist_ba,
     # parallel.multihost) and the row-sharded step's (parallel.sharded_step,
-    # parallel.mesh) and the JPEG decoder's binding (io.jpeg) included
-    assert int(n_modules) >= 58, out.stdout
+    # parallel.mesh) and the JPEG decoder's binding (io.jpeg) and the
+    # depth decoders and their dispatch (io.pnm, io.tiff, io.image) included
+    assert int(n_modules) >= 61, out.stdout
     assert leaked == "[]", leaked
     for name in ("backend/brief_pattern", "backend/features", "backend/reduce_plan",
                  "backend/ba", "backend/keyframes", "backend/bow", "backend/vocab",
                  "backend/posegraph", "backend/loop", "pipeline/full_slam", "io/traj",
                  "io/ply", "run_tum", "io/png", "io/tum", "io/klg", "io/native_loader",
-                 "io/jpeg", "utils/timing", "utils/params", "utils/checkpoint", "viz/stats",
-                 "viz/viewer", "eval/recon", "eval/mesh", "parallel/sharding",
+                 "io/jpeg", "io/pnm", "io/tiff", "io/image", "utils/timing", "utils/params",
+                 "utils/checkpoint", "viz/stats", "viz/viewer", "eval/recon", "eval/mesh", "parallel/sharding",
                  "parallel/dist_ba", "parallel/multihost", "parallel/sharded_step"):
         assert (ROOT / "hrbffusion3d_tpu_torch" / f"{name}.py").exists(), name
 

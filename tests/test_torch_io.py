@@ -13,7 +13,11 @@
   compiler, its frames equal the port's Python reader's: timestamps and
   depth bit for bit, colour bytes bit for bit and colour floats within one
   float32 ulp (the library scales by 1/255 as a product, the Python reader
-  divides by 255); a JPEG colour payload decodes in both to Pillow's bytes.
+  divides by 255); a JPEG colour payload decodes in both to Pillow's bytes;
+- a PNG colour payload (RGB, palette, grey with alpha, beside JPEG and raw
+  frames) reads in the port's ``klg.frames`` as JAX's reads it (Pillow); a
+  PNG of another size raises naming the frame, and the native loader,
+  which decodes JPEG colour only, raises naming the PNG payload.
 """
 
 import io
@@ -245,6 +249,57 @@ def test_native_loader_matches_python_reader(tmp_path):
     np.testing.assert_array_equal(np.round(fr.rgb * 255), ref)
     (fp,) = list(tklg.frames(pj, W, H, 1 / 5000.0))
     np.testing.assert_array_equal(fp.rgb, ref.astype(np.float32) / 255.0)
+
+
+def _write_klg(path, depth_u16, payloads):
+    """A .klg of one frame per colour payload, each with ``depth_u16``."""
+    dbuf = zlib.compress(depth_u16.tobytes())
+    with open(path, "wb") as f:
+        f.write(struct.pack("<i", len(payloads)))
+        for i, ibuf in enumerate(payloads):
+            f.write(struct.pack("<qii", 100 + i, len(dbuf), len(ibuf)))
+            f.write(dbuf)
+            f.write(ibuf)
+
+
+def _png_payload(img: Image.Image) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def test_klg_png_colour_payload_matches_jax(tmp_path):
+    rgba = np.concatenate([RGB, RGB[..., :1]], -1)
+    payloads = [
+        _png_payload(Image.fromarray(RGB)),
+        _png_payload(Image.fromarray(RGB).quantize(37)),
+        _png_payload(Image.fromarray(rgba[..., 2:])),
+        _png_payload(Image.fromarray(rgba)),
+        RGB.tobytes(),
+    ]
+    jbuf = io.BytesIO()
+    Image.fromarray(RGB).save(jbuf, format="JPEG", quality=90)
+    payloads.append(jbuf.getvalue())
+    p = str(tmp_path / "png.klg")
+    _write_klg(p, DEPTH, payloads)
+    got = list(tklg.frames(p, W, H, 1 / 5000.0))
+    ref = list(jklg.frames(p, W, H, 1 / 5000.0))
+    assert len(got) == len(ref) == len(payloads)
+    for a, b in zip(got, ref):
+        assert a.timestamp == b.timestamp
+        np.testing.assert_array_equal(a.depth, b.depth)
+        assert a.rgb.dtype == b.rgb.dtype and a.rgb.tobytes() == b.rgb.tobytes()
+
+    # a PNG of another size: the frame named, as for a JPEG
+    small = str(tmp_path / "small.klg")
+    _write_klg(small, DEPTH, [payloads[0], _png_payload(Image.fromarray(RGB[:-1]))])
+    with pytest.raises(RuntimeError, match=r"frame 1: PNG colour payload is 41x29, expected 41x30"):
+        list(tklg.frames(small, W, H, 1 / 5000.0))
+    # the native loader decodes JPEG colour only and says so
+    assert native_loader.available(), native_loader.status()["build_error"]
+    with pytest.raises(RuntimeError, match=r"frame 0: PNG colour payload: this loader decodes "
+                                           r"JPEG colour only"):
+        list(native_loader.frames(p, W, H, 1 / 5000.0))
 
 
 def test_parameter_file_matches_jax(tmp_path):
