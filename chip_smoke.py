@@ -99,8 +99,13 @@ and prints:
     every file to its Pillow digest through the TUM reader's decoders, the
     host's decode ms per depth form beside the baseline JPEG's,
     ``run_tum.main`` in this process (every frame, ATE gate, 0 host syncs
-    and every kernel in each dense step); PNG decode ms per filter type; a
-    JSON line ``{"run_tum": {...}}``;
+    and every kernel in each dense step), (j) a TUM-layout sequence of the
+    colour-forms fixture ``tests/data/colour_forms`` (the first 9 frames'
+    colour as PPM, BMP 24-bit, RLE8 and 32-bit bitfields, TIFF RGB with
+    LZW and predictor 2, planar deflate and tiled PackBits, palette and
+    CMYK TIFF) with the depth-forms fixture's depth as PNG, two frames as
+    tiled 16-bit TIFF in each byte order: the same checks; PNG decode ms
+    per filter type; a JSON line ``{"run_tum": {...}}``;
   - every tracking and normal setting of ``SLAMConfig``
     (``phase_tracking_modes``): the correspondence search, sparse ICP,
     bilinear photometric lookups (separate and joint), fixed
@@ -1700,6 +1705,32 @@ FORMS_DIR = ROOT / "tests" / "data" / "jpeg_forms"
 # frame i in form i) with KLG_JPEG_DIR's JPEGs as colour, every second one
 # written as PNG here
 DEPTH_FORMS_DIR = ROOT / "tests" / "data" / "depth_forms"
+# (j) a TUM-layout sequence of colour in netpbm, BMP and TIFF (the committed
+# fixture, scripts/make_colour_forms_fixture.py: the first frames of
+# KLG_JPEG_DIR's, frame i in form i; the two forms too large to commit are
+# written here from their JPEG by the tests' encoders) beside
+# DEPTH_FORMS_DIR's depth, as PNG but for two frames as tiled TIFF
+COLOUR_FORMS_DIR = ROOT / "tests" / "data" / "colour_forms"
+
+
+def colour_form_bytes(entry: dict) -> bytes:
+    """A file of the colour-forms fixture (an entry of its digests.json):
+    read from the fixture, or, for a form written at run time, written from
+    its JPEG (decoded by the port, bit for bit with Pillow) by
+    ``tests/torch_bmp_encoder.py`` or ``tests/torch_tiff_encoder.py``."""
+    if "writer" not in entry:
+        return (COLOUR_FORMS_DIR / entry["file"]).read_bytes()
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_bmp_encoder
+    import torch_tiff_encoder
+
+    rgb = jpeg.decode((KLG_JPEG_DIR / entry["source"]).read_bytes())
+    if entry["writer"] == "bmp32_bitfields_top_down":
+        return torch_bmp_encoder.encode(rgb, 32, masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+                                        header=124, top_down=True)
+    if entry["writer"] == "tiff_rgb_tiled_packbits":
+        return torch_tiff_encoder.encode(rgb, "II", 32773, photometric=2, tile=(96, 64))
+    raise ValueError(f"no writer {entry['writer']!r}")
 
 
 def tum_frames(dev, intr=TUM1, n=RUN_TUM_FRAMES, first=None):
@@ -2445,6 +2476,108 @@ def _tum_depth_forms(tmp: Path, gt, ts, smi) -> dict:
                 launches=res["launches"], host_syncs_per_step=step_syncs, device=smi)
 
 
+def _tum_colour_forms(tmp: Path, gt, ts, smi) -> dict:
+    """(j) a TUM-layout sequence whose colour files are the colour-forms
+    fixture (netpbm, BMP and TIFF colour, frame i in form i; two forms
+    written here from their JPEG) and whose depth is the depth-forms
+    fixture's frames as 16-bit PNG, but for the fixture's two tiled TIFF
+    depth files: every file through ``image.read_colour`` /
+    ``image.read_depth`` to its Pillow digest; the host's decode ms per
+    colour form, each file in turns with its baseline JPEG; ``run_tum.main``
+    in this process on the sequence: every frame consumed, the ATE gate, 0
+    host syncs and every kernel in each dense step."""
+    meta = json.loads((COLOUR_FORMS_DIR / "digests.json").read_text())
+    colour = [e for e in meta["frames"] if e["kind"] == "colour"]
+    depth_tiff = {e["frame"]: e for e in meta["frames"] if e["kind"] == "depth"}
+    depth_meta = json.loads((DEPTH_FORMS_DIR / "digests.json").read_text())["frames"]
+    n = len(colour)
+    base = json.loads((KLG_JPEG_DIR / "digests.json").read_text())["frames"][:n]
+    root = tmp / "seq_colour_forms"
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    lines, colour_files, jpegs, depth_sha = [], [], [], []
+    for i, (e, b) in enumerate(zip(colour, base)):
+        name = f"{ts[i]:.6f}"
+        jpegs.append((KLG_JPEG_DIR / b["file"]).read_bytes())
+        colour_files.append(colour_form_bytes(e))
+        rgb = f"rgb/{name}{Path(e['file']).suffix}"
+        (root / rgb).write_bytes(colour_files[-1])
+        if i in depth_tiff:
+            dep = f"depth/{name}.tif"
+            (root / dep).write_bytes((COLOUR_FORMS_DIR / depth_tiff[i]["file"]).read_bytes())
+            depth_sha.append(depth_tiff[i]["depth_sha256"])
+        else:
+            dep = f"depth/{name}.png"
+            d16 = image.read_depth(str(DEPTH_FORMS_DIR / depth_meta[i]["file"]))
+            d16 = d16.astype(np.uint16)
+            (root / dep).write_bytes(png.encode(d16))
+            depth_sha.append(_sha(d16))
+        lines.append(f"{name} {rgb} {name} {dep}\n")
+    (root / "associations.txt").write_text("".join(lines))
+    traj.save_tum(str(root / "groundtruth.txt"), ts[:n], gt[:n])
+
+    # (i) every file to its digest, read as the TUM reader reads it
+    rows = [ln.split() for ln in lines]
+    wrong = {"colour": [i for i, (r, e) in enumerate(zip(rows, colour))
+                        if _sha(image.read_colour(str(root / r[1]))) != e["rgb_sha256"]],
+             "depth": [i for i, (r, sha) in enumerate(zip(rows, depth_sha))
+                       if _sha(image.read_depth(str(root / r[3]))) != sha]}
+    print(f"run_tum (j): {n} colour files in {len(meta['forms'])} forms "
+          f"({', '.join(meta['forms'])}; {', '.join(meta['runtime'])} written here) beside PNG "
+          f"and tiled TIFF depth: equal to their Pillow digests through image.read_colour "
+          f"{n - len(wrong['colour'])} of {n} and image.read_depth {n - len(wrong['depth'])} "
+          f"of {n} ({len(depth_tiff)} tiled TIFF); differing {wrong}")
+    if any(wrong.values()):
+        raise RuntimeError(f"run_tum (j): decoded frames differ from Pillow's: {wrong}")
+
+    # (ii) host decode ms per colour form, each file in turns with its JPEG
+    ms = {label: [] for label in meta["forms"] + ["baseline_jpeg"]
+          + [e["form"] for e in depth_tiff.values()]}
+    for _ in range(KLG_DECODE_REPEATS):
+        for i, (e, data) in enumerate(zip(colour, colour_files)):
+            for label, fn, payload in ((e["form"], image.decode_colour, data),
+                                       ("baseline_jpeg", jpeg.decode, jpegs[i])):
+                t0 = time.perf_counter()
+                fn(payload)
+                ms[label].append(1e3 * (time.perf_counter() - t0))
+        for e in depth_tiff.values():
+            data = (COLOUR_FORMS_DIR / e["file"]).read_bytes()
+            t0 = time.perf_counter()
+            image.decode_depth(data)
+            ms[e["form"]].append(1e3 * (time.perf_counter() - t0))
+    decode_ms = {k: float(np.median(v)) for k, v in ms.items()}
+    h, w = colour[0]["height"], colour[0]["width"]
+    print(f"run_tum (j): host time on the card's machine ({smi}; {os.cpu_count()} CPUs): "
+          f"decode of one {w}x{h} frame, median (of {KLG_DECODE_REPEATS} x its files, each "
+          f"colour file in turns with its baseline JPEG): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in decode_ms.items())
+          + "; bytes per form " + json.dumps({e["form"]: e["bytes"] for e in meta["frames"]}))
+
+    # (iii) run_tum.main on the sequence in this process
+    steps = []
+    with _sync_counts() as syncs, _per_frame(steps, syncs):
+        res = run_tum.main([str(root), "--camera", "TUM1", "--out", str(tmp / "out_j")])
+    idle = [i for i, (_, per) in enumerate(steps) if min(per.values()) == 0]
+    step_syncs = [s for s, _ in steps]
+    ate_m = res.get("ate_m", float("nan"))
+    print(f"run_tum (j): `run_tum.main` on the colour-forms sequence in this process: "
+          f"{res['frames']} frames of {n} consumed, {res['fps']:.2f} fps (under sync-debug mode, "
+          f"the first frame after {res['first_frame_s']:.2f} s), ATE {ate_m * 1e3:.3f} mm "
+          f"(aligned, {res.get('ate_matched')} matched), keyframes {res['keyframes']}; host "
+          f"syncs per dense step {sorted(set(step_syncs))} over {len(steps)} steps, steps "
+          f"without every kernel {idle}; launches {json.dumps(res['launches'])}")
+    if res["frames"] != n or len(steps) != n or any(step_syncs) or idle:
+        raise RuntimeError(f"run_tum (j): {res['frames']} frames consumed, {len(steps)} dense "
+                           f"steps, host syncs {step_syncs}, steps without every kernel {idle}")
+    if not (np.isfinite(ate_m) and ate_m < RUN_TUM_ATE_MAX):
+        raise RuntimeError(f"run_tum (j): ATE {ate_m} (limit {RUN_TUM_ATE_MAX})")
+    _driven("run_tum (j)", res["launches"])
+    return dict(frames=n, forms=meta["forms"], digests_equal=True, decode_ms=decode_ms,
+                decode_ms_all=ms, bytes={e["form"]: e["bytes"] for e in meta["frames"]},
+                fps=res["fps"], first_frame_s=res["first_frame_s"], ate_mm=ate_m * 1e3,
+                launches=res["launches"], host_syncs_per_step=step_syncs, device=smi)
+
+
 def _ckpt_run(dev, frames, gt, stop=None, path=None):
     sys_ = full_slam.FullSLAM(TUM1, CKPT_CFG, init_pose=gt[0], device=dev)
     for i, f in enumerate(frames):
@@ -2584,7 +2717,8 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
     sequence with progressive JPEG colour and Adam7 depth, (h) one with
     colour in the JPEG forms beyond Huffman DCT (CMYK, YCCK, 4x1, lossless,
     arithmetic, unrefined progressive), (i) one with depth in PGM and TIFF
-    and JPEG and PNG colour.  ``cmd``: how
+    and JPEG and PNG colour, (j) one with colour in netpbm, BMP and TIFF and
+    PNG and tiled TIFF depth.  ``cmd``: how
     (a) and (g) start the entry point; ``smi``: the card's name and power
     limit."""
     t_phase = time.perf_counter()
@@ -2623,6 +2757,10 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
         out["tum_depth_forms"] = _tum_depth_forms(tmp, gt, ts, smi)
         out["tum_depth_forms"]["seconds"] = time.perf_counter() - t0
         print(f"run_tum (i): {out['tum_depth_forms']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        out["tum_colour_forms"] = _tum_colour_forms(tmp, gt, ts, smi)
+        out["tum_colour_forms"]["seconds"] = time.perf_counter() - t0
+        print(f"run_tum (j): {out['tum_colour_forms']['seconds']:.1f} s")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"run_tum: phase {out['seconds']:.1f} s")
     return out
@@ -3903,6 +4041,7 @@ def main() -> None:
                                     real["tum_jpeg"]["in_process"]["launches"][kname]]
         row["tum_forms_launches"] = real["tum_forms"]["launches"][kname]
         row["tum_depth_forms_launches"] = real["tum_depth_forms"]["launches"][kname]
+        row["tum_colour_forms_launches"] = real["tum_colour_forms"]["launches"][kname]
         row["tracking_modes_launches"] = {k: v["launches"][kname] for k, v in modes.items()
                                           if isinstance(v, dict) and "launches" in v}
         row["distributed_launches"] = distributed["full_system"]["launches"][kname]

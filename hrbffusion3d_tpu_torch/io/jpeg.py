@@ -40,10 +40,7 @@ _ERR_LEN = 256
 def library():
     """The loaded native library; ``RuntimeError`` naming the build error
     when it cannot be built or loaded."""
-    if not native_loader.available():
-        raise RuntimeError("JPEG decoder unavailable: the native library did not build: "
-                           f"{native_loader.status()['build_error']}")
-    return native_loader._LIB
+    return native_loader.library("JPEG decoder")
 
 
 def decode(payload: bytes) -> np.ndarray:

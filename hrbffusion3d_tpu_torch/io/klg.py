@@ -9,11 +9,13 @@ zlib-compressed u16 depth and JPEG rgb (sizes equal to raw -> uncompressed).
 The JAX package decodes a non-raw colour payload with Pillow, whatever
 its format.  The port has no imaging library: the payload is decoded by
 its content (``io/image.decode_colour``): a JPEG by the port's own JPEG
-decoder (``io/jpeg``, compiled into the native loader's library), a PNG by
-``io/png``, each to Pillow's bytes.  A frame that fails to decode (a
-corrupt zlib, JPEG or PNG payload, a payload of another format, a payload
-cut short, an image whose size is not ``width`` x ``height``) raises
-``RuntimeError`` naming the frame's index.
+decoder (``io/jpeg``, compiled into the native loader's library), a PNG,
+BMP, netpbm or TIFF image by ``io/png``, ``io/bmp``, ``io/pnm`` or
+``io/tiff``, each to Pillow's bytes.  A frame that fails to decode (a
+corrupt zlib or image payload, a payload of another format, a payload cut
+short, an image whose size is not ``width`` x ``height``, which the error
+names with the form it found) raises ``RuntimeError`` naming the frame's
+index.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ def frames(path: str, width: int = 640, height: int = 480,
             elif isize == 0:
                 rgb = np.zeros((height, width, 3), np.uint8)
             else:
-                form = "JPEG" if ibuf[:2] == image.JPEG_SOI else "PNG"
+                form = image.form(ibuf) or "unknown-format"
                 try:
                     rgb = image.decode_colour(ibuf)
                 except (RuntimeError, ValueError) as e:

@@ -6,14 +6,16 @@ built or loaded.
 The JAX package loads a prebuilt ``native/libhrbfio.so``.  The port never
 reads that file and builds nothing outside its package: at first use it
 compiles ``csrc/klg_loader.cpp``, the port's JPEG decoder
-``csrc/jpeg_decode.cpp`` and its TIFF strip decompressors
-``csrc/tiff_decode.cpp`` with the host C++ compiler into one library in
+``csrc/jpeg_decode.cpp``, its TIFF strip decompressors
+``csrc/tiff_decode.cpp`` and its BMP run-length decoder
+``csrc/bmp_decode.cpp`` with the host C++ compiler into one library in
 ``hrbffusion3d_tpu_torch/_build/`` (named by the hash of every source file
 it reads and the command, so a changed source is rebuilt), beside the CUDA
 kernels.  It links zlib and nothing else: no libjpeg.  The loader decodes
-zlib depth and JPEG colour on a worker thread of its own (a PNG colour
-payload is an error that says so: ``io/klg.frames`` reads it); ``io/jpeg``
-and ``io/tiff`` call the same library's decoders.
+zlib depth and JPEG colour on a worker thread of its own (a PNG, BMP,
+netpbm or TIFF colour payload is an error that names it: ``io/klg.frames``
+reads those); ``io/jpeg``,
+``io/tiff`` and ``io/bmp`` call the same library's decoders.
 
 A frame that fails to decode (a corrupt zlib or JPEG payload, a payload cut
 short, a JPEG whose size is not ``width`` x ``height``) raises
@@ -43,7 +45,8 @@ from . import klg
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCE = _CSRC / "klg_loader.cpp"
 # every file the build reads: the compiled sources and the header
-_SOURCES = (_SOURCE, _CSRC / "jpeg_decode.cpp", _CSRC / "tiff_decode.cpp")
+_SOURCES = (_SOURCE, _CSRC / "jpeg_decode.cpp", _CSRC / "tiff_decode.cpp",
+            _CSRC / "bmp_decode.cpp")
 _HEADERS = (_CSRC / "jpeg_decode.h",)
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
 # native/Makefile's flags, without libjpeg
@@ -114,6 +117,12 @@ def _load_lib():
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t, ctypes.c_char_p, ctypes.c_int,
     ]
+    lib.bmp_rle_decode.restype = ctypes.c_int
+    lib.bmp_rle_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_char_p, ctypes.c_int,
+    ]
     _STATUS["library"] = str(path)
     return lib
 
@@ -128,6 +137,16 @@ def available() -> bool:
         except (OSError, RuntimeError, subprocess.TimeoutExpired) as e:
             _STATUS["build_error"] = f"{type(e).__name__}: {e}"
     return _LIB is not None
+
+
+def library(what: str):
+    """The loaded library for ``what`` (a decoder's name, for the error):
+    ``RuntimeError`` naming the build error when it cannot be built or
+    loaded."""
+    if not available():
+        raise RuntimeError(f"{what} unavailable: the native library did not build: "
+                           f"{_STATUS['build_error']}")
+    return _LIB
 
 
 def status() -> dict:

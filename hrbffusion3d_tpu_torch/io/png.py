@@ -41,6 +41,8 @@ import zlib
 
 import numpy as np
 
+from . import modes
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NONE, SUB, UP, AVERAGE, PAETH = range(5)
 GREY, RGB, PALETTE, GREY_ALPHA, RGBA = 0, 2, 3, 4, 6
@@ -217,18 +219,17 @@ def decode(data: bytes) -> np.ndarray:
 
 def decode_rgb(data: bytes) -> np.ndarray:
     """PNG bytes -> (H, W, 3) uint8, what Pillow's
-    ``Image.open(...).convert("RGB")`` gives: palette colours from PLTE,
-    grey replicated (16-bit grey clamped at 255), alpha dropped."""
+    ``Image.open(...).convert("RGB")`` gives (``io/modes.to_rgb`` of the
+    file's mode): palette colours from PLTE, grey replicated (16-bit grey
+    clamped at 255), alpha dropped."""
     img, palette = _decode(data)
     if palette is not None:
-        return palette[img]
-    if img.dtype == bool:
-        img = img.astype(np.uint8) * np.uint8(255)
-    elif img.dtype == np.uint16:
-        img = np.minimum(img, 255).astype(np.uint8)
-    if img.ndim == 2:
-        img = img[..., None]
-    return np.repeat(img[..., :1], 3, axis=2) if img.shape[2] <= 2 else img[..., :3]
+        mode = "P"
+    elif img.ndim == 2:
+        mode = {np.dtype(bool): "1", np.dtype(np.uint16): "I;16"}.get(img.dtype, "L")
+    else:
+        mode = {2: "LA", 3: "RGB", 4: "RGBA"}[img.shape[2]]
+    return modes.to_rgb(mode, img, palette)
 
 
 def read(path: str) -> np.ndarray:

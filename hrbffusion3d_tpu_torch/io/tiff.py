@@ -1,39 +1,54 @@
-"""TIFF decoding without an imaging library: depth images that the JAX
-package opens with Pillow (``np.asarray(Image.open(path))`` in
-``hrbffusion3d_tpu/io/tum.py``; Pillow reads compressed TIFF through
-libtiff).
+"""TIFF decoding without an imaging library: depth and colour images that
+the JAX package opens with Pillow (``np.asarray(Image.open(path))`` and
+``Image.open(path).convert("RGB")`` in ``hrbffusion3d_tpu/io/tum.py`` and
+``io/klg.py``; Pillow reads compressed TIFF through libtiff).
 
-The container is read here with numpy; the strips are inflated by the
-port's C++ decompressors (``csrc/tiff_decode.cpp``, compiled into the
+The container is read here with numpy; strips and tiles are inflated by
+the port's C++ decompressors (``csrc/tiff_decode.cpp``, compiled into the
 native loader's library by ``io/native_loader``; a library that does not
 build raises ``RuntimeError`` naming the build error).  It reads the first
-image of a baseline strip TIFF in either byte order (``II`` or ``MM``) of
-one grey sample per pixel, 8-, 16- or 32-bit unsigned, 8-, 16- or 32-bit
-signed, or 32-bit float; compressed with none (1), LZW (5), deflate (8,
-32946) or PackBits (32773); with predictor 1, 2 (horizontal differencing
-of the samples, modulo their width) or 3 (floating point: byte planes, the
-most significant first, differenced as bytes).
+image of a TIFF in either byte order (``II`` or ``MM``) in every form of
+Pillow 12's ``TiffImagePlugin.OPEN_INFO`` but YCbCr and LAB: grey of 1, 2,
+4, 8, 12, 16 and 32 bits (unsigned, signed, float), grey with alpha, RGB
+and RGBA of 8 and 16 bits with the extra samples Pillow names (``X``
+ignored, ``a`` associated alpha, ``A``), palettes of 1, 2, 4 and 8 bits
+(``P``, ``PX``, ``PA``; the 16-bit ColorMap reduced to its high bytes) and
+CMYK of 8 and 16 bits; in strips or tiles (edge tiles cropped), with
+planar configuration 1 or 2, fill order 1 or 2, compressed with none (1),
+LZW (5), deflate (8, 32946) or PackBits (32773), with predictor 1, 2
+(horizontal differencing of each sample, modulo its width, the samples of
+a pixel as its stride) or 3 (floating point); and the Orientation tag
+(274) applied as Pillow applies it.
 
-It gives what Pillow 12 gives, quirks included:
+It gives what Pillow 12 gives, quirks included, by taking Pillow's two
+routes:
 
-  - the mode's dtype: 8-bit as uint8 (``L``; signed samples as their
-    bytes; inverted, 255 - v, when black is 1, photometric 0), 16-bit
-    unsigned as uint16 (``I;16`` / ``I;16B``, here in native byte order),
-    16-bit signed and 32-bit integers as int32 (``I``; an unsigned 32-bit
-    sample as the int32 of its bits), float as float32 (``F``);
-  - the (byte order, photometric, sample format, bits) combinations
-    Pillow opens, and no other: photometric 1 for all, photometric 0 also
-    for 8-bit, for little-endian unsigned 16-bit and for float; unsigned
-    32-bit only little-endian;
-  - the predictor only with LZW and deflate, the codecs libtiff applies it
-    in (with no compression or PackBits it is ignored);
-  - a big-endian file's compressed 16-bit signed, 32-bit and float samples
-    come back byte-swapped: libtiff hands Pillow native-order samples and
-    Pillow swaps them again as big-endian.
+  - no compression: Pillow's own raw decoder, one tile a strip or tile,
+    from the tile's offset to as far as its rows reach (the byte counts
+    unread); with planar configuration 2 each plane is read with the raw
+    mode's letter of that plane (``R``, ``G``, ... ; ``I;16`` gives ``I``,
+    which Pillow has no unpacker for in mode ``I;16``, so it is refused);
+    the predictor is ignored; fill order 2 uses the ``;R`` raw modes, so
+    the forms Pillow has none of are refused;
+  - any compression: libtiff, then Pillow's unpacker: the bits of each
+    byte reversed before decompression for fill order 2; the samples of a
+    big-endian file swapped to the host's order and the predictor applied
+    there (only with LZW and deflate, the codecs libtiff applies it in);
+    the ``;16B`` / ``;16L`` raw modes read as ``;16N`` (so the other
+    big-endian 16-bit signed, 32-bit and float modes come back
+    byte-swapped, as Pillow swaps libtiff's native samples again); with
+    planar configuration 2 and more than one band, each plane copied into
+    its band, refused when the file has more samples than the mode has
+    bands, and an RGB image of four samples with no ExtraSamples taken as
+    associated alpha.
 
-Anything else raises ``ValueError`` with the tag and its value: tiles,
-several samples per pixel, other compressions (JPEG, CCITT, ...), other
-bit depths, bit fill order 2, BigTIFF.
+``decode`` gives ``np.asarray(Image.open(...))`` of a single-band image
+(16-bit unsigned in native byte order) and raises naming the mode of any
+other; ``io/image`` takes ``decode_mode`` to ``convert("RGB")`` through
+``io/modes``.  Anything
+else raises ``ValueError`` with the tag and its value: JPEG (6, 7), CCITT
+(2-4) and other compressions, YCbCr (6) and LAB (8) photometrics, other
+bit depths and sample layouts, BigTIFF.
 """
 
 from __future__ import annotations
@@ -43,49 +58,100 @@ import struct
 
 import numpy as np
 
-from . import native_loader
+from . import modes, native_loader
 
-MAGICS = (b"II*\x00", b"MM\x00*")
+# Pillow's TiffImagePlugin.PREFIXES: the magics, the two with the version's
+# bytes swapped (read in the byte order named), and BigTIFF's
+PREFIXES = (b"II*\x00", b"MM\x00*", b"MM*\x00", b"II\x00*", b"MM\x00+", b"II+\x00")
 NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS = 1, 5, 8, 32946, 32773
 COMPRESSIONS = (NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS)
 # libtiff's codecs that take a predictor
 _PREDICTED = (LZW, DEFLATE, ADOBE_DEFLATE)
-# (byte order, photometric, sample format, bits) -> the decoded dtype; the
-# grey rows of Pillow's TiffImagePlugin.OPEN_INFO
-_FORMS = {}
-for _o in "IM":
-    for _p in (0, 1):
-        _FORMS[_o, _p, 1, 8] = np.uint8
-        _FORMS[_o, _p, 3, 32] = np.float32
-    _FORMS[_o, 1, 2, 8] = np.uint8
-    _FORMS[_o, 1, 2, 16] = np.int32
-    _FORMS[_o, 1, 2, 32] = np.int32
-    _FORMS[_o, 1, 1, 16] = np.uint16
-_FORMS["I", 0, 1, 16] = np.uint16
-_FORMS["I", 1, 1, 32] = np.int32
+# Pillow's TiffImagePlugin.OPEN_INFO but photometric 6 (YCbCr) and 8 (LAB):
+# (byte orders, photometric, sample format, fill order, bits a sample x
+# samples, extra samples, mode, raw mode)
+_OPEN_INFO_ROWS = (
+    ("IM", 0, 1, 1, "1x1", "", "1", "1;I"), ("IM", 0, 1, 2, "1x1", "", "1", "1;IR"),
+    ("IM", 1, 1, 1, "1x1", "", "1", "1"), ("IM", 1, 1, 2, "1x1", "", "1", "1;R"),
+    ("IM", 0, 1, 1, "2x1", "", "L", "L;2I"), ("IM", 0, 1, 2, "2x1", "", "L", "L;2IR"),
+    ("IM", 1, 1, 1, "2x1", "", "L", "L;2"), ("IM", 1, 1, 2, "2x1", "", "L", "L;2R"),
+    ("IM", 0, 1, 1, "4x1", "", "L", "L;4I"), ("IM", 0, 1, 2, "4x1", "", "L", "L;4IR"),
+    ("IM", 1, 1, 1, "4x1", "", "L", "L;4"), ("IM", 1, 1, 2, "4x1", "", "L", "L;4R"),
+    ("IM", 0, 1, 1, "8x1", "", "L", "L;I"), ("IM", 0, 1, 2, "8x1", "", "L", "L;IR"),
+    ("IM", 1, 1, 1, "8x1", "", "L", "L"), ("IM", 1, 2, 1, "8x1", "", "L", "L"),
+    ("IM", 1, 1, 2, "8x1", "", "L", "L;R"),
+    ("I", 1, 1, 1, "12x1", "", "I;16", "I;12"),
+    ("I", 0, 1, 1, "16x1", "", "I;16", "I;16"), ("I", 1, 1, 1, "16x1", "", "I;16", "I;16"),
+    ("M", 1, 1, 1, "16x1", "", "I;16B", "I;16B"), ("I", 1, 1, 2, "16x1", "", "I;16", "I;16R"),
+    ("I", 1, 2, 1, "16x1", "", "I", "I;16S"), ("M", 1, 2, 1, "16x1", "", "I", "I;16BS"),
+    ("I", 0, 3, 1, "32x1", "", "F", "F;32F"), ("M", 0, 3, 1, "32x1", "", "F", "F;32BF"),
+    ("I", 1, 1, 1, "32x1", "", "I", "I;32N"), ("I", 1, 2, 1, "32x1", "", "I", "I;32S"),
+    ("M", 1, 2, 1, "32x1", "", "I", "I;32BS"), ("I", 1, 3, 1, "32x1", "", "F", "F;32F"),
+    ("M", 1, 3, 1, "32x1", "", "F", "F;32BF"),
+    ("IM", 1, 1, 1, "8x2", "2", "LA", "LA"),
+    ("IM", 2, 1, 1, "8x3", "", "RGB", "RGB"), ("IM", 2, 1, 2, "8x3", "", "RGB", "RGB;R"),
+    ("IM", 2, 1, 1, "8x4", "", "RGBA", "RGBA"), ("IM", 2, 1, 1, "8x4", "0", "RGB", "RGBX"),
+    ("IM", 2, 1, 1, "8x5", "00", "RGB", "RGBXX"), ("IM", 2, 1, 1, "8x6", "000", "RGB", "RGBXXX"),
+    ("IM", 2, 1, 1, "8x4", "1", "RGBA", "RGBa"), ("IM", 2, 1, 1, "8x5", "10", "RGBA", "RGBaX"),
+    ("IM", 2, 1, 1, "8x6", "100", "RGBA", "RGBaXX"), ("IM", 2, 1, 1, "8x4", "2", "RGBA", "RGBA"),
+    ("IM", 2, 1, 1, "8x5", "20", "RGBA", "RGBAX"), ("IM", 2, 1, 1, "8x6", "200", "RGBA", "RGBAXX"),
+    ("IM", 2, 1, 1, "8x4", "999", "RGBA", "RGBA"),
+    ("I", 2, 1, 1, "16x3", "", "RGB", "RGB;16L"), ("M", 2, 1, 1, "16x3", "", "RGB", "RGB;16B"),
+    ("I", 2, 1, 1, "16x4", "", "RGBA", "RGBA;16L"), ("M", 2, 1, 1, "16x4", "", "RGBA", "RGBA;16B"),
+    ("I", 2, 1, 1, "16x4", "0", "RGB", "RGBX;16L"), ("M", 2, 1, 1, "16x4", "0", "RGB", "RGBX;16B"),
+    ("I", 2, 1, 1, "16x4", "1", "RGBA", "RGBa;16L"),
+    ("M", 2, 1, 1, "16x4", "1", "RGBA", "RGBa;16B"),
+    ("I", 2, 1, 1, "16x4", "2", "RGBA", "RGBA;16L"),
+    ("M", 2, 1, 1, "16x4", "2", "RGBA", "RGBA;16B"),
+    ("IM", 3, 1, 1, "1x1", "", "P", "P;1"), ("IM", 3, 1, 2, "1x1", "", "P", "P;1R"),
+    ("IM", 3, 1, 1, "2x1", "", "P", "P;2"), ("IM", 3, 1, 2, "2x1", "", "P", "P;2R"),
+    ("IM", 3, 1, 1, "4x1", "", "P", "P;4"), ("IM", 3, 1, 2, "4x1", "", "P", "P;4R"),
+    ("IM", 3, 1, 1, "8x1", "", "P", "P"), ("IM", 3, 1, 1, "8x2", "0", "P", "PX"),
+    ("IM", 3, 1, 1, "8x2", "2", "PA", "PA"), ("IM", 3, 1, 2, "8x1", "", "P", "P;R"),
+    ("IM", 5, 1, 1, "8x4", "", "CMYK", "CMYK"), ("IM", 5, 1, 1, "8x5", "0", "CMYK", "CMYKX"),
+    ("IM", 5, 1, 1, "8x6", "00", "CMYK", "CMYKXX"),
+    ("I", 5, 1, 1, "16x4", "", "CMYK", "CMYK;16L"), ("M", 5, 1, 1, "16x4", "", "CMYK", "CMYK;16B"),
+)
+# (order "I" / "M", photometric, sample format, fill order, bits tuple,
+# extra samples tuple) -> (mode, raw mode)
+OPEN_INFO = {}
+for _orders, _p, _sf, _fill, _bits, _extra, _mode, _raw in _OPEN_INFO_ROWS:
+    _b, _n = _bits.split("x")
+    _extras = (999,) if _extra == "999" else tuple(int(c) for c in _extra)
+    for _o in _orders:
+        OPEN_INFO[_o, _p, (_sf,), _fill, (int(_b),) * int(_n), _extras] = (_mode, _raw)
+# the largest number of samples a pixel Pillow reads
+MAX_SAMPLES = 6
+# photometric -> the samples before the extra ones
+_BASE_SAMPLES = {2: 3, 5: 4, 6: 3, 8: 3}
 _TAG_NAMES = {258: "BitsPerSample", 259: "Compression", 262: "PhotometricInterpretation",
-              266: "FillOrder", 277: "SamplesPerPixel", 278: "RowsPerStrip", 317: "Predictor",
+              266: "FillOrder", 274: "Orientation", 277: "SamplesPerPixel",
+              278: "RowsPerStrip", 284: "PlanarConfiguration", 317: "Predictor",
+              320: "ColorMap", 322: "TileWidth", 323: "TileLength", 338: "ExtraSamples",
               339: "SampleFormat"}
+_REFUSED_PHOTOMETRIC = {6: "YCbCr", 8: "CIE L*a*b*"}
+_REFUSED_COMPRESSION = {2: "CCITT 1D", 3: "CCITT group 3", 4: "CCITT group 4",
+                        6: "old-style JPEG", 7: "JPEG"}
 # the sizes of the TIFF field types
 _TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4}
 _INT_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I"}
+# Pillow's decompression bomb limit: twice Image.MAX_IMAGE_PIXELS
+MAX_PIXELS = 2 * int(1024 * 1024 * 1024 // 4 // 3)
+_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 _ERR_LEN = 256
 
 
 def library():
     """The loaded native library; ``RuntimeError`` naming the build error
     when it cannot be built or loaded."""
-    if not native_loader.available():
-        raise RuntimeError("TIFF decompressors unavailable: the native library did not build: "
-                           f"{native_loader.status()['build_error']}")
-    return native_loader._LIB
+    return native_loader.library("TIFF decompressors")
 
 
 def _ifd(data: bytes) -> tuple[str, dict]:
     """(byte order "<" / ">", {tag: tuple of integer values}) of the first
     image directory."""
-    if data[:4] not in MAGICS:
-        if data[:2] in (b"II", b"MM") and data[2:4] in (b"+\x00", b"\x00+"):
+    if data[:4] not in PREFIXES[:4]:
+        if data[:4] in PREFIXES:
             raise ValueError("BigTIFF is not read")
         raise ValueError(f"not a TIFF file (it starts with {data[:4]!r})")
     e = "<" if data[:2] == b"II" else ">"
@@ -126,98 +192,257 @@ def _refuse(tag: int, value, why: str):
     raise ValueError(f"{_TAG_NAMES.get(tag, 'tag')} (tag {tag}) = {value}: {why}")
 
 
-def _strips(data: bytes, tags: dict, compression: int, height: int, row_bytes: int) -> bytes:
-    """The image's rows, decompressed, as one buffer."""
-    offsets = tags.get(273)
-    counts = tags.get(279)
+class _Layout:
+    """What Pillow's ``_setup`` makes of the tags: the mode, the raw mode,
+    the samples and how they are stored."""
+
+    def __init__(self, e: str, tags: dict):
+        order = "I" if e == "<" else "M"
+        self.compression = _one(tags, 259, 1)
+        if self.compression in _REFUSED_COMPRESSION:
+            _refuse(259, self.compression, f"{_REFUSED_COMPRESSION[self.compression]} is not "
+                    "read")
+        if self.compression not in COMPRESSIONS:
+            _refuse(259, self.compression, "not read (none 1, LZW 5, deflate 8 / 32946 and "
+                    "PackBits 32773 are)")
+        self.planar = _one(tags, 284, 1)
+        photometric = _one(tags, 262, 0)
+        if photometric in _REFUSED_PHOTOMETRIC:
+            _refuse(262, photometric, f"{_REFUSED_PHOTOMETRIC[photometric]} is not read")
+        fill = _one(tags, 266, 1)
+        self.width, self.height = _one(tags, 256), _one(tags, 257)
+        if self.width * self.height > MAX_PIXELS:
+            raise ValueError(f"{self.width}x{self.height} pixels: above Pillow's decompression "
+                             f"bomb limit of {MAX_PIXELS}")
+        fmt = tags.get(339, (1,))
+        if len(fmt) > 1 and set(fmt) == {1}:
+            fmt = (1,)
+        bits = tags.get(258, (1,))
+        extra = tags.get(338, ())
+        self.band_count = _BASE_SAMPLES.get(photometric, 1) + len(extra)
+        spp = tags.get(277, (1,))[0]
+        if spp > MAX_SAMPLES:
+            _refuse(277, spp, f"more than the {MAX_SAMPLES} samples a pixel Pillow reads")
+        if spp < len(bits):
+            bits = bits[:spp]
+        elif spp > len(bits) == 1:
+            bits = bits * spp
+        if len(bits) != spp:
+            _refuse(258, list(bits), f"not one value a sample ({spp} samples a pixel)")
+        key = (order, photometric, tuple(fmt), fill, tuple(bits), tuple(extra))
+        if key not in OPEN_INFO:
+            raise ValueError(f"BitsPerSample {list(bits)}, SampleFormat {list(fmt)}, "
+                             f"PhotometricInterpretation {photometric}, FillOrder {fill}, "
+                             f"ExtraSamples {list(extra)} in {order * 2} byte order: not a form "
+                             "Pillow opens")
+        self.mode, self.rawmode = OPEN_INFO[key]
+        self.libtiff = self.compression != NONE
+        if self.libtiff and fill == 2:
+            # libtiff undoes the fill order: the raw mode of fill order 1
+            self.mode, self.rawmode = OPEN_INFO[key[:3] + (1,) + key[4:]]
+        if self.libtiff and self.rawmode == "I;16":
+            self.rawmode = "I;16N"
+        elif self.libtiff and self.rawmode.endswith((";16B", ";16L")):
+            self.rawmode = self.rawmode[:-1] + "N"
+        self.fill, self.spp, self.bits, self.fmt = fill, spp, bits[0], fmt[0]
+        self.photometric, self.extra = photometric, extra
+        # libtiff reads tiles when the tile size is given; Pillow's raw
+        # decoder reads strips when their offsets are given
+        self.tiled = ((322 in tags or 323 in tags) if self.libtiff
+                      else 273 not in tags and 324 in tags)
+        self.palette = None
+        if self.mode in ("P", "PA"):
+            if 320 not in tags:
+                raise ValueError(f"ColorMap (tag 320) is missing in a palette image "
+                                 f"(PhotometricInterpretation {photometric})")
+            cmap = np.asarray(tags[320], np.int64) // 256
+            n = len(cmap) // 3
+            self.palette = cmap[:3 * n].reshape(3, n).T.astype(np.uint8)
+            if n > 256:
+                _refuse(320, f"{n} colours", "more than 256")
+
+
+def _chunks(tags: dict, layout: _Layout):
+    """(offsets, byte counts, chunk width, chunk rows) of the strips or
+    tiles."""
+    if layout.tiled:
+        offsets, counts = tags.get(324, tags.get(273)), tags.get(325, tags.get(279))
+        tw, tl = tags.get(322, (None,))[0], tags.get(323, (None,))[0]
+        if offsets is None or tw is None or tl is None:
+            raise ValueError("a tiled TIFF without TileOffsets (324), TileWidth (322) or "
+                             "TileLength (323)")
+        if tw < 1 or tl < 1:
+            _refuse(322, (tw, tl), "a tile holds no pixel")
+        return offsets, counts, tw, tl
+    offsets, counts = tags.get(273), tags.get(279)
     if offsets is None:
         raise ValueError("StripOffsets (tag 273) is missing")
-    if counts is None:
-        raise ValueError("StripByteCounts (tag 279) is missing")
     rps = _one(tags, 278, 2 ** 32 - 1)
     if rps < 1:
         _refuse(278, rps, "a strip holds no row")
-    rps = min(rps, height)
-    n = -(-height // rps) if height else 0
-    if len(offsets) < n or len(counts) < n:
-        raise ValueError(f"{len(offsets)} strip offsets and {len(counts)} byte counts, "
-                         f"{height} rows of {rps} a strip need {n}")
-    out = np.empty(height * row_bytes, np.uint8)
+    return offsets, counts, layout.width, rps
+
+
+def _raw(data: bytes, tags: dict, layout: _Layout) -> np.ndarray:
+    """No compression: Pillow's raw decoder on its tile list."""
+    offsets, _, w, h = _chunks(tags, layout)
+    xsize, ysize = layout.width, layout.height
+    img = modes.new(layout.mode, ysize, xsize)
+    if not layout.tiled:
+        h = tags.get(278, (ysize,))[0]
+    if w == xsize and h == ysize and layout.planar != 2:
+        offsets = offsets[-1:]
+    total_bits = layout.bits * layout.spp
+    x = y = layer = 0
+    for offset in offsets:
+        stride = w * total_bits / 8 if x + w > xsize else 0
+        rawmode = layout.rawmode
+        if layout.planar == 2:
+            if layer >= len(rawmode):
+                raise ValueError(f"{len(offsets)} strips or tiles for {len(rawmode)} planes")
+            rawmode = rawmode[layer]
+            stride /= layout.band_count
+        stride = int(stride)
+        tile_w, rows = min(x + w, xsize) - x, min(y + h, ysize) - y
+        bits = modes.rawmode_bits(layout.mode, rawmode)
+        need = (tile_w * bits + 7) // 8
+        if stride and stride < need:
+            raise ValueError(f"tile rows of {stride} bytes, raw mode {rawmode} reads {need}: "
+                             "Pillow's codec configuration error")
+        step = stride or need
+        size = (rows - 1) * step + need if rows > 0 else 0
+        body = data[offset:offset + size]
+        if len(body) < size:
+            raise ValueError(f"strip or tile at {offset} truncated: {len(body)} of {size} bytes")
+        if rows > 0 and tile_w > 0:
+            block = np.frombuffer(body + bytes(rows * step - size), np.uint8).reshape(rows, step)
+            modes.unpack_into(img, layout.mode, rawmode, block, y, x, tile_w)
+        x += w
+        if x >= xsize:
+            x, y = 0, y + h
+            if y >= ysize:
+                y, layer = 0, layer + 1
+    return img
+
+
+def _inflate(lib, src: bytes, compression: int, want: int, what: str) -> np.ndarray:
+    out = np.empty(want, np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
-    lib = library() if compression != NONE else None
-    for k in range(n):
-        rows = min(rps, height - k * rps)
-        want = rows * row_bytes
-        src = data[offsets[k]:offsets[k] + counts[k]]
-        dst = out[k * rps * row_bytes:k * rps * row_bytes + want]
-        if compression == NONE:
-            if len(src) < want:
-                raise ValueError(f"strip {k} holds {len(src)} bytes, its {rows} rows need "
-                                 f"{want}")
-            dst[:] = np.frombuffer(src, np.uint8, want)
-        elif lib.tiff_decompress(src, len(src), compression,
-                                 dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), want,
-                                 err, _ERR_LEN) != 0:
-            raise ValueError(f"strip {k}: {err.value.decode()}")
+    if lib.tiff_decompress(src, len(src), compression,
+                           out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), want, err,
+                           _ERR_LEN) != 0:
+        raise ValueError(f"{what}: {err.value.decode()}")
     return out
 
 
-def decode(data: bytes) -> np.ndarray:
-    """(H, W) array of a TIFF file's bytes, as ``np.asarray(Image.open(...))``
-    (16-bit unsigned in native byte order)."""
+def _unpredict(rows: np.ndarray, layout: _Layout, predictor: int, samples: int) -> np.ndarray:
+    """libtiff's predictor decoding of (n, row bytes) native-order rows of
+    ``samples`` samples a pixel."""
+    size = layout.bits // 8
+    n = len(rows)
+    if predictor == 2:
+        u = rows.view(f"<u{size}").reshape(n, -1, samples)
+        return np.cumsum(u, axis=1, dtype=u.dtype).reshape(n, -1).view(np.uint8)
+    # 3: byte planes, the most significant first, differenced as bytes
+    width = rows.shape[1] // size
+    planes = np.cumsum(rows, axis=1, dtype=np.uint8).reshape(n, size, width)
+    be = np.ascontiguousarray(planes.transpose(0, 2, 1)).view(f">u{size}")[..., 0]
+    return be.astype(f"<u{size}").view(np.uint8).reshape(n, -1)
+
+
+def _libtiff(data: bytes, tags: dict, layout: _Layout, e: str) -> np.ndarray:
+    """Compressed: libtiff's strips or tiles, then Pillow's unpacker."""
+    offsets, counts, cw, ch = _chunks(tags, layout)
+    if counts is None:
+        raise ValueError(f"{'TileByteCounts (tag 325)' if layout.tiled else 'StripByteCounts '
+                         '(tag 279)'} is missing")
+    xsize, ysize = layout.width, layout.height
+    bands = modes.BANDS[layout.mode]
+    separate = layout.planar == 2 and bands > 1
+    if layout.planar == 2 and layout.spp > bands and not (layout.tiled and separate):
+        _refuse(284, 2, f"{layout.spp} planes for the {bands} bands of mode {layout.mode} in "
+                f"{'tiles' if layout.tiled else 'strips'}: Pillow's libtiff decoder "
+                f"{'reads bytes libtiff does not write' if layout.tiled else 'fails'}")
+    rawmode = layout.rawmode
+    if separate:
+        # the planes of the mode's bands, the rest unread
+        base, _, suffix = rawmode.partition(";")
+        rawmode = base.replace("X", "") + (";" + suffix if suffix else "")
+        if layout.photometric == 2 and layout.spp == 4 and not layout.extra:
+            rawmode = "RGBa" + rawmode[4:]
+    planes = min(layout.spp, bands) if separate else 1
+    samples = 1 if layout.planar == 2 else layout.spp
+    predictor = _one(tags, 317, 1) if layout.compression in _PREDICTED else 1
+    if predictor not in (1, 2, 3) or (predictor == 3 and layout.fmt != 3):
+        _refuse(317, predictor, f"not read with SampleFormat {layout.fmt}")
+    if predictor == 2 and layout.bits not in (8, 16, 32):
+        _refuse(317, predictor, f"libtiff has no horizontal differencing of {layout.bits}-bit "
+                "samples")
+    across = -(-xsize // cw)
+    down = -(-ysize // ch)
+    per_plane = down * (across if layout.tiled else 1)
+    if len(offsets) < per_plane * planes or len(counts) < per_plane * planes:
+        raise ValueError(f"{len(offsets)} offsets and {len(counts)} byte counts, "
+                         f"{per_plane * planes} strips or tiles needed")
+    row_bytes = (cw * samples * layout.bits + 7) // 8
+    size = layout.bits // 8
+    swap = e == ">" and size in (2, 4) and predictor != 3
+    assembled = np.zeros((ysize, xsize, planes), np.uint8) if separate and size == 1 else None
+    if separate and size == 2:
+        assembled = np.zeros((ysize, xsize, planes, 2), np.uint8)
+    img = modes.new(layout.mode, ysize, xsize)
+    lib = library()
+    for plane in range(planes):
+        for k in range(per_plane):
+            index = plane * per_plane + k
+            ty, tx = divmod(k, across) if layout.tiled else (k, 0)
+            y, x = ty * ch, tx * cw
+            rows = ch if layout.tiled else min(ch, ysize - y)
+            src = data[offsets[index]:offsets[index] + counts[index]]
+            if layout.fill == 2:
+                src = _REVERSED[np.frombuffer(src, np.uint8)].tobytes()
+            what = f"{'tile' if layout.tiled else 'strip'} {index}"
+            block = _inflate(lib, src, layout.compression, rows * row_bytes, what)
+            block = block.reshape(rows, row_bytes)
+            if swap:
+                block = block.view(f">u{size}").astype(f"<u{size}").view(np.uint8)
+            if predictor != 1:
+                block = _unpredict(block, layout, predictor, samples)
+            keep_w, keep_h = min(cw, xsize - x), min(rows, ysize - y)
+            block = block[:keep_h]
+            if separate:
+                vals = block[:, :keep_w * size].reshape(keep_h, keep_w, size)
+                assembled[y:y + keep_h, x:x + keep_w, plane] = vals[..., 0] if size == 1 else vals
+            else:
+                modes.unpack_into(img, layout.mode, rawmode, block, y, x, keep_w)
+    if separate:
+        modes.unpack_into(img, layout.mode, rawmode, assembled.reshape(ysize, -1), 0, 0, xsize)
+    return img
+
+
+# Orientation (tag 274) -> the transposition Pillow's exif_transpose applies
+_ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
+           5: lambda a: a.swapaxes(0, 1), 6: lambda a: np.rot90(a, -1),
+           7: lambda a: a[::-1, ::-1].swapaxes(0, 1), 8: lambda a: np.rot90(a, 1)}
+
+
+def decode_mode(data: bytes) -> tuple[str, np.ndarray, np.ndarray | None]:
+    """(Pillow's mode, ``np.asarray(Image.open(...))`` with 16-bit samples in
+    native order, the palette as (N, 3) uint8 for ``P`` / ``PA``) of a TIFF
+    file's bytes."""
     e, tags = _ifd(data)
-    if 322 in tags or 324 in tags:
-        raise ValueError("a tiled TIFF (TileWidth, tag 322) is not read: strips only")
-    spp = _one(tags, 277, 1)
-    if spp != 1:
-        _refuse(277, spp, "one grey sample per pixel is read")
-    compression = _one(tags, 259, 1)
-    if compression not in COMPRESSIONS:
-        _refuse(259, compression, "not read (none 1, LZW 5, deflate 8 / 32946 and "
-                "PackBits 32773 are)")
-    fill = _one(tags, 266, 1)
-    if fill != 1:
-        _refuse(266, fill, "reversed bit order is not read")
-    bits = _one(tags, 258, 1)
-    fmt = _one(tags, 339, 1)
-    photometric = _one(tags, 262, 0)
-    order = "I" if e == "<" else "M"
-    out_dtype = _FORMS.get((order, photometric, fmt, bits))
-    if out_dtype is None:
-        raise ValueError(f"BitsPerSample {bits}, SampleFormat {fmt}, "
-                         f"PhotometricInterpretation {photometric} in {order * 2} byte order: "
-                         "not a grey form Pillow opens")
-    predictor = _one(tags, 317, 1) if compression in _PREDICTED else 1
-    if predictor not in (1, 2, 3) or (predictor == 3 and fmt != 3):
-        _refuse(317, predictor, f"not read with SampleFormat {fmt}")
-    width, height = _one(tags, 256), _one(tags, 257)
-    size = bits // 8
-    raw = _strips(data, tags, compression, height, width * size).reshape(height, width * size)
-
-    unsigned = np.dtype(f"u{size}")
-    if predictor == 3:
-        # the planes' bytes of a sample, most significant first
-        planes = np.cumsum(raw, axis=1, dtype=np.uint8).reshape(height, size, width)
-        be = np.ascontiguousarray(planes.transpose(0, 2, 1)).view(unsigned.newbyteorder(">"))
-        samples = be[..., 0].astype(unsigned)
-    else:
-        samples = raw.view(unsigned.newbyteorder(e)).astype(unsigned)
-        if predictor == 2:
-            samples = np.cumsum(samples, axis=1, dtype=unsigned)
-    if e == ">" and compression != NONE and bits > 8 and (fmt != 1 or bits == 32):
-        samples = samples.byteswap()
-    if bits == 8:
-        return 255 - samples if photometric == 0 else samples
-    if fmt == 1:
-        return samples.view(out_dtype)
-    return samples.view(np.dtype(f"{'i' if fmt == 2 else 'f'}{size}")).astype(out_dtype)
+    layout = _Layout(e, tags)
+    img = _libtiff(data, tags, layout, e) if layout.libtiff else _raw(data, tags, layout)
+    orientation = tags.get(274, (1,))[0]
+    if orientation in _ORIENT:
+        img = np.ascontiguousarray(_ORIENT[orientation](img))
+    return layout.mode, img, layout.palette
 
 
-def read(path: str) -> np.ndarray:
-    """:func:`decode` of a file; an error names the file."""
-    with open(path, "rb") as f:
-        data = f.read()
-    try:
-        return decode(data)
-    except (RuntimeError, ValueError) as e:
-        raise type(e)(f"{path}: {e}") from e
+def decode(data: bytes) -> np.ndarray:
+    """(H, W) array of a single-band TIFF, as ``np.asarray(Image.open(...))``
+    (16-bit unsigned in native byte order)."""
+    mode, img, _ = decode_mode(data)
+    if modes.BANDS[mode] != 1:
+        raise ValueError(f"mode {mode}: a depth image has one band")
+    return img

@@ -6,12 +6,13 @@ Replaces the reference's ``RawImageLogReader`` + the direct OpenCV reads in
 parsing, 16-bit PNG depth (1/5000 m units), 8-bit RGB.  The JAX package
 opens every image with Pillow, which picks the format from the file's
 bytes; so does the port, with no imaging library (``io/image``): a colour
-file that starts with a JPEG SOI marker is decoded by the port's own JPEG
-decoder (``io/jpeg``), a PNG by its own ``io/png`` (zlib and numpy), each
-to what Pillow's ``convert("RGB")`` gives in the JAX package; a depth file
-is a PNG (``io/png``), a PGM (``io/pnm``) or a TIFF (``io/tiff``), read as
-``np.asarray(Image.open(...))`` reads it.  ``write_sequence`` writes a
-sequence in the same layout (tests, synthetic fixtures).
+file in JPEG (the port's own decoder, ``io/jpeg``), PNG (``io/png``, zlib
+and numpy), BMP (``io/bmp``), netpbm (``io/pnm``) or TIFF (``io/tiff``)
+is decoded to what Pillow's ``convert("RGB")`` gives in the JAX package;
+a depth file in any of them but JPEG is read as
+``np.asarray(Image.open(...))`` reads it, if it has one band.
+``write_sequence`` writes a sequence in the same layout (tests, synthetic
+fixtures).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Iterator, NamedTuple
 
 import numpy as np
 
-from . import image, jpeg, png, tiff
+from . import image, jpeg, png
 
 TUM_DEPTH_SCALE = 1.0 / 5000.0  # TUM PNG depth unit -> meters
 
@@ -83,10 +84,11 @@ def frames_prefetched(root: str, associations: str = "associations.txt",
     threads it would take the lock from the consumer's own Python (the
     dense step's launches), so the pool is of processes, started with
     ``spawn`` (safe beside CUDA and threads) and shut down when the
-    iteration ends.  When a colour file is a JPEG or a depth file a TIFF,
-    the native library that holds the JPEG decoder and the TIFF
-    decompressors is built or loaded here first (``RuntimeError`` naming
-    the build error if it cannot be), so that the workers only load it.
+    iteration ends.  When any file needs the native library (a JPEG, a
+    TIFF, a run-length BMP: ``image.needs_library``), the library that
+    holds the JPEG decoder, the TIFF decompressors and the BMP run-length
+    decoder is built or loaded here first (``RuntimeError`` naming the
+    build error if it cannot be), so that the workers only load it.
     Each worker imports the caller's main module, so a script that calls
     this keeps its own work under ``if __name__ == "__main__":``."""
     import multiprocessing
@@ -96,9 +98,8 @@ def frames_prefetched(root: str, associations: str = "associations.txt",
     if end is not None:
         assoc = assoc[:end]
     assoc = assoc[start:]
-    if any(_head(os.path.join(root, rgb_p), 2) == image.JPEG_SOI
-           or _head(os.path.join(root, depth_p), 4) in tiff.MAGICS
-           for _, rgb_p, depth_p in assoc):
+    if any(image.needs_library(_head(os.path.join(root, p), 64))
+           for _, rgb_p, depth_p in assoc for p in (rgb_p, depth_p)):
         jpeg.library()
     with ProcessPoolExecutor(max_workers=workers,
                              mp_context=multiprocessing.get_context("spawn")) as pool:

@@ -19,8 +19,9 @@ and values near 65535:
 
 Each decoder's dtype (byte order aside) and values equal Pillow's; the
 port's ``load_frame`` gives JAX's depth and colour arrays exactly.  The
-forms the port refuses (tiled, RGB and JPEG-in-TIFF, a form that is none
-of PNG, PGM or TIFF) raise ``ValueError`` naming the file and the tag.
+forms the port refuses as depth (RGB and JPEG-in-TIFF, CCITT, a form the
+port does not read, a broken BMP or PGM header) raise ``ValueError``
+naming the file and the tag.
 The committed fixture ``tests/data/depth_forms`` decodes to its digests in
 both."""
 
@@ -175,27 +176,29 @@ def _refused(tmp_path, name, data):
 
 def test_refused_forms_name_file_and_tag(tmp_path):
     d = _depth("64x48")
+    # strip tags beside tile tags: Pillow's raw decoder reads the strips
     tiled = encode(d, "II", 1, 1, extra={322: (SHORT, [16]), 323: (SHORT, [16]),
                                          324: (LONG, [8]), 325: (LONG, [2048])})
-    assert "322" in _refused(tmp_path, "tiled.tif", tiled)
+    np.testing.assert_array_equal(image.decode_depth(tiled), _pillow(tiled))
     rgb = np.stack([d >> 8] * 3, -1).astype(np.uint8)
     assert _pillow(_pillow_tiff(rgb)).shape == (48, 64, 3)
-    assert "277" in _refused(tmp_path, "rgb.tif", _pillow_tiff(rgb))
+    assert "mode RGB" in _refused(tmp_path, "rgb.tif", _pillow_tiff(rgb))
     jpeg_tiff = _pillow_tiff(rgb, compression="jpeg")
     assert _pillow(jpeg_tiff).shape == (48, 64, 3)
-    assert "277" in _refused(tmp_path, "jpeg_rgb.tif", jpeg_tiff)
+    assert "259" in _refused(tmp_path, "jpeg_rgb.tif", jpeg_tiff)
     grey_jpeg = encode((d >> 8).astype(np.uint8), "II", 1, 1, extra={259: (SHORT, [7])})
     assert "259" in _refused(tmp_path, "jpeg_grey.tif", grey_jpeg)
     ccitt = encode((d >> 8).astype(np.uint8), "MM", 1, 1, extra={259: (SHORT, [4])})
     assert "259" in _refused(tmp_path, "ccitt.tif", ccitt)
     assert "278" in _refused(tmp_path, "rows0.tif", encode(d, extra={278: (LONG, [0])}))
-    assert "not a PNG, PGM or TIFF" in _refused(tmp_path, "depth.bmp", b"BM" + bytes(64))
+    assert "not a form the port reads" in _refused(tmp_path, "depth.gif", b"GIF89a" + bytes(64))
+    assert "BMP info header size 0" in _refused(tmp_path, "depth.bmp", b"BM" + bytes(64))
     assert "maxval" in _refused(tmp_path, "zero.pgm", b"P5 2 2 0 \0\0\0\0")
     # the TUM reader names the file too
     os.makedirs(tmp_path / "seq")
-    (tmp_path / "seq" / "d.tif").write_bytes(tiled)
+    (tmp_path / "seq" / "d.tif").write_bytes(grey_jpeg)
     png.write(str(tmp_path / "seq" / "c.png"), np.zeros((48, 64, 3), np.uint8))
-    with pytest.raises(ValueError, match=r"seq/d\.tif: .*322"):
+    with pytest.raises(ValueError, match=r"seq/d\.tif: .*259"):
         ttum.load_frame(str(tmp_path / "seq"), "c.png", "d.tif", 0.0)
 
 

@@ -57,14 +57,15 @@ def test_port_imports_without_jax_or_the_jax_package():
     # the distributed BA's (parallel, parallel.sharding, parallel.dist_ba,
     # parallel.multihost) and the row-sharded step's (parallel.sharded_step,
     # parallel.mesh) and the JPEG decoder's binding (io.jpeg) and the
-    # depth decoders and their dispatch (io.pnm, io.tiff, io.image) included
-    assert int(n_modules) >= 61, out.stdout
+    # depth decoders and their dispatch (io.pnm, io.tiff, io.image) and the
+    # BMP decoder and Pillow's modes (io.bmp, io.modes) included
+    assert int(n_modules) >= 63, out.stdout
     assert leaked == "[]", leaked
     for name in ("backend/brief_pattern", "backend/features", "backend/reduce_plan",
                  "backend/ba", "backend/keyframes", "backend/bow", "backend/vocab",
                  "backend/posegraph", "backend/loop", "pipeline/full_slam", "io/traj",
                  "io/ply", "run_tum", "io/png", "io/tum", "io/klg", "io/native_loader",
-                 "io/jpeg", "io/pnm", "io/tiff", "io/image", "utils/timing", "utils/params",
+                 "io/jpeg", "io/pnm", "io/tiff", "io/image", "io/bmp", "io/modes", "utils/timing", "utils/params",
                  "utils/checkpoint", "viz/stats", "viz/viewer", "eval/recon", "eval/mesh", "parallel/sharding",
                  "parallel/dist_ba", "parallel/multihost", "parallel/sharded_step"):
         assert (ROOT / "hrbffusion3d_tpu_torch" / f"{name}.py").exists(), name

@@ -1,15 +1,24 @@
 """A numpy TIFF writer for the port's TIFF decoder tests: what Pillow cannot
 write (predictor 2 or 3, big-endian files, old-style LZW, strips of a few
-rows, the forms the decoder refuses).
+rows, tiles, planar configuration 2, samples of 1, 2 or 4 bits, fill order
+2, extra samples, the forms the decoder refuses).
 
-``encode(img, ...)`` writes one grey image (H, W) of dtype uint8, uint16,
-int16, uint32, int32 or float32 as a baseline strip TIFF: byte order
-``"II"`` or ``"MM"``, compression 1 (none), 5 (LZW, new-style or
-``old_lzw``), 8 / 32946 (deflate) or 32773 (PackBits), predictor 1, 2
-(horizontal differencing of the samples) or 3 (floating point: byte planes,
-most significant first, then byte differencing), ``rows_per_strip`` rows a
-strip.  ``extra`` adds or replaces tags ({tag: (type, values)}), which is
-how the refused forms are made (tiles, three samples, JPEG compression)."""
+``encode(img, ...)`` writes one image: (H, W) grey or (H, W, S) of S
+samples a pixel, of dtype uint8, uint16, int16, uint32, int32 or float32,
+in byte order ``"II"`` or ``"MM"``, compression 1 (none), 5 (LZW,
+new-style or ``old_lzw``), 8 / 32946 (deflate) or 32773 (PackBits),
+predictor 1, 2 (horizontal differencing of each sample, with the samples
+of a pixel as its stride) or 3 (floating point: byte planes, most
+significant first, then byte differencing), ``rows_per_strip`` rows a
+strip, or ``tile=(width, length)`` tiles (edge tiles padded with zeros);
+``planar=2`` stores each sample as a plane of its own (its strips or tiles
+after the previous plane's); ``bits`` below 8 packs uint8 samples that
+many bits each, most significant first, each row padded to a byte;
+``fill_order=2`` reverses the bits of every byte written (after
+compression); ``colormap`` writes ColorMap (tag 320: the 16-bit reds, then
+greens, then blues) and ``extra_samples`` ExtraSamples (tag 338).
+``extra`` adds or replaces tags ({tag: (type, values)}), which is how the
+refused forms are made (three samples and JPEG compression)."""
 
 from __future__ import annotations
 
@@ -105,19 +114,30 @@ def lzw(data: bytes, old_style: bool = False) -> bytes:
     return bytes(out)
 
 
-def _predict(rows: np.ndarray, predictor: int, order: str) -> bytes:
-    """The strip's rows (r, W) after the predictor, as file bytes."""
-    dt = rows.dtype.newbyteorder("<" if order == "II" else ">")
+_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def _chunk_bytes(block: np.ndarray, predictor: int, order: str, bits: int) -> bytes:
+    """One strip or tile ((rows, W, S) samples) after the predictor, as
+    file bytes."""
+    r, w, spp = block.shape
+    if bits < 8:
+        packed = np.packbits(np.unpackbits(block.reshape(r, w * spp, 1), axis=2)[..., 8 - bits:]
+                             .reshape(r, w * spp * bits), axis=1)
+        return packed.tobytes()
+    dt = block.dtype.newbyteorder("<" if order == "II" else ">")
     if predictor == 1:
-        return rows.astype(dt).tobytes()
+        return block.astype(dt).tobytes()
     if predictor == 2:
-        u = rows.view(np.dtype(f"u{rows.dtype.itemsize}"))
+        u = block.view(np.dtype(f"u{block.dtype.itemsize}"))
         d = u.copy()
         d[:, 1:] = u[:, 1:] - u[:, :-1]
         return d.astype(d.dtype.newbyteorder("<" if order == "II" else ">")).tobytes()
     if predictor == 3:
+        if spp != 1:
+            raise ValueError("predictor 3 is written for one sample a pixel")
+        rows = block[..., 0]
         b = rows.astype(rows.dtype.newbyteorder(">")).view(np.uint8)
-        r, w = rows.shape
         k = rows.dtype.itemsize
         planes = b.reshape(r, w, k).transpose(0, 2, 1).reshape(r, w * k)
         d = planes.copy()
@@ -140,31 +160,62 @@ def _compress(raw: bytes, compression: int, row_bytes: int, old_lzw: bool) -> by
 
 def encode(img: np.ndarray, order: str = "II", compression: int = 1, predictor: int = 1,
            rows_per_strip: int | None = None, old_lzw: bool = False, photometric: int = 1,
-           extra: dict | None = None) -> bytes:
+           extra: dict | None = None, tile: tuple[int, int] | None = None, planar: int = 1,
+           bits: int | None = None, fill_order: int = 1, colormap=None,
+           extra_samples=None) -> bytes:
     img = np.asarray(img)
-    h, w = img.shape
-    rps = h if rows_per_strip is None else rows_per_strip
+    samples = img[..., None] if img.ndim == 2 else img
+    h, w, spp = samples.shape
+    bits = 8 * img.dtype.itemsize if bits is None else bits
     e = "<" if order == "II" else ">"
-    strips = []
-    for y in range(0, h, rps):
-        raw = _predict(img[y:y + rps], predictor, order)
-        strips.append(_compress(raw, compression, w * img.dtype.itemsize, old_lzw))
-    tags = {256: (LONG, [w]), 257: (LONG, [h]), 258: (SHORT, [8 * img.dtype.itemsize]),
-            259: (SHORT, [compression]), 262: (SHORT, [photometric]), 277: (SHORT, [1]),
-            278: (LONG, [rps]), 279: (LONG, [len(s) for s in strips]),
-            284: (SHORT, [1]), 339: (SHORT, [_SAMPLE_FORMAT[img.dtype.kind]])}
+    planes = [samples[..., i:i + 1] for i in range(spp)] if planar == 2 else [samples]
+    chunks = []
+    for plane in planes:
+        if tile is None:
+            rps = h if rows_per_strip is None else rows_per_strip
+            blocks = [plane[y:y + rps] for y in range(0, h, rps)]
+        else:
+            tw, tl = tile
+            blocks = []
+            for y in range(0, h, tl):
+                for x in range(0, w, tw):
+                    b = np.zeros((tl, tw, plane.shape[2]), plane.dtype)
+                    part = plane[y:y + tl, x:x + tw]
+                    b[:part.shape[0], :part.shape[1]] = part
+                    blocks.append(b)
+        for b in blocks:
+            raw = _chunk_bytes(b, predictor, order, bits)
+            data = _compress(raw, compression, len(raw) // len(b), old_lzw)
+            chunks.append(data.translate(_REVERSED) if fill_order == 2 else data)
+    tags = {256: (LONG, [w]), 257: (LONG, [h]), 258: (SHORT, [bits] * spp),
+            259: (SHORT, [compression]), 262: (SHORT, [photometric]), 277: (SHORT, [spp]),
+            284: (SHORT, [planar]),
+            339: (SHORT, [_SAMPLE_FORMAT[img.dtype.kind]] * spp)}
+    if tile is None:
+        tags[278] = (LONG, [h if rows_per_strip is None else rows_per_strip])
+        tags[279] = (LONG, [len(c) for c in chunks])
+    else:
+        tags[322] = (SHORT, [tile[0]])
+        tags[323] = (SHORT, [tile[1]])
+        tags[325] = (LONG, [len(c) for c in chunks])
     if predictor != 1:
         tags[317] = (SHORT, [predictor])
+    if fill_order != 1:
+        tags[266] = (SHORT, [fill_order])
+    if colormap is not None:
+        tags[320] = (SHORT, [int(v) for v in np.asarray(colormap).T.ravel()])
+    if extra_samples is not None:
+        tags[338] = (SHORT, list(extra_samples))
     tags.update(extra or {})
     head = (b"II*\x00" if order == "II" else b"MM\x00*")
     data = bytearray(head + b"\0\0\0\0")
     offsets = []
-    for s in strips:
+    for c in chunks:
         offsets.append(len(data))
-        data += s
+        data += c
         if len(data) % 2:
             data += b"\0"
-    tags[273] = (LONG, offsets)
+    tags[273 if tile is None else 324] = (LONG, offsets)
     # out-of-line values, then the IFD
     blobs = {}
     for tag, (typ, vals) in sorted(tags.items()):
