@@ -42,8 +42,8 @@ and prints:
     with the test's drift and with it scaled to the test's pixels (a loop
     must fire and cut the error below 0.7 of itself), the closing
     ``correct()`` repeated bit for bit on the card and held to the CPU's
-    on every keyframe its global BA determines (each keyframe's
-    observations in it printed, and how far a 1e-7 nudge of the poses
+    on every keyframe (global BA holds those it cannot determine; each
+    keyframe's observations in it printed, and how far a 1e-7 nudge of the poses
     moves each keyframe on the CPU); (b) bench.py's
     full-system protocol, 61 frames async through ``process_batch``
     (fps steady and all-in, worst chunk, ATE under 5 cm, loops,
@@ -104,8 +104,15 @@ and prints:
     colour as PPM, BMP 24-bit, RLE8 and 32-bit bitfields, TIFF RGB with
     LZW and predictor 2, planar deflate and tiled PackBits, palette and
     CMYK TIFF) with the depth-forms fixture's depth as PNG, two frames as
-    tiled 16-bit TIFF in each byte order: the same checks; PNG decode ms
-    per filter type; a JSON line ``{"run_tum": {...}}``;
+    tiled 16-bit TIFF in each byte order: the same checks, (k) a
+    TUM-layout sequence of the TIFF-forms fixture ``tests/data/tiff_forms``
+    (the first 9 frames' colour as JPEG-in-TIFF RGB strips and YCbCr tiles
+    and strips, with and without JPEGTables, YCbCr LZW (2, 2), deflate
+    (4, 2) and PackBits (1, 1), and BigTIFF RGB, plain, LZW tiled and
+    JPEG) with the depth-forms fixture's depth as PNG, two frames as
+    16-bit BigTIFF: the same checks, and greyscale JPEG and JPEG-in-TIFF
+    depth to their digests; PNG decode ms per filter type; a JSON line
+    ``{"run_tum": {...}}``;
   - every tracking and normal setting of ``SLAMConfig``
     (``phase_tracking_modes``): the correspondence search, sparse ICP,
     bilinear photometric lookups (separate and joint), fixed
@@ -333,11 +340,10 @@ DRIFT_MIN, DRIFT_KEEP = 0.05 * DRIFT_SCALE, 0.55
 # card against CPU: keypoints at the same pixel of their level, descriptor
 # bits, solver poses (norm of se3_log of the difference) and chi2 (relative)
 KP_AGREE, BITS_AGREE, POSE_TOL, CHI2_RTOL = 0.99, 0.995, 1e-4, 1e-4
-# a keyframe's pose is determined by global BA from three observations (3-D
-# points in the camera, three residuals each, not on one line); with fewer
-# only the damping holds it and its pose follows rounding.  NUDGE: the size
-# of the seeded change of the keyframe poses that shows which ones do
-MIN_BA_OBS, NUDGE = 3, 1e-7
+# global BA holds a keyframe with fewer than loop.MIN_BA_OBS observations at
+# its pose-graph pose.  NUDGE: the size of the seeded change of the keyframe
+# poses that shows how far rounding moves each keyframe through correct()
+MIN_BA_OBS, NUDGE = loop.MIN_BA_OBS, 1e-7
 # the full system, (a): tests/test_full_slam_loop.py::
 # test_loop_closure_fires_in_pipeline at 640x480 (a keyframe every 2 frames
 # of a replayed out-and-back whose last 4 frames drift by STEP_XI each;
@@ -406,6 +412,8 @@ def phase_build() -> dict:
 # phase_sqrt: float32 draws, half uniform over every finite non-negative
 # bit pattern, half uniform in [0, 4)
 SQRT_DRAWS = 1 << 22
+# pixels of the grey conversion held card against CPU
+INTENSITY_PIXELS = 200_000
 
 
 def _mismatch(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -419,7 +427,9 @@ def phase_sqrt(dev) -> dict:
     to float32, which is correctly rounded, on SQRT_DRAWS draws; beside
     them the host's: torch's CPU float32 ``sqrt`` and ``tensors.sqrt`` on
     the CPU against numpy's.  Fails unless the helper is bit-exact on
-    both."""
+    both.  Also ``pyramid.rgb_to_intensity`` (XLA's rounding of the JAX
+    package's grey conversion, in float64) on INTENSITY_PIXELS seeded
+    pixels: the card's must equal the CPU's bit for bit."""
     g = torch.Generator(dev).manual_seed(16)
     half = SQRT_DRAWS // 2
     bits = torch.randint(0, 0x7F800000, (half,), generator=g, device=dev, dtype=torch.int64)
@@ -439,6 +449,13 @@ def phase_sqrt(dev) -> dict:
           f"{out['cpu_helper']:.6f} (against numpy's)")
     if out["card_helper"] or out["cpu_helper"]:
         raise RuntimeError(f"sqrt: tensors.sqrt is not correctly rounded: {out}")
+    rgb = torch.rand((INTENSITY_PIXELS, 3), generator=g, device=dev)
+    grey = pyramid.rgb_to_intensity(rgb)
+    out["intensity_card_vs_cpu"] = _mismatch(grey.cpu(), pyramid.rgb_to_intensity(rgb.cpu()))
+    print(f"sqrt: rgb_to_intensity on {INTENSITY_PIXELS} pixels, share of the card's differing "
+          f"from the CPU's: {out['intensity_card_vs_cpu']:.6f}")
+    if out["intensity_card_vs_cpu"]:
+        raise RuntimeError(f"sqrt: rgb_to_intensity differs between the card and the CPU: {out}")
     return out
 
 
@@ -1422,9 +1439,10 @@ def _closing_again(dev, label, out, sys_, closings, corrects):
     before it: on the card (it must repeat the system's run bit for bit),
     on the CPU, and on the CPU with the keyframe poses nudged by NUDGE.  The
     card's keyframe poses must be within POSE_TOL of the CPU's on every
-    keyframe with at least MIN_BA_OBS observations in the global BA, and
-    its chi2 within CHI2_RTOL; the keyframes with fewer, and how far the
-    nudge moves each keyframe, are printed."""
+    keyframe (global BA holds those with fewer than MIN_BA_OBS
+    observations at their pose-graph poses), and its chi2 within
+    CHI2_RTOL; the observations and how far the nudge moves each keyframe
+    are printed."""
     last = closings[-1]
     chis = []
 
@@ -1452,8 +1470,8 @@ def _closing_again(dev, label, out, sys_, closings, corrects):
                            f"CPU {cpu_obs}")
     gaps = _pose_gaps(card_poses, cpu_poses)
     moved = _pose_gaps(nudged_poses, cpu_poses)
-    held = obs >= MIN_BA_OBS
-    gap = float(gaps[held].max())
+    held = obs < MIN_BA_OBS
+    gap = float(gaps.max())
     chi_card, chi_cpu = (float(c["out"][1]) for c in chis[:2])
     chi_rel = abs(chi_card - chi_cpu) / abs(chi_cpu)
     out.update(global_ba_obs=obs.tolist(), correct_card_vs_cpu_gaps=gaps.tolist(),
@@ -1461,8 +1479,9 @@ def _closing_again(dev, label, out, sys_, closings, corrects):
                global_ba_chi2=[chi_card, chi_cpu], global_ba_chi2_rel=chi_rel,
                global_ba_ms={c["label"]: c["ms"] for c in chis[:2]})
     print(f"full system (a) {label}: closing correct() card vs CPU: global BA observations per "
-          f"keyframe {obs.tolist()}; keyframe poses within {gap:.3g} on the {int(held.sum())} "
-          f"with >= {MIN_BA_OBS} (held), per keyframe {', '.join(f'{x:.3g}' for x in gaps)}; "
+          f"keyframe {obs.tolist()} ({int(held.sum())} held, < {MIN_BA_OBS}); keyframe poses "
+          f"within {gap:.3g} on all {len(gaps)}, per keyframe "
+          f"{', '.join(f'{x:.3g}' for x in gaps)}; "
           f"a {NUDGE:g} nudge of the poses moves them on the CPU by "
           f"{', '.join(f'{x:.3g}' for x in moved)}; global BA chi2 {chi_card:.6g} vs "
           f"{chi_cpu:.6g} (relative {chi_rel:.3g}); two card runs bit-identical; global BA ms "
@@ -1481,10 +1500,9 @@ def phase_full_system_loop(dev) -> dict:
     on the card (bit-identical) and held to the CPU's (_closing_again).
     On the test's drift the pose graph leaves the drifted keyframe ~130 mm
     off, ~30 px at fx = 517 and outside SearchAndFuse's 4 px gate: few
-    loop-side landmarks merge into it and global BA may not determine its
-    pose, which then follows float rounding, in the JAX package as in the
-    port; the held card-vs-CPU check leaves such a keyframe out and the
-    print shows its observations and its nudge."""
+    loop-side landmarks merge into it, and global BA holds it at its
+    pose-graph pose when it has fewer than MIN_BA_OBS observations (the
+    JAX package leaves it free, to follow float rounding)."""
     test, *run = _replay_loop(dev, "test drift", 1.0)
     _closing_again(dev, "test drift", test, *run)
     scaled, *run = _replay_loop(dev, "drift x 103 / fx", DRIFT_SCALE)
@@ -1731,6 +1749,55 @@ def colour_form_bytes(entry: dict) -> bytes:
     if entry["writer"] == "tiff_rgb_tiled_packbits":
         return torch_tiff_encoder.encode(rgb, "II", 32773, photometric=2, tile=(96, 64))
     raise ValueError(f"no writer {entry['writer']!r}")
+
+
+# (k) a TUM-layout sequence of colour in BigTIFF, JPEG-in-TIFF and YCbCr
+# TIFF (the committed fixture, scripts/make_tiff_forms_fixture.py: the first
+# frames of KLG_JPEG_DIR's, frame i in form i; the forms that are large or
+# wrap a committed JPEG are written here by the tests' TIFF encoder) beside
+# DEPTH_FORMS_DIR's depth, as PNG but for two frames as 16-bit BigTIFF; and
+# greyscale JPEG and JPEG-in-TIFF depth held to their digests
+TIFF_FORMS_DIR = ROOT / "tests" / "data" / "tiff_forms"
+
+
+def rgb_to_ycbcr(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 RGB -> full-range YCbCr (JFIF's equations in float64,
+    rounded half away from zero and clipped): the samples of the YCbCr
+    TIFF forms, the same bytes on every machine."""
+    m = np.array([[0.299, 0.587, 0.114], [-0.168736, -0.331264, 0.5],
+                  [0.5, -0.418688, -0.081312]])
+    v = rgb.astype(np.float64) @ m.T + np.array([0.0, 128.0, 128.0])
+    return np.clip(np.sign(v) * np.floor(np.abs(v) + 0.5), 0, 255).astype(np.uint8)
+
+
+def tiff_form_bytes(entry: dict) -> bytes:
+    """A file of the TIFF-forms fixture (an entry of its digests.json): read
+    from the fixture, or, for a form written at run time, written by
+    ``tests/torch_tiff_encoder.py`` from its JPEG (decoded by the port, bit
+    for bit with Pillow) or its depth file."""
+    if "writer" not in entry:
+        return (TIFF_FORMS_DIR / entry["file"]).read_bytes()
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_tiff_encoder as enc
+
+    form = entry["writer"]
+    if form == "bigtiff_depth16":
+        d16 = image.read_depth(str(DEPTH_FORMS_DIR / entry["source"])).astype(np.uint16)
+        return enc.encode(d16, bigtiff=True)
+    stream = (KLG_JPEG_DIR / entry["source"]).read_bytes()
+    rgb = jpeg.decode(stream)
+    if form == "bigtiff_rgb":
+        return enc.encode(rgb, photometric=2, bigtiff=True)
+    if form == "tiff_jpeg_ycbcr420_strip_no_530":
+        return enc.encode(rgb, compression=7, photometric=6, chunks=[stream])
+    if form == "tiff_ycbcr11_packbits_mm":
+        return enc.encode(rgb_to_ycbcr(rgb), "MM", 32773, photometric=6, rows_per_strip=32,
+                          extra={530: (enc.SHORT, [1, 1])})
+    if form == "bigtiff_jpeg_ycbcr420_tables":
+        tables, body = enc.jpeg_tables(stream)
+        return enc.encode(rgb, compression=7, photometric=6, chunks=[body], bigtiff=True,
+                          extra={347: (enc.UNDEFINED, tables), 530: (enc.SHORT, [2, 2])})
+    raise ValueError(f"no writer {form!r}")
 
 
 def tum_frames(dev, intr=TUM1, n=RUN_TUM_FRAMES, first=None):
@@ -2709,6 +2776,122 @@ def _eval(ply_map: sm.SurfelMap, to_world: np.ndarray, dev) -> dict:
                 mesh=acc_mesh, mesh_ms=mesh_ms, cpu_points=len(pick), card_vs_cpu=gap)
 
 
+def _tum_tiff_forms(tmp: Path, gt, ts, smi) -> dict:
+    """(k) a TUM-layout sequence whose colour files are the TIFF-forms
+    fixture (JPEG-in-TIFF RGB and YCbCr in strips and tiles, with and
+    without JPEGTables; YCbCr LZW, deflate and PackBits at subsamplings
+    (2, 2), (4, 2) and (1, 1); BigTIFF RGB; frame i in form i, the large
+    ones written here from their JPEG) and whose depth is the depth-forms
+    fixture's frames as 16-bit PNG, but for the fixture's two 16-bit
+    BigTIFF depth files: every file through ``image.read_colour`` /
+    ``image.read_depth`` to its Pillow digest, and the fixture's greyscale
+    JPEG and JPEG-in-TIFF depth (8 bits: not TUM depth) to theirs; the
+    host's decode ms per form, each file in turns with its baseline JPEG;
+    ``run_tum.main`` in this process on the sequence: every frame consumed,
+    the ATE gate, 0 host syncs and every kernel in each dense step."""
+    meta = json.loads((TIFF_FORMS_DIR / "digests.json").read_text())
+    colour = [e for e in meta["frames"] if e["kind"] == "colour"]
+    depth_tiff = {e["frame"]: e for e in meta["frames"]
+                  if e["kind"] == "depth" and e.get("sequence", True)}
+    grey = [e for e in meta["frames"] if e["kind"] == "depth" and not e.get("sequence", True)]
+    depth_meta = json.loads((DEPTH_FORMS_DIR / "digests.json").read_text())["frames"]
+    n = len(colour)
+    base = json.loads((KLG_JPEG_DIR / "digests.json").read_text())["frames"][:n]
+    root = tmp / "seq_tiff_forms"
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    lines, colour_files, jpegs, depth_sha, depth_files = [], [], [], [], {}
+    for i, (e, b) in enumerate(zip(colour, base)):
+        name = f"{ts[i]:.6f}"
+        jpegs.append((KLG_JPEG_DIR / b["file"]).read_bytes())
+        colour_files.append(tiff_form_bytes(e))
+        rgb = f"rgb/{name}.tif"
+        (root / rgb).write_bytes(colour_files[-1])
+        if i in depth_tiff:
+            dep = f"depth/{name}.tif"
+            depth_files[i] = tiff_form_bytes(depth_tiff[i])
+            (root / dep).write_bytes(depth_files[i])
+            depth_sha.append(depth_tiff[i]["depth_sha256"])
+        else:
+            dep = f"depth/{name}.png"
+            d16 = image.read_depth(str(DEPTH_FORMS_DIR / depth_meta[i]["file"]))
+            d16 = d16.astype(np.uint16)
+            (root / dep).write_bytes(png.encode(d16))
+            depth_sha.append(_sha(d16))
+        lines.append(f"{name} {rgb} {name} {dep}\n")
+    (root / "associations.txt").write_text("".join(lines))
+    traj.save_tum(str(root / "groundtruth.txt"), ts[:n], gt[:n])
+    grey_files = [tiff_form_bytes(e) for e in grey]
+    for e, data in zip(grey, grey_files):
+        (root / e["file"]).write_bytes(data)
+
+    # (i) every file to its digest, read as the TUM reader reads it
+    rows = [ln.split() for ln in lines]
+    wrong = {"colour": [i for i, (r, e) in enumerate(zip(rows, colour))
+                        if _sha(image.read_colour(str(root / r[1]))) != e["rgb_sha256"]],
+             "depth": [i for i, (r, sha) in enumerate(zip(rows, depth_sha))
+                       if _sha(image.read_depth(str(root / r[3]))) != sha],
+             "grey": [e["form"] for e in grey
+                      if _sha(image.read_depth(str(root / e["file"]))) != e["depth_sha256"]]}
+    print(f"run_tum (k): {n} colour files in {len(meta['forms'])} forms "
+          f"({', '.join(meta['forms'])}; {', '.join(meta['runtime'])} written here) beside PNG "
+          f"and BigTIFF depth: equal to their Pillow digests through image.read_colour "
+          f"{n - len(wrong['colour'])} of {n} and image.read_depth {n - len(wrong['depth'])} "
+          f"of {n} ({len(depth_tiff)} BigTIFF); greyscale depth "
+          f"{len(grey) - len(wrong['grey'])} of {len(grey)} ({', '.join(e['form'] for e in grey)})"
+          f"; differing {wrong}")
+    if any(wrong.values()):
+        raise RuntimeError(f"run_tum (k): decoded frames differ from Pillow's: {wrong}")
+
+    # (ii) host decode ms per form, each file in turns with its JPEG
+    extra = [(depth_tiff[i]["form"], image.decode_depth, data)
+             for i, data in depth_files.items()]
+    extra += [(e["form"], image.decode_depth, data) for e, data in zip(grey, grey_files)]
+    ms = {label: [] for label in meta["forms"] + ["baseline_jpeg"] + [x[0] for x in extra]}
+    for _ in range(KLG_DECODE_REPEATS):
+        for i, (e, data) in enumerate(zip(colour, colour_files)):
+            for label, fn, payload in ((e["form"], image.decode_colour, data),
+                                       ("baseline_jpeg", jpeg.decode, jpegs[i])):
+                t0 = time.perf_counter()
+                fn(payload)
+                ms[label].append(1e3 * (time.perf_counter() - t0))
+        for label, fn, payload in extra:
+            t0 = time.perf_counter()
+            fn(payload)
+            ms[label].append(1e3 * (time.perf_counter() - t0))
+    decode_ms = {k: float(np.median(v)) for k, v in ms.items()}
+    h, w = colour[0]["height"], colour[0]["width"]
+    print(f"run_tum (k): host time on the card's machine ({smi}; {os.cpu_count()} CPUs): "
+          f"decode of one {w}x{h} frame, median (of {KLG_DECODE_REPEATS} x its files, each "
+          f"colour file in turns with its baseline JPEG): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in decode_ms.items())
+          + "; bytes per form " + json.dumps({e["form"]: e["bytes"] for e in meta["frames"]}))
+
+    # (iii) run_tum.main on the sequence in this process
+    steps = []
+    with _sync_counts() as syncs, _per_frame(steps, syncs):
+        res = run_tum.main([str(root), "--camera", "TUM1", "--out", str(tmp / "out_k")])
+    idle = [i for i, (_, per) in enumerate(steps) if min(per.values()) == 0]
+    step_syncs = [s for s, _ in steps]
+    ate_m = res.get("ate_m", float("nan"))
+    print(f"run_tum (k): `run_tum.main` on the TIFF-forms sequence in this process: "
+          f"{res['frames']} frames of {n} consumed, {res['fps']:.2f} fps (under sync-debug mode, "
+          f"the first frame after {res['first_frame_s']:.2f} s), ATE {ate_m * 1e3:.3f} mm "
+          f"(aligned, {res.get('ate_matched')} matched), keyframes {res['keyframes']}; host "
+          f"syncs per dense step {sorted(set(step_syncs))} over {len(steps)} steps, steps "
+          f"without every kernel {idle}; launches {json.dumps(res['launches'])}")
+    if res["frames"] != n or len(steps) != n or any(step_syncs) or idle:
+        raise RuntimeError(f"run_tum (k): {res['frames']} frames consumed, {len(steps)} dense "
+                           f"steps, host syncs {step_syncs}, steps without every kernel {idle}")
+    if not (np.isfinite(ate_m) and ate_m < RUN_TUM_ATE_MAX):
+        raise RuntimeError(f"run_tum (k): ATE {ate_m} (limit {RUN_TUM_ATE_MAX})")
+    _driven("run_tum (k)", res["launches"])
+    return dict(frames=n, forms=meta["forms"], digests_equal=True, decode_ms=decode_ms,
+                decode_ms_all=ms, bytes={e["form"]: e["bytes"] for e in meta["frames"]},
+                fps=res["fps"], first_frame_s=res["first_frame_s"], ate_mm=ate_m * 1e3,
+                launches=res["launches"], host_syncs_per_step=step_syncs, device=smi)
+
+
 def phase_run_tum(dev, cmd=None, smi="") -> dict:
     """The real-data entry point on a TUM-format fixture written here:
     (a) the command line, (b) replay, (c) .klg through the native loader
@@ -2718,7 +2901,8 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
     colour in the JPEG forms beyond Huffman DCT (CMYK, YCCK, 4x1, lossless,
     arithmetic, unrefined progressive), (i) one with depth in PGM and TIFF
     and JPEG and PNG colour, (j) one with colour in netpbm, BMP and TIFF and
-    PNG and tiled TIFF depth.  ``cmd``: how
+    PNG and tiled TIFF depth, (k) one with colour in BigTIFF, JPEG-in-TIFF
+    and YCbCr TIFF and PNG and BigTIFF depth.  ``cmd``: how
     (a) and (g) start the entry point; ``smi``: the card's name and power
     limit."""
     t_phase = time.perf_counter()
@@ -2761,6 +2945,10 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
         out["tum_colour_forms"] = _tum_colour_forms(tmp, gt, ts, smi)
         out["tum_colour_forms"]["seconds"] = time.perf_counter() - t0
         print(f"run_tum (j): {out['tum_colour_forms']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        out["tum_tiff_forms"] = _tum_tiff_forms(tmp, gt, ts, smi)
+        out["tum_tiff_forms"]["seconds"] = time.perf_counter() - t0
+        print(f"run_tum (k): {out['tum_tiff_forms']['seconds']:.1f} s")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"run_tum: phase {out['seconds']:.1f} s")
     return out
@@ -4042,6 +4230,7 @@ def main() -> None:
         row["tum_forms_launches"] = real["tum_forms"]["launches"][kname]
         row["tum_depth_forms_launches"] = real["tum_depth_forms"]["launches"][kname]
         row["tum_colour_forms_launches"] = real["tum_colour_forms"]["launches"][kname]
+        row["tum_tiff_forms_launches"] = real["tum_tiff_forms"]["launches"][kname]
         row["tracking_modes_launches"] = {k: v["launches"][kname] for k, v in modes.items()
                                           if isinstance(v, dict) and "launches" in v}
         row["distributed_launches"] = distributed["full_system"]["launches"][kname]

@@ -34,6 +34,11 @@ from ..utils.tensors import const, host
 from . import ba, bow, features, posegraph
 from .keyframes import Keyframe, SparseBackend
 
+# a keyframe is determined by global BA from three observations (3-D points
+# in its camera, three residuals each for its six parameters); one with
+# fewer is held at its pose-graph pose and its edges are left out
+MIN_BA_OBS = 3
+
 
 class LoopCandidate(NamedTuple):
     query_kf: int
@@ -335,7 +340,14 @@ class LoopCloser:
         """RunGlobalBundleAdjustment (LoopClosing.cc:659-769): BA over all
         keyframes and landmarks seen twice; deltas are against the poses
         before the pose-graph correction (the dense map still sits at
-        those).  Built and planned on the host, solved on ``device``."""
+        those).  Built and planned on the host, solved on ``device``.
+
+        A keyframe with fewer than MIN_BA_OBS observations is held: fixed,
+        its edges invalid, its pose-graph pose kept bit for bit.  The JAX
+        package leaves it free, where only the solver's damping holds it
+        and its pose follows float rounding; the others see the same
+        problem in both, since a free keyframe with three residuals
+        absorbs its own."""
         be = self.backend
         lm_sel = [lid for lid, obs in be.lm_obs.items() if len(obs) >= 2]
         if len(lm_sel) < 16:
@@ -353,8 +365,10 @@ class LoopCloser:
         obs = np.asarray(obs, np.float32)
         cams_tcw = np.stack([np.linalg.inv(kf.pose) for kf in be.keyframes]).astype(np.float32)
         points = np.stack([be.landmarks[lid] for lid in lm_sel]).astype(np.float32)
-        fixed = np.zeros((K,), bool)
+        held = np.bincount(edges_c, minlength=K) < MIN_BA_OBS
+        fixed = held.copy()
         fixed[0] = True
+        edge_valid = ~held[edges_c]
 
         prob = ba.BAProblem(
             cams=torch.from_numpy(cams_tcw), points=torch.from_numpy(points),
@@ -362,7 +376,7 @@ class LoopCloser:
             cam_idx=torch.as_tensor(edges_c, dtype=torch.int64),
             lm_idx=torch.as_tensor(edges_l, dtype=torch.int64),
             info=torch.from_numpy(np.stack(infos).astype(np.float32)),
-            edge_valid=torch.ones((obs.shape[0],), dtype=torch.float32),
+            edge_valid=torch.from_numpy(edge_valid.astype(np.float32)),
             fixed=torch.from_numpy(fixed))
         solver = "dense" if K <= ba.DENSE_SOLVER_MAX_CAMS else "cg"
         n_edges = obs.shape[0]
@@ -375,9 +389,10 @@ class LoopCloser:
 
         deltas = np.zeros((K, 4, 4), np.float32)
         for k in range(K):
-            new_pose = np.linalg.inv(new_tcw[k])
-            deltas[k] = (new_pose @ np.linalg.inv(original_poses[k])).astype(np.float32)
-            be.keyframes[k].pose = new_pose
+            if not held[k]:
+                be.keyframes[k].pose = np.linalg.inv(new_tcw[k])
+            deltas[k] = (be.keyframes[k].pose @ np.linalg.inv(original_poses[k])
+                         ).astype(np.float32)
         for lid, k in lm_index.items():
             be.landmarks[lid] = new_points[k]
         return deltas

@@ -704,8 +704,73 @@ class Decoder {
     if (progressive_) finish_progressive();
   }
 
+  // Reads a tables-only stream (a TIFF's JPEGTables, tag 347) before the
+  // image's: SOI, table and application segments, EOI.  Its quantisation
+  // and Huffman tables stay defined for the image's stream, as in libjpeg
+  // (tables-only jpeg_read_header); what the image's SOI resets is reset
+  // (jdmarker.c get_soi: the restart interval, the arithmetic
+  // conditioning, the JFIF and Adobe markers).
+  void read_tables(const uint8_t* data, size_t n) {
+    const uint8_t* const pos = pos_;
+    const uint8_t* const end = end_;
+    pos_ = data;
+    end_ = data + n;
+    if (n < 2 || data[0] != 0xFF || data[1] != 0xD8)
+      refuse("JPEGTables: not a JPEG stream (no SOI marker)");
+    pos_ += 2;
+    for (;;) {
+      int m = next_marker();
+      if (m == 0xD9) break;
+      if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+      const uint8_t* seg = segment(m);
+      size_t len = segment_len_;
+      if (m == 0xC4)
+        huffman_tables(seg, len);
+      else if (m == 0xDB)
+        quant_tables(seg, len);
+      else if (m == 0xCC)
+        conditioning(seg, len);
+      else if (m != 0xDD && !((m >= 0xE0 && m <= 0xEF) || m == 0xFE))
+        refuse("JPEGTables: marker 0xFF%02X in a tables-only stream", m);
+    }
+    pos_ = pos;
+    end_ = end;
+    restart_interval_ = 0;
+    jfif_ = adobe_ = false;
+    adobe_transform_ = 0;
+    for (int t = 0; t < 16; ++t) {
+      dc_l_[t] = 0;
+      dc_u_[t] = 1;
+      ac_k_[t] = 5;
+    }
+  }
+
+  // Takes the samples as YCbCr whatever the markers say (libtiff's
+  // JPEGCOLORMODE_RGB sets jpeg_color_space to JCS_YCbCr).
+  void force_ycbcr() { force_ycbcr_ = true; }
+
   int width() const { return width_; }
   int height() const { return height_; }
+  int components() const { return ncomp_; }
+  int h_factor(int c) const { return comp_[c].h; }
+  int v_factor(int c) const { return comp_[c].v; }
+
+  // The components as stored, interleaved, with no upsampling or colour
+  // conversion (libjpeg's JCS_UNKNOWN output, as libtiff asks for it);
+  // every component must be at full resolution.
+  void to_components(uint8_t* out) const {
+    for (int c = 0; c < ncomp_; ++c)
+      if (comp_[c].dw != width_ || comp_[c].dh != height_)
+        refuse("component %d is subsampled (%dx%d of %dx%d): its samples are not given as "
+               "stored", comp_[c].id, comp_[c].dw, comp_[c].dh, width_, height_);
+    for (int y = 0; y < height_; ++y) {
+      uint8_t* o = out + (size_t)y * width_ * ncomp_;
+      for (int c = 0; c < ncomp_; ++c) {
+        const uint8_t* in = comp_[c].row(y);
+        for (int x = 0; x < width_; ++x) o[(size_t)x * ncomp_ + c] = in[x];
+      }
+    }
+  }
 
   void to_rgb(uint8_t* out) const {
     const size_t n = (size_t)width_ * height_;
@@ -767,7 +832,7 @@ class Decoder {
   const uint8_t* end_;
   size_t segment_len_ = 0;
   bool frame_ = false, jfif_ = false, adobe_ = false;
-  bool progressive_ = false, lossless_ = false, arith_ = false;
+  bool progressive_ = false, lossless_ = false, arith_ = false, force_ycbcr_ = false;
   int adobe_transform_ = 0;
   Space space_ = Space::kGray;
   int width_ = 0, height_ = 0, ncomp_ = 0, max_h_ = 1, max_v_ = 1, mcus_x_ = 0, mcus_y_ = 0;
@@ -935,7 +1000,9 @@ class Decoder {
     if (ns < 1 || ns > ncomp_ || len != 4 + 2 * (size_t)ns)
       refuse("corrupt JPEG data: SOS segment of %zu bytes for %d components", len, ns);
     if (scans_ == 0) {
-      space_ = colour_space();
+      if (force_ycbcr_ && ncomp_ != 3)
+        refuse("YCbCr of %d components: three are converted", ncomp_);
+      space_ = force_ycbcr_ ? Space::kYCbCr : colour_space();
       // jdcolor.c: no colour conversion of lossless samples
       if (lossless_ && (space_ == Space::kYCbCr || space_ == Space::kYCCK))
         refuse("lossless JPEG in %s colour is not supported: libjpeg-turbo converts no colour "
@@ -1674,20 +1741,11 @@ class Decoder {
   }
 };
 
-// The frame's size only (the markers up to SOF are parsed and checked).
-bool read_size(const uint8_t* data, size_t n, int* width, int* height, std::string* err) {
-  try {
-    Decoder d(data, n);
-    d.run(true);
-    *width = d.width();
-    *height = d.height();
-    return true;
-  } catch (const Refused& e) {
-    *err = e.what();
-  } catch (const std::bad_alloc&) {
-    *err = "out of memory decoding a JPEG";
-  }
-  return false;
+// Parses ``data`` after ``tables`` (when ``ntables`` > 0); with
+// ``size_only`` it stops after the frame header.
+void parse(Decoder& d, const uint8_t* tables, size_t ntables, bool size_only) {
+  if (ntables) d.read_tables(tables, ntables);
+  d.run(size_only);
 }
 
 }  // namespace
@@ -1712,25 +1770,37 @@ bool decode_rgb(const uint8_t* data, size_t n, int* width, int* height,
 
 }  // namespace hrbf_jpeg
 
-extern "C" int jpeg_decode(const uint8_t* data, size_t n, int* w, int* h, uint8_t* rgb_out,
-                           char* err, int err_len) {
+extern "C" int jpeg_decode(const uint8_t* tables, size_t ntables, const uint8_t* data,
+                           size_t n, int form, int* info, uint8_t* out, char* err,
+                           int err_len) {
   std::string msg;
-  int width = 0, height = 0;
-  if (!rgb_out) {
-    if (hrbf_jpeg::read_size(data, n, &width, &height, &msg)) {
-      *w = width;
-      *h = height;
+  try {
+    hrbf_jpeg::Decoder d(data, n);
+    if (form == 2) d.force_ycbcr();
+    hrbf_jpeg::parse(d, tables, ntables, out == nullptr);
+    if (!out) {
+      info[0] = d.width();
+      info[1] = d.height();
+      info[2] = d.components();
+      for (int c = 0; c < 4; ++c) {
+        info[3 + 2 * c] = c < d.components() ? d.h_factor(c) : 0;
+        info[4 + 2 * c] = c < d.components() ? d.v_factor(c) : 0;
+      }
       return 0;
     }
-  } else {
-    std::vector<uint8_t> rgb;
-    if (hrbf_jpeg::decode_rgb(data, n, &width, &height, &rgb, &msg)) {
-      if (width == *w && height == *h) {
-        memcpy(rgb_out, rgb.data(), rgb.size());
-        return 0;
-      }
+    if (d.width() != info[0] || d.height() != info[1] || d.components() != info[2]) {
       msg = "the JPEG stream's size changed between the two calls";
+    } else if (form == 1) {
+      d.to_components(out);
+      return 0;
+    } else {
+      d.to_rgb(out);
+      return 0;
     }
+  } catch (const hrbf_jpeg::Refused& e) {
+    msg = e.what();
+  } catch (const std::bad_alloc&) {
+    msg = "out of memory decoding a JPEG";
   }
   if (err && err_len > 0) snprintf(err, (size_t)err_len, "%s", msg.c_str());
   return -1;

@@ -30,12 +30,20 @@ bool decode_rgb(const uint8_t* data, size_t n, int* width, int* height,
 
 extern "C" {
 
-// C interface for ctypes.  With ``rgb_out == NULL`` it writes the size to
-// ``*w`` and ``*h``; else it decodes into ``rgb_out``, which holds
-// (*h) * (*w) * 3 bytes of the size the first call returned.  Returns 0 on
-// success; -1 with a NUL-terminated message in ``err`` (at most
-// ``err_len`` bytes) on a stream it refuses.
-int jpeg_decode(const uint8_t* data, size_t n, int* w, int* h, uint8_t* rgb_out,
-                char* err, int err_len);
+// C interface for ctypes.  ``tables`` (``ntables`` bytes; none when 0) is a
+// tables-only stream read before ``data``, as libtiff hands libjpeg a
+// TIFF's JPEGTables.  ``form``: 0 gives RGB, what Pillow's
+// ``convert("RGB")`` gives (greyscale replicated); 1 the components as
+// stored, interleaved (no upsampling or colour conversion: every component
+// at full resolution); 2 RGB from samples taken as YCbCr whatever the
+// markers say.  With ``out == NULL`` it writes the width, height and
+// component count to ``info[0..2]`` and each component's sampling factors
+// to ``info[3 + 2c]``, ``info[4 + 2c]`` (11 ints); else it decodes into
+// ``out``, which holds info[1] * info[0] * (form 1 ? info[2] : 3) bytes
+// of the size the first call returned.  Returns 0 on success; -1 with a
+// NUL-terminated message in ``err`` (at most ``err_len`` bytes) on a stream
+// it refuses.
+int jpeg_decode(const uint8_t* tables, size_t ntables, const uint8_t* data, size_t n,
+                int form, int* info, uint8_t* out, char* err, int err_len);
 
 }  // extern "C"

@@ -5,19 +5,20 @@ depth files and non-raw ``.klg`` colour payloads with Pillow).
 ``form`` tells the format by the tests of Pillow's plugins, in the order
 ``Image.open`` tries them (the plugins it loads first, then TIFF): ``BM``
 (BMP), a little-endian 32-bit info header size of 12, 40, 52, 56, 64, 108
-or 124 (a headerless DIB), a JPEG SOI marker, ``P1``-``P6`` / ``Pf``
-(netpbm), the PNG signature, ``II*\\0`` / ``MM\\0*`` (TIFF; and the
+or 124 (a headerless DIB), a JPEG SOI marker, ``P1``-``P6``, ``Pf`` and
+Pillow's ``P0`` / ``Py`` magics (netpbm), the PNG signature, ``II*\\0`` / ``MM\\0*`` (TIFF; and the
 prefixes Pillow takes for TIFF too: the two bytes after the byte order
-swapped, and BigTIFF, which is refused).  Each goes to
+swapped, and BigTIFF's ``II+\\0`` / ``MM\\0+``).  Each goes to
 the port's own decoder: ``io/bmp``, ``io/jpeg``, ``io/pnm``, ``io/png``,
 ``io/tiff``.
 
 Colour (``decode_colour``): any of them, as Pillow's ``convert("RGB")``
 gives it, (H, W, 3) uint8 (``io/modes``).  Depth (``decode_depth``): any
-single-band image but JPEG, as ``np.asarray(Image.open(...))`` gives it;
-a multi-band image raises naming its mode (the JAX package reads it and
-fails later).  Any other content raises ``ValueError``; ``read_colour`` /
-``read_depth`` name the file in every error.
+single-band image, greyscale JPEG too (mode ``L``), as
+``np.asarray(Image.open(...))`` gives it; a multi-band image raises naming
+its mode (the JAX package reads it and fails later).  Any other content
+raises ``ValueError``; ``read_colour`` / ``read_depth`` name the file in
+every error.
 """
 
 from __future__ import annotations
@@ -67,7 +68,9 @@ def _decode_mode(data: bytes) -> tuple[str, np.ndarray, np.ndarray | None]:
     if kind in ("BMP", "DIB"):
         return bmp.decode_mode(data)
     if kind == "netpbm":
-        return pnm.decode_mode(data) + (None,)
+        mode, img = pnm.decode_mode(data)
+        # Pillow gives a netpbm P image an empty palette
+        return mode, img, np.zeros((0, 3), np.uint8) if mode == "P" else None
     if kind == "TIFF":
         return tiff.decode_mode(data)
     raise ValueError(f"not a form the port reads ({', '.join(FORMS)}): it starts with "
@@ -92,7 +95,7 @@ def decode_depth(data: bytes) -> np.ndarray:
         img = png.decode(data)
         mode = "PNG of several channels" if img.ndim == 3 else None
     elif kind == "JPEG":
-        raise ValueError("JPEG depth is not read (the port's JPEG decoder gives RGB)")
+        img, mode = jpeg.decode_mode(data)[1], None
     else:
         mode, img, _ = _decode_mode(data)
         mode = f"mode {mode}" if modes.BANDS[mode] != 1 else None

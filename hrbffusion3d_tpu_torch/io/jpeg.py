@@ -19,7 +19,11 @@ integer ratios (libjpeg-turbo's fancy filters for a ratio of 2,
 replication for others and for lossless); restart intervals and
 non-interleaved scans; a progressive image whose first AC coefficients
 are not fully refined, smoothed as libjpeg-turbo smooths it.  Greyscale
-comes back replicated to RGB.  It refuses, as Pillow does, hierarchical
+comes back replicated to RGB (``decode``), or as Pillow's mode ``L`` for
+depth (``decode_mode``).  A TIFF's strips and tiles (``io/tiff``) are
+decoded after its JPEGTables, as libtiff hands libjpeg a tables-only
+stream first, with their components as stored or as YCbCr converted to
+RGB (``decode_form``).  It refuses, as Pillow does, hierarchical
 and arithmetic-coded lossless streams, 12-bit and other precisions,
 fractional sampling ratios and lossless YCbCr or YCCK, and it refuses
 truncated or corrupt data (where libjpeg-turbo warns and goes on),
@@ -29,6 +33,7 @@ raising ``RuntimeError`` with the reason.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 
@@ -43,18 +48,63 @@ def library():
     return native_loader.library("JPEG decoder")
 
 
-def decode(payload: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a JPEG stream; ``RuntimeError`` on a stream
-    the decoder refuses."""
-    lib = library()
-    payload = bytes(payload)
-    w, h = ctypes.c_int(), ctypes.c_int()
+# ``form`` of the C entry: RGB as Pillow converts it; the components as
+# stored; RGB from samples taken as YCbCr
+RGB, COMPONENTS, YCBCR = 0, 1, 2
+# Pillow's mode of a stream of 1, 3 or 4 components
+MODES = {1: "L", 3: "RGB", 4: "CMYK"}
+
+
+class Info(NamedTuple):
+    width: int
+    height: int
+    components: int
+    sampling: tuple  # (h, v) factors of each component
+
+
+def _call(lib, payload: bytes, tables: bytes, form: int, info, out):
     err = ctypes.create_string_buffer(_ERR_LEN)
-    if lib.jpeg_decode(payload, len(payload), ctypes.byref(w), ctypes.byref(h), None, err,
+    if lib.jpeg_decode(tables, len(tables), payload, len(payload), form, info, out, err,
                        _ERR_LEN) != 0:
         raise RuntimeError(err.value.decode())
-    out = np.empty((h.value, w.value, 3), np.uint8)
-    if lib.jpeg_decode(payload, len(payload), ctypes.byref(w), ctypes.byref(h),
-                       out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), err, _ERR_LEN) != 0:
-        raise RuntimeError(err.value.decode())
+
+
+def info(payload: bytes, tables: bytes = b"") -> Info:
+    """The frame header's size, component count and sampling factors (after
+    the tables-only stream ``tables``, if given); ``RuntimeError`` on a
+    stream the decoder refuses."""
+    raw = (ctypes.c_int * 11)()
+    _call(library(), bytes(payload), bytes(tables), RGB, raw, None)
+    n = raw[2]
+    return Info(raw[0], raw[1], n, tuple((raw[3 + 2 * c], raw[4 + 2 * c]) for c in range(n)))
+
+
+def decode_form(payload: bytes, form: int = RGB, tables: bytes = b"") -> np.ndarray:
+    """(H, W, 3) uint8 RGB (``form`` RGB or YCBCR), or (H, W, components) as
+    stored (COMPONENTS), of a JPEG stream read after the tables-only stream
+    ``tables`` (a TIFF's JPEGTables); ``RuntimeError`` on a stream the
+    decoder refuses."""
+    lib = library()
+    payload, tables = bytes(payload), bytes(tables)
+    raw = (ctypes.c_int * 11)()
+    _call(lib, payload, tables, RGB, raw, None)
+    out = np.empty((raw[1], raw[0], raw[2] if form == COMPONENTS else 3), np.uint8)
+    _call(lib, payload, tables, form, raw, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return out
+
+
+def decode(payload: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a JPEG stream, what Pillow's ``convert("RGB")``
+    gives; ``RuntimeError`` on a stream the decoder refuses."""
+    return decode_form(payload)
+
+
+def decode_mode(payload: bytes) -> tuple[str, np.ndarray]:
+    """(Pillow's mode, ``np.asarray(Image.open(...))``) of a greyscale JPEG
+    stream: ("L", (H, W) uint8); a stream of 3 or 4 components raises
+    ``ValueError`` naming its mode (``RGB``, ``CMYK``), as a depth image has
+    one band."""
+    n = info(payload).components
+    if n != 1:
+        raise ValueError(f"JPEG image of mode {MODES.get(n, n)}: a depth image has one band")
+    return "L", decode_form(payload, COMPONENTS)[..., 0]

@@ -108,9 +108,9 @@ def _load_lib():
     lib.klg_close.argtypes = [ctypes.c_void_p]
     lib.jpeg_decode.restype = ctypes.c_int
     lib.jpeg_decode.argtypes = [
-        ctypes.c_char_p, ctypes.c_size_t,
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p,
+        ctypes.c_int,
     ]
     lib.tiff_decompress.restype = ctypes.c_int
     lib.tiff_decompress.argtypes = [

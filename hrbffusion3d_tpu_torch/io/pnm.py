@@ -3,11 +3,13 @@ Pillow (``np.asarray(Image.open(path))`` for TUM depth and
 ``Image.open(path).convert("RGB")`` for TUM colour, in
 ``hrbffusion3d_tpu/io/tum.py``).
 
-It reads every form of Pillow 12's ``PpmImagePlugin`` but its test-only
-extensions: bitmaps (``P1`` plain, ``P4`` binary; mode ``1``), grey
-(``P2``, ``P5``; mode ``L``, or ``I`` above maxval 255), colour (``P3``,
-``P6``; mode ``RGB``) at any maxval from 1 to 65535, and float grey
-(``Pf``; mode ``F``), and gives what Pillow gives:
+It reads every form of Pillow 12's ``PpmImagePlugin``: bitmaps (``P1``
+plain, ``P4`` binary; mode ``1``), grey (``P2``, ``P5``; mode ``L``, or
+``I`` above maxval 255), colour (``P3``, ``P6``; mode ``RGB``) at any
+maxval from 1 to 65535, float grey (``Pf``; mode ``F``), and Pillow's
+binary extensions of its ``MODES``: ``P0CMYK`` and ``PyCMYK`` (``CMYK``),
+``PyRGBA`` (``RGBA``) and ``PyP`` (``P``, with an empty palette: every
+index converts to black); and gives what Pillow gives:
 
   - the header is read token by token as Pillow reads it: any whitespace
     between tokens, ``#`` comments up to the end of their line (a comment
@@ -15,12 +17,12 @@ extensions: bitmaps (``P1`` plain, ``P4`` binary; mode ``1``), grey
     most 10 bytes, the samples starting right after the one whitespace
     byte that ends the last token (maxval; the height of a bitmap; the
     scale of ``Pf``);
-  - binary samples at maxval 255 (``P5`` / ``P6``) or 65535 (``P5``,
-    big-endian) as they are; at any other maxval, and always in plain
-    files, rescaled to the mode's range as Pillow rescales them:
+  - binary samples at maxval 255 or, in ``P5``, 65535 (big-endian) as
+    they are; at any other maxval, and always in plain files, rescaled to
+    the mode's range as Pillow rescales them:
     ``round(value / maxval * out_max)`` (Python's ``round``, half to even,
     on the float64 quotient), out_max 65535 for mode ``I`` and 255 else
-    (so ``P6`` at maxval 65535 keeps about the high byte), clipped to
+    (so the colour forms at maxval 65535 keep about the high byte), clipped to
     out_max in binary files; a plain sample above maxval or negative is an
     error;
   - in plain data, a comment runs from ``#`` through the first CR or LF,
@@ -33,9 +35,9 @@ extensions: bitmaps (``P1`` plain, ``P4`` binary; mode ``1``), grey
     to top.
 
 ``decode`` gives ``np.asarray(Image.open(...))``, ``decode_mode`` Pillow's
-mode beside it (``io/image`` converts colour through ``io/modes``).  Pillow's test-only forms
-(``P0CMYK``, ``PyP``, ``PyRGBA``, ``PyCMYK``), ``PF`` colour float, which
-Pillow does not open, and truncated files raise ``ValueError``.
+mode beside it (``io/image`` converts colour through ``io/modes``).
+``PF`` colour float, which Pillow does not open, and truncated files raise
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -49,10 +51,10 @@ WHITESPACE = b"\x20\x09\x0a\x0b\x0c\x0d"
 # the magics ``image`` tells netpbm files by (Pillow accepts a "P" and any of
 # "0123456fy" and then reads the whole magic)
 MAGICS = (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6", b"Pf")
-_PILLOW_ONLY = (b"P0CMYK", b"PyP", b"PyRGBA", b"PyCMYK")
-# magic -> (mode, bands) of maxval <= 255
+# magic -> (mode, bands) of maxval <= 255 (PpmImagePlugin.MODES)
 _MODES = {b"P1": ("1", 1), b"P4": ("1", 1), b"P2": ("L", 1), b"P5": ("L", 1),
-          b"P3": ("RGB", 3), b"P6": ("RGB", 3), b"Pf": ("F", 1)}
+          b"P3": ("RGB", 3), b"P6": ("RGB", 3), b"Pf": ("F", 1), b"P0CMYK": ("CMYK", 4),
+          b"PyP": ("P", 1), b"PyRGBA": ("RGBA", 4), b"PyCMYK": ("CMYK", 4)}
 _MAX_TOKEN = 10
 _COMMENT = re.compile(rb"#[^\r\n]*[\r\n]?")
 
@@ -67,11 +69,9 @@ def _header(data: bytes):
         if not c or c in WHITESPACE:
             break
         magic += c
-    if magic in _PILLOW_ONLY:
-        raise ValueError(f"netpbm magic {magic.decode()}: Pillow's test-only extension, not "
-                         "read")
     if magic not in _MODES:
-        raise ValueError(f"not a netpbm file (magic {magic!r}; P1-P6 and Pf are read)")
+        raise ValueError(f"not a netpbm file (magic {magic!r}; P1-P6, Pf, P0CMYK, PyP, "
+                         "PyRGBA and PyCMYK are read)")
 
     def token() -> bytes:
         nonlocal pos
@@ -199,7 +199,7 @@ def decode_mode(data: bytes) -> tuple[str, np.ndarray]:
     else:
         sample = np.dtype(">u2") if maxval > 255 else np.dtype(np.uint8)
         values = _binary(data, pos, count, sample, what)
-        if maxval not in (255, 65535) or (maxval == 65535 and bands > 1):
+        if maxval != 255 and not (wide and maxval == 65535):
             values = np.minimum(_rescale(values, maxval, out_max), out_max)
     return mode, values.astype(dtype).reshape(shape)
 

@@ -4,23 +4,26 @@ the JAX package opens with Pillow (``np.asarray(Image.open(path))`` and
 ``io/klg.py``; Pillow reads compressed TIFF through libtiff).
 
 The container is read here with numpy; strips and tiles are inflated by
-the port's C++ decompressors (``csrc/tiff_decode.cpp``, compiled into the
-native loader's library by ``io/native_loader``; a library that does not
-build raises ``RuntimeError`` naming the build error).  It reads the first
-image of a TIFF in either byte order (``II`` or ``MM``) in every form of
-Pillow 12's ``TiffImagePlugin.OPEN_INFO`` but YCbCr and LAB: grey of 1, 2,
-4, 8, 12, 16 and 32 bits (unsigned, signed, float), grey with alpha, RGB
-and RGBA of 8 and 16 bits with the extra samples Pillow names (``X``
-ignored, ``a`` associated alpha, ``A``), palettes of 1, 2, 4 and 8 bits
-(``P``, ``PX``, ``PA``; the 16-bit ColorMap reduced to its high bytes) and
-CMYK of 8 and 16 bits; in strips or tiles (edge tiles cropped), with
-planar configuration 1 or 2, fill order 1 or 2, compressed with none (1),
-LZW (5), deflate (8, 32946) or PackBits (32773), with predictor 1, 2
-(horizontal differencing of each sample, modulo its width, the samples of
-a pixel as its stride) or 3 (floating point); and the Orientation tag
+the port's C++ decompressors (``csrc/tiff_decode.cpp``) and JPEG strips
+and tiles decoded by its JPEG decoder (``csrc/jpeg_decode.cpp``), both
+compiled into the native loader's library by ``io/native_loader`` (a
+library that does not build raises ``RuntimeError`` naming the build
+error).  It reads the first image of a TIFF or a little-endian BigTIFF
+(16-byte header, 8-byte counts and offsets, LONG8 / SLONG8 / IFD8
+values) in either byte order (``II`` or ``MM``) in every form of Pillow
+12's ``TiffImagePlugin.OPEN_INFO`` but LAB: grey of 1, 2, 4, 8, 12, 16
+and 32 bits (unsigned, signed, float), grey with alpha, RGB and RGBA of 8
+and 16 bits with the extra samples Pillow names (``X`` ignored, ``a``
+associated alpha, ``A``), palettes of 1, 2, 4 and 8 bits (``P``, ``PX``,
+``PA``; the 16-bit ColorMap reduced to its high bytes), CMYK of 8 and 16
+bits and YCbCr; in strips or tiles (edge tiles cropped), with planar
+configuration 1 or 2, fill order 1 or 2, compressed with none (1), LZW
+(5), JPEG (7), deflate (8, 32946) or PackBits (32773), with predictor 1,
+2 (horizontal differencing of each sample, modulo its width, the samples
+of a pixel as its stride) or 3 (floating point); and the Orientation tag
 (274) applied as Pillow applies it.
 
-It gives what Pillow 12 gives, quirks included, by taking Pillow's two
+It gives what Pillow 12 gives, quirks included, by taking Pillow's
 routes:
 
   - no compression: Pillow's own raw decoder, one tile a strip or tile,
@@ -29,45 +32,53 @@ routes:
     mode's letter of that plane (``R``, ``G``, ... ; ``I;16`` gives ``I``,
     which Pillow has no unpacker for in mode ``I;16``, so it is refused);
     the predictor is ignored; fill order 2 uses the ``;R`` raw modes, so
-    the forms Pillow has none of are refused;
-  - any compression: libtiff, then Pillow's unpacker: the bits of each
-    byte reversed before decompression for fill order 2; the samples of a
-    big-endian file swapped to the host's order and the predictor applied
-    there (only with LZW and deflate, the codecs libtiff applies it in);
-    the ``;16B`` / ``;16L`` raw modes read as ``;16N`` (so the other
-    big-endian 16-bit signed, 32-bit and float modes come back
-    byte-swapped, as Pillow swaps libtiff's native samples again); with
-    planar configuration 2 and more than one band, each plane copied into
-    its band, refused when the file has more samples than the mode has
-    bands, and an RGB image of four samples with no ExtraSamples taken as
-    associated alpha.
+    the forms Pillow has none of are refused; YCbCr is read as ``RGBX``
+    (4 bytes a pixel, as Pillow reads it: a truncated file where the
+    data is shorter);
+  - LZW, deflate and PackBits: libtiff, then Pillow's unpacker: the bits
+    of each byte reversed before decompression for fill order 2; the
+    samples of a big-endian file swapped to the host's order and the
+    predictor applied there (only with LZW and deflate, the codecs
+    libtiff applies it in); the ``;16B`` / ``;16L`` raw modes read as
+    ``;16N`` (so the other big-endian 16-bit signed, 32-bit and float
+    modes come back byte-swapped, as Pillow swaps libtiff's native
+    samples again); with planar configuration 2 and more than one band,
+    each plane copied into its band, refused when the file has more
+    samples than the mode has bands, and an RGB image of four samples
+    with no ExtraSamples taken as associated alpha;
+  - YCbCr with LZW, deflate or PackBits: libtiff's RGBA interface
+    (``_ycbcr``): YCbCrSubSampling's data units, its conversion tables;
+  - JPEG (7): libtiff's JPEG codec, one stream a strip or tile
+    (``_jpeg``).
 
 ``decode`` gives ``np.asarray(Image.open(...))`` of a single-band image
 (16-bit unsigned in native byte order) and raises naming the mode of any
 other; ``io/image`` takes ``decode_mode`` to ``convert("RGB")`` through
-``io/modes``.  Anything
-else raises ``ValueError`` with the tag and its value: JPEG (6, 7), CCITT
-(2-4) and other compressions, YCbCr (6) and LAB (8) photometrics, other
-bit depths and sample layouts, BigTIFF.
+``io/modes``.  Anything else raises ``ValueError`` with the tag and its
+value: old-style JPEG (6), CCITT (2-4) and other compressions, LAB (8),
+other bit depths and sample layouts (float16 and float64 samples, which
+Pillow does not open either), JPEG in separate planes or with extra
+samples, big-endian BigTIFF (which Pillow 12 fails to open).
 """
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import struct
 
 import numpy as np
 
-from . import modes, native_loader
+from . import jpeg, modes, native_loader
 
 # Pillow's TiffImagePlugin.PREFIXES: the magics, the two with the version's
 # bytes swapped (read in the byte order named), and BigTIFF's
 PREFIXES = (b"II*\x00", b"MM\x00*", b"MM*\x00", b"II\x00*", b"MM\x00+", b"II+\x00")
-NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS = 1, 5, 8, 32946, 32773
-COMPRESSIONS = (NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS)
+NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS = 1, 5, 7, 8, 32946, 32773
+COMPRESSIONS = (NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS)
 # libtiff's codecs that take a predictor
 _PREDICTED = (LZW, DEFLATE, ADOBE_DEFLATE)
-# Pillow's TiffImagePlugin.OPEN_INFO but photometric 6 (YCbCr) and 8 (LAB):
+# Pillow's TiffImagePlugin.OPEN_INFO but photometric 8 (LAB):
 # (byte orders, photometric, sample format, fill order, bits a sample x
 # samples, extra samples, mode, raw mode)
 _OPEN_INFO_ROWS = (
@@ -111,6 +122,7 @@ _OPEN_INFO_ROWS = (
     ("IM", 5, 1, 1, "8x4", "", "CMYK", "CMYK"), ("IM", 5, 1, 1, "8x5", "0", "CMYK", "CMYKX"),
     ("IM", 5, 1, 1, "8x6", "00", "CMYK", "CMYKXX"),
     ("I", 5, 1, 1, "16x4", "", "CMYK", "CMYK;16L"), ("M", 5, 1, 1, "16x4", "", "CMYK", "CMYK;16B"),
+    ("IM", 6, 1, 1, "8x1", "", "L", "L"), ("IM", 6, 1, 1, "8x3", "", "RGB", "RGBX"),
 )
 # (order "I" / "M", photometric, sample format, fill order, bits tuple,
 # extra samples tuple) -> (mode, raw mode)
@@ -128,13 +140,17 @@ _TAG_NAMES = {258: "BitsPerSample", 259: "Compression", 262: "PhotometricInterpr
               266: "FillOrder", 274: "Orientation", 277: "SamplesPerPixel",
               278: "RowsPerStrip", 284: "PlanarConfiguration", 317: "Predictor",
               320: "ColorMap", 322: "TileWidth", 323: "TileLength", 338: "ExtraSamples",
-              339: "SampleFormat"}
-_REFUSED_PHOTOMETRIC = {6: "YCbCr", 8: "CIE L*a*b*"}
+              339: "SampleFormat", 347: "JPEGTables", 529: "YCbCrCoefficients",
+              530: "YCbCrSubSampling", 532: "ReferenceBlackWhite"}
+_REFUSED_PHOTOMETRIC = {8: "CIE L*a*b* (its conversion is littleCMS's)"}
 _REFUSED_COMPRESSION = {2: "CCITT 1D", 3: "CCITT group 3", 4: "CCITT group 4",
-                        6: "old-style JPEG", 7: "JPEG"}
-# the sizes of the TIFF field types
-_TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4}
-_INT_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I"}
+                        6: "old-style JPEG"}
+# the sizes of the TIFF field types (BigTIFF's LONG8, SLONG8 and IFD8 too)
+_TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4,
+              16: 8, 17: 8, 18: 8}
+_INT_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I", 16: "Q", 17: "q", 18: "Q"}
+_FLOAT_TYPES = {11: "f", 12: "d"}
+_RATIONAL_TYPES = {5: "I", 10: "i"}
 # Pillow's decompression bomb limit: twice Image.MAX_IMAGE_PIXELS
 MAX_PIXELS = 2 * int(1024 * 1024 * 1024 // 4 // 3)
 _REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
@@ -148,31 +164,61 @@ def library():
 
 
 def _ifd(data: bytes) -> tuple[str, dict]:
-    """(byte order "<" / ">", {tag: tuple of integer values}) of the first
-    image directory."""
-    if data[:4] not in PREFIXES[:4]:
-        if data[:4] in PREFIXES:
-            raise ValueError("BigTIFF is not read")
+    """(byte order "<" / ">", {tag: tuple of values}) of the first image
+    directory, of a classic TIFF or a BigTIFF (a 16-byte header, 8-byte
+    entry counts and offsets, 20-byte entries).  Integers are ints,
+    rationals and floats float32 values as libtiff reads them (a rational's
+    numerator and denominator each rounded to float32, then divided;
+    0 over 0 is 0), JPEGTables (347) its bytes; other types are skipped."""
+    if data[:4] not in PREFIXES:
         raise ValueError(f"not a TIFF file (it starts with {data[:4]!r})")
     e = "<" if data[:2] == b"II" else ">"
-    (off,) = struct.unpack_from(e + "I", data, 4)
-    if off + 2 > len(data):
+    big = data[:4] in PREFIXES[4:]
+    if data[:4] == b"MM\x00+":
+        raise ValueError("big-endian BigTIFF (MM\\0+): Pillow 12 reads its header as a classic "
+                         "TIFF's and fails")
+    if big:
+        if len(data) < 16:
+            raise ValueError(f"BigTIFF header of {len(data)} bytes: 16 are read")
+        size, zero, off = struct.unpack_from(e + "HHQ", data, 4)
+        if (size, zero) != (8, 0):
+            raise ValueError(f"BigTIFF with offsets of {size} bytes (and {zero}): 8 (and 0) "
+                             "are read")
+        count_fmt, offset_fmt, entry = "Q", "Q", 20
+    else:
+        (off,) = struct.unpack_from(e + "I", data, 4)
+        count_fmt, offset_fmt, entry = "H", "I", 12
+    inline = struct.calcsize(offset_fmt)
+    start = off + struct.calcsize(count_fmt)
+    if start > len(data):
         raise ValueError(f"image directory at {off} lies past the end ({len(data)} bytes)")
-    (n,) = struct.unpack_from(e + "H", data, off)
-    if off + 2 + 12 * n > len(data):
+    (n,) = struct.unpack_from(e + count_fmt, data, off)
+    if start + entry * n > len(data):
         raise ValueError(f"image directory of {n} entries runs past the end")
     tags = {}
     for i in range(n):
-        tag, typ, count = struct.unpack_from(e + "HHI", data, off + 2 + 12 * i)
-        if typ not in _INT_TYPES:
+        at = start + entry * i
+        tag, typ = struct.unpack_from(e + "HH", data, at)
+        (count,) = struct.unpack_from(e + offset_fmt, data, at + 4)
+        if typ not in _TYPE_SIZE or not (typ in _INT_TYPES or typ in _FLOAT_TYPES
+                                         or typ in _RATIONAL_TYPES or tag == 347):
             continue
         size = _TYPE_SIZE[typ] * count
-        at = off + 2 + 12 * i + 8
-        if size > 4:
-            (at,) = struct.unpack_from(e + "I", data, at)
-            if at + size > len(data):
-                raise ValueError(f"tag {tag}'s {count} values lie past the end of the file")
-        tags[tag] = struct.unpack_from(e + _INT_TYPES[typ] * count, data, at)
+        at += 4 + inline
+        if size > inline:
+            (at,) = struct.unpack_from(e + offset_fmt, data, at)
+        if at + size > len(data):
+            raise ValueError(f"tag {tag}'s {count} values lie past the end of the file")
+        if tag == 347:
+            tags[tag] = bytes(data[at:at + size])
+        elif typ in _RATIONAL_TYPES:
+            pairs = np.frombuffer(data, e + _RATIONAL_TYPES[typ] * 1, 2 * count, at)
+            num, den = pairs[0::2].astype(np.float32), pairs[1::2].astype(np.float32)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                tags[tag] = tuple(np.where(den == 0, np.float32(0), num / den).tolist())
+        else:
+            fmt = _INT_TYPES.get(typ) or _FLOAT_TYPES[typ]
+            tags[tag] = struct.unpack_from(e + fmt * count, data, at)
     return e, tags
 
 
@@ -201,14 +247,21 @@ class _Layout:
         self.compression = _one(tags, 259, 1)
         if self.compression in _REFUSED_COMPRESSION:
             _refuse(259, self.compression, f"{_REFUSED_COMPRESSION[self.compression]} is not "
-                    "read")
+                    "read by the port yet")
         if self.compression not in COMPRESSIONS:
-            _refuse(259, self.compression, "not read (none 1, LZW 5, deflate 8 / 32946 and "
-                    "PackBits 32773 are)")
+            _refuse(259, self.compression, "not read (none 1, LZW 5, JPEG 7, deflate 8 / 32946 "
+                    "and PackBits 32773 are)")
         self.planar = _one(tags, 284, 1)
         photometric = _one(tags, 262, 0)
         if photometric in _REFUSED_PHOTOMETRIC:
-            _refuse(262, photometric, f"{_REFUSED_PHOTOMETRIC[photometric]} is not read")
+            _refuse(262, photometric, f"{_REFUSED_PHOTOMETRIC[photometric]} is not read by the "
+                    "port yet")
+        self.jpeg = self.compression == JPEG
+        if self.jpeg and photometric not in (1, 2, 6):
+            _refuse(262, photometric, "with JPEG compression, not read by the port yet (1, 2 "
+                    "and 6 are)")
+        if self.jpeg and self.planar != 1:
+            _refuse(284, self.planar, "JPEG in separate planes is not read by the port yet")
         fill = _one(tags, 266, 1)
         self.width, self.height = _one(tags, 256), _one(tags, 257)
         if self.width * self.height > MAX_PIXELS:
@@ -236,7 +289,14 @@ class _Layout:
                              f"ExtraSamples {list(extra)} in {order * 2} byte order: not a form "
                              "Pillow opens")
         self.mode, self.rawmode = OPEN_INFO[key]
+        if self.jpeg and spp != _BASE_SAMPLES.get(photometric, 1):
+            _refuse(277, spp, f"JPEG of photometric {photometric} with extra samples is not read "
+                    "by the port yet")
         self.libtiff = self.compression != NONE
+        # compressed YCbCr: libtiff's RGBA interface (JPEG: libjpeg's RGB)
+        self.ycbcr = photometric == 6 and self.libtiff and not self.jpeg
+        if self.ycbcr and spp != 3:
+            _refuse(277, spp, "YCbCr of one sample through libtiff: Pillow's decoder fails")
         if self.libtiff and fill == 2:
             # libtiff undoes the fill order: the raw mode of fill order 1
             self.mode, self.rawmode = OPEN_INFO[key[:3] + (1,) + key[4:]]
@@ -420,6 +480,182 @@ def _libtiff(data: bytes, tags: dict, layout: _Layout, e: str) -> np.ndarray:
     return img
 
 
+# YCbCrSubSampling (530) values libtiff's RGBA interface converts
+# (tif_getimage.c pickContigCase); TIFF 6.0's default is (2, 2)
+_SUBSAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+
+
+def _ycbcr_tables(tags: dict) -> tuple:
+    """libtiff's TIFFYCbCrToRGBInit (tif_color.c) of YCbCrCoefficients (529,
+    default 0.299 / 0.587 / 0.114) and ReferenceBlackWhite (532, default
+    0 255 128 255 128 255), in its float32 and fixed-point (16 bits)
+    arithmetic: (Y, Cr -> R, Cb -> B, Cr -> G, Cb -> G) tables of 256."""
+    f32 = np.float32
+    luma = [f32(v) for v in tags.get(529, (0.299, 0.587, 0.114))]
+    rbw = [f32(v) for v in tags.get(532, (0, 255, 128, 255, 128, 255))]
+    if len(luma) != 3 or any(v != v for v in luma) or luma[1] == 0:
+        _refuse(529, [float(v) for v in luma], "libtiff's initYCbCrConversion rejects it")
+    if len(rbw) != 6 or not all(f32(-0x7FFFFFFF + 128) < v < f32(0x7FFFFFFF) for v in rbw):
+        _refuse(532, [float(v) for v in rbw], "libtiff's initYCbCrConversion rejects it")
+
+    def fix(x):      # FIX: (int32_t)(x * 65536 + 0.5), the product in float32
+        return int(np.float64(f32(x * f32(65536))) + 0.5)
+
+    def clamp(f, lo, hi):
+        return lo if not f >= lo else (hi if f > hi else f)
+
+    def code2v(c, rb, rw, cr):
+        span = f32(rw - rb)
+        return f32(f32(f32(c - int(rb)) * f32(cr)) / (span if span != 0 else f32(1)))
+
+    lr, lg, lb = luma
+    f1 = f32(2 - f32(2 * lr))
+    f3 = f32(2 - f32(2 * lb))
+    d1, d3 = fix(clamp(f1, f32(0), f32(2))), fix(clamp(f3, f32(0), f32(2)))
+    d2 = -fix(clamp(f32(f32(lr * f1) / lg), f32(0), f32(2)))
+    d4 = -fix(clamp(f32(f32(lb * f3) / lg), f32(0), f32(2)))
+    lim = (f32(-128 * 32), f32(128 * 32))
+    cr = np.array([int(clamp(code2v(x, f32(rbw[4] - 128), f32(rbw[5] - 128), 127), *lim))
+                   for x in range(-128, 128)], np.int64)
+    cb = np.array([int(clamp(code2v(x, f32(rbw[2] - 128), f32(rbw[3] - 128), 127), *lim))
+                   for x in range(-128, 128)], np.int64)
+    y = np.array([int(clamp(code2v(i, rbw[0], rbw[1], 255), *lim)) for i in range(256)],
+                 np.int64)
+    return (y, (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16, d2 * cr, d4 * cb + 32768)
+
+
+def _ycbcr_to_rgb(ycc: np.ndarray, tables: tuple) -> np.ndarray:
+    """libtiff's TIFFYCbCrtoRGB of (H, W, 3) uint8 Y, Cb, Cr."""
+    y_tab, cr_r, cb_b, cr_g, cb_g = tables
+    y, cb, cr = (ycc[..., i].astype(np.intp) for i in range(3))
+    yv = y_tab[y]
+    rgb = np.stack([yv + cr_r[cr], yv + ((cb_g[cb] + cr_g[cr]) >> 16), yv + cb_b[cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _ycbcr(data: bytes, tags: dict, layout: _Layout, e: str) -> np.ndarray:
+    """Compressed YCbCr, as Pillow reads it through libtiff's RGBA interface
+    (TIFFRGBAImageGet): the samples of each strip or tile (YCbCrSubSampling
+    (530) (h, v), default (2, 2): data units of h x v luma samples then Cb
+    and Cr, each unit's chroma replicated over its pixels), converted by
+    libtiff's tables.  Subsampled data takes no predictor; in separate
+    planes only (1, 1) is converted."""
+    sub = tuple(tags.get(530, (2, 2)))
+    if sub not in _SUBSAMPLINGS:
+        _refuse(530, list(sub), "libtiff's RGBA interface converts (1, 1), (1, 2), (2, 1), "
+                "(2, 2), (4, 1), (4, 2) and (4, 4)")
+    if layout.planar == 2 and sub != (1, 1):
+        _refuse(530, list(sub), "in separate planes libtiff converts (1, 1) only")
+    tables = _ycbcr_tables(tags)
+    if sub == (1, 1):
+        # one sample a pixel each: the samples as an RGB image's
+        samples = copy.copy(layout)
+        samples.mode = samples.rawmode = "RGB"
+        return _ycbcr_to_rgb(_libtiff(data, tags, samples, e), tables)
+    predictor = _one(tags, 317, 1) if layout.compression in _PREDICTED else 1
+    if predictor != 1:
+        _refuse(317, predictor, f"with YCbCr subsampled {sub}: not read by the port")
+    offsets, counts, cw, ch = _chunks(tags, layout)
+    if counts is None:
+        raise ValueError(f"{'TileByteCounts (tag 325)' if layout.tiled else 'StripByteCounts '
+                         '(tag 279)'} is missing")
+    hs, vs = sub
+    xsize, ysize = layout.width, layout.height
+    across = -(-xsize // cw)
+    n = -(-ysize // ch) * (across if layout.tiled else 1)
+    if len(offsets) < n or len(counts) < n:
+        raise ValueError(f"{len(offsets)} offsets and {len(counts)} byte counts, {n} strips or "
+                         "tiles needed")
+    units_x, unit = -(-cw // hs), hs * vs + 2
+    ycc = np.zeros((ysize, xsize, 3), np.uint8)
+    lib = library()
+    for k in range(n):
+        ty, tx = divmod(k, across) if layout.tiled else (k, 0)
+        y, x = ty * ch, tx * cw
+        rows = ch if layout.tiled else min(ch, ysize - y)
+        units_y = -(-rows // vs)
+        keep_w, keep_h = min(cw, xsize - x), min(rows, ysize - y)
+        src = data[offsets[k]:offsets[k] + counts[k]]
+        what = f"{'tile' if layout.tiled else 'strip'} {k}"
+        size = units_y * units_x * unit
+        # gtStripContig reads TIFFScanlineSize (a row of units over v,
+        # rounded down) times the rows rounded up to v; the rest is zero
+        read = size if layout.tiled else units_y * vs * (units_x * unit // vs)
+        buf = np.zeros(size, np.uint8)
+        buf[:read] = _inflate(lib, src, layout.compression, read, what)
+        used, stride = -(-keep_w // hs), units_x * unit
+        if sub == (4, 4) and keep_w < cw:
+            # putcontig8bitYCbCr44tile skips a clipped tile's hidden units
+            # at 10 bytes each (its fromskew), not 18
+            stride = used * unit + (cw - keep_w) // 4 * 10
+        block = buf[np.arange(units_y)[:, None, None] * stride
+                    + np.arange(used)[None, :, None] * unit + np.arange(unit)]
+        luma = block[..., :hs * vs].reshape(units_y, used, vs, hs).transpose(0, 2, 1, 3)
+        full = np.empty((units_y * vs, used * hs, 3), np.uint8)
+        full[..., 0] = luma.reshape(units_y * vs, used * hs)
+        for c in (1, 2):
+            full[..., c] = np.repeat(np.repeat(block[..., hs * vs + c - 1], vs, 0), hs, 1)
+        ycc[y:y + keep_h, x:x + keep_w] = full[:keep_h, :keep_w]
+    return _ycbcr_to_rgb(ycc, tables)
+
+
+def _jpeg(data: bytes, tags: dict, layout: _Layout) -> np.ndarray:
+    """Compression 7 through libtiff's JPEG codec: each strip or tile one
+    JPEG stream, read after JPEGTables (347) when given, decoded by the
+    port's JPEG decoder on its own (so upsampling stops at its edges), its
+    size the strip's (the last strip's may be taller) or the tile's, the
+    tile cropped at the image's edge.  Photometric 1 and 2: the components
+    as stored (libtiff asks libjpeg for no colour conversion), every
+    sampling factor 1; 6: RGB from the samples taken as YCbCr (Pillow sets
+    JPEGCOLORMODE_RGB), the first component's sampling factors those of
+    YCbCrSubSampling (530; when absent, libtiff reads them off the first
+    stream), the others' 1."""
+    tables = tags.get(347, b"")
+    offsets, counts, cw, ch = _chunks(tags, layout)
+    if counts is None:
+        raise ValueError(f"{'TileByteCounts (tag 325)' if layout.tiled else 'StripByteCounts '
+                         '(tag 279)'} is missing")
+    xsize, ysize = layout.width, layout.height
+    across = -(-xsize // cw)
+    n = -(-ysize // ch) * (across if layout.tiled else 1)
+    if len(offsets) < n or len(counts) < n:
+        raise ValueError(f"{len(offsets)} offsets and {len(counts)} byte counts, {n} strips or "
+                         "tiles needed")
+    ycbcr = layout.photometric == 6
+    sub = tuple(tags[530]) if ycbcr and 530 in tags else None
+    img = modes.new(layout.mode, ysize, xsize)
+    jpeg.library()
+    for k in range(n):
+        ty, tx = divmod(k, across) if layout.tiled else (k, 0)
+        y, x = ty * ch, tx * cw
+        rows = ch if layout.tiled else min(ch, ysize - y)
+        src = data[offsets[k]:offsets[k] + counts[k]]
+        what = f"Compression (tag 259) = 7, {'tile' if layout.tiled else 'strip'} {k}"
+        try:
+            info = jpeg.info(src, tables)
+            if info.components != layout.spp:
+                raise ValueError(f"a JPEG stream of {info.components} components for "
+                                 f"{layout.spp} samples a pixel")
+            if ycbcr and sub is None:
+                sub = info.sampling[0]
+            want = [sub if ycbcr and c == 0 else (1, 1) for c in range(info.components)]
+            if list(info.sampling) != want:
+                raise ValueError(f"JPEG sampling factors {list(info.sampling)}, libtiff "
+                                 f"expects {want}" + (" (YCbCrSubSampling, tag 530)"
+                                                       if ycbcr else ""))
+            taller = not layout.tiled and k == n - 1 and info.height > rows
+            if info.width != cw or (info.height != rows and not taller):
+                raise ValueError(f"a JPEG stream of {info.width}x{info.height} for a "
+                                 f"{cw}x{rows} {'tile' if layout.tiled else 'strip'}")
+            block = jpeg.decode_form(src, jpeg.YCBCR if ycbcr else jpeg.COMPONENTS, tables)
+        except (RuntimeError, ValueError) as e:
+            raise ValueError(f"{what}: {e}") from None
+        keep_w, keep_h = min(cw, xsize - x), min(rows, ysize - y)
+        part = block[:keep_h, :keep_w]
+        img[y:y + keep_h, x:x + keep_w] = part[..., 0] if img.ndim == 2 else part
+    return img
+
+
 # Orientation (tag 274) -> the transposition Pillow's exif_transpose applies
 _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
            5: lambda a: a.swapaxes(0, 1), 6: lambda a: np.rot90(a, -1),
@@ -432,7 +668,12 @@ def decode_mode(data: bytes) -> tuple[str, np.ndarray, np.ndarray | None]:
     file's bytes."""
     e, tags = _ifd(data)
     layout = _Layout(e, tags)
-    img = _libtiff(data, tags, layout, e) if layout.libtiff else _raw(data, tags, layout)
+    if layout.jpeg:
+        img = _jpeg(data, tags, layout)
+    elif layout.ycbcr:
+        img = _ycbcr(data, tags, layout, e)
+    else:
+        img = _libtiff(data, tags, layout, e) if layout.libtiff else _raw(data, tags, layout)
     orientation = tags.get(274, (1,))[0]
     if orientation in _ORIENT:
         img = np.ascontiguousarray(_ORIENT[orientation](img))

@@ -102,6 +102,24 @@ def sobel_derivatives(img: torch.Tensor):
     return gx, gy
 
 
+# the grey weights as float32 values (exact in float64)
+_GREY_R, _GREY_G, _GREY_B = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32).tolist()
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """A float64 value rounded to float32, kept in float64."""
+    return x.to(torch.float32).to(torch.float64)
+
+
 def rgb_to_intensity(rgb: torch.Tensor) -> torch.Tensor:
-    """RGB [0,1] -> grey [0,255]."""
-    return (0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]) * 255.0
+    """RGB [0,1] -> grey [0,255], rounded as XLA rounds the JAX package's
+    expression: it contracts it to the green product, a fused multiply-add
+    for red, one for blue, then x 255.  A float32 product is exact in
+    float64, so each step is taken there and rounded to float32 as the
+    fused multiply-add rounds (bit for bit with XLA on 200,000 seeded
+    pixels, tests/test_torch_intensity.py; the same bits on the card)."""
+    x = rgb.to(torch.float64)
+    y = _f32(_GREY_G * x[..., 1])
+    y = _f32(_GREY_R * x[..., 0] + y)
+    y = _f32(_GREY_B * x[..., 2] + y)
+    return (y * 255.0).to(torch.float32)

@@ -301,9 +301,9 @@ def test_tiff_orientation(orientation):
 
 
 def test_tiff_open_info_is_pillows():
-    """The port's table is Pillow's OPEN_INFO but YCbCr and LAB."""
+    """The port's table is Pillow's OPEN_INFO but LAB."""
     ref = {(("I" if k[0] == TiffImagePlugin.II else "M"),) + k[1:]: v
-           for k, v in TiffImagePlugin.OPEN_INFO.items() if k[1] not in (6, 8)}
+           for k, v in TiffImagePlugin.OPEN_INFO.items() if k[1] != 8}
     assert tiff.OPEN_INFO == ref
 
 
@@ -422,13 +422,13 @@ def test_refusals_name_file_and_field(tmp_path):
     assert "header size 20" in _refused(tmp_path, "f.bmp",
                                         b"BM" + bytes(12) + struct.pack("<I", 20) + bytes(40))
     assert "truncated" in _refused(tmp_path, "g.bmp", bmpenc.encode(rgb, 24)[:-10])
-    assert "Pillow's test-only" in _refused(tmp_path, "h.ppm", b"P0CMYK 1 1 255\n\1\2\3\4")
+    assert "maxval" in _refused(tmp_path, "h.ppm", b"P0CMYK 1 1 0\n\1\2\3\4")
     assert "truncated" in _refused(tmp_path, "i.ppm", b"P6 4 4 255\n" + bytes(20))
     assert "sample" in _refused(tmp_path, "j.pbm", b"P1 2 2\n1 0 2 0\n")
     assert "scale" in _refused(tmp_path, "k.pfm", b"Pf 1 1 0.0\n\0\0\0\0")
-    # TIFF: the queued forms, each by its tag
+    # TIFF: the queued forms, each by its tag (259 = 7: raw bytes, no JPEG)
     grey = idx
-    for tag, value in ((259, 7), (259, 6), (259, 4), (259, 2), (262, 6), (262, 8)):
+    for tag, value in ((259, 7), (259, 6), (259, 4), (259, 2), (262, 8)):
         bad = encode(np.stack([grey] * 3, -1) if tag == 262 else grey, "II", 1,
                      photometric=value if tag == 262 else 1,
                      extra={tag: (SHORT, [value])})

@@ -185,7 +185,7 @@ def test_refused_forms_name_file_and_tag(tmp_path):
     assert "mode RGB" in _refused(tmp_path, "rgb.tif", _pillow_tiff(rgb))
     jpeg_tiff = _pillow_tiff(rgb, compression="jpeg")
     assert _pillow(jpeg_tiff).shape == (48, 64, 3)
-    assert "259" in _refused(tmp_path, "jpeg_rgb.tif", jpeg_tiff)
+    assert "mode RGB" in _refused(tmp_path, "jpeg_rgb.tif", jpeg_tiff)
     grey_jpeg = encode((d >> 8).astype(np.uint8), "II", 1, 1, extra={259: (SHORT, [7])})
     assert "259" in _refused(tmp_path, "jpeg_grey.tif", grey_jpeg)
     ccitt = encode((d >> 8).astype(np.uint8), "MM", 1, 1, extra={259: (SHORT, [4])})

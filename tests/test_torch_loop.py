@@ -163,6 +163,53 @@ def test_correct_matches_jax(sequence):
     assert tc.loop_edges[0][:2] == jc.loop_edges[0][:2]
 
 
+def _ba_obs(be):
+    """Each keyframe's observations in global BA (landmarks seen twice)."""
+    counts = np.zeros(len(be.keyframes), np.int64)
+    for obs in be.lm_obs.values():
+        if len(obs) >= 2:
+            for kf_id, _ in obs:
+                counts[kf_id] += 1
+    return counts
+
+
+def test_global_ba_holds_undetermined_keyframes(sequence):
+    """The last consistency-1 closure's pose-graph correction, then global
+    BA with the query keyframe cut to one observation (its other landmarks
+    seen by it alone), as at 640x480 (chip_smoke full system (a)): the port
+    holds that keyframe at its pose-graph pose bit for bit, and every
+    keyframe with >= MIN_BA_OBS observations stays within 5e-3 m / 5e-3
+    rad of JAX's ``_global_ba`` on the same problem, where the keyframe is
+    free (and wanders off)."""
+    bt, _, last = sequence
+    bt = copy.deepcopy(bt)
+    ct = last["port"]
+    k = ct.query_kf
+    old = np.stack([kf.pose for kf in bt.keyframes])
+    tloop.LoopCloser(bt, **LOOP_ARGS).correct(ct, run_global_ba=False)
+    seen = [lid for lid, obs in bt.lm_obs.items()
+            if len(obs) >= 2 and any(kf_id == k for kf_id, _ in obs)]
+    assert len(seen) >= 2, seen
+    for lid in seen[1:]:
+        bt.lm_obs[lid] = [o for o in bt.lm_obs[lid] if o[0] != k]
+    obs = _ba_obs(bt)
+    determined = obs >= tloop.MIN_BA_OBS
+    assert obs[k] == 1 and determined.sum() == len(obs) - 1, obs
+    bj = jkf.SparseBackend(INTR, CFG, fast_threshold=8.0)
+    _mirror(bt, bj)
+    pg = bt.keyframes[k].pose.copy()
+    dt = tloop.LoopCloser(bt, **LOOP_ARGS)._global_ba(old)
+    dj = jloop.LoopCloser(bj, **LOOP_ARGS)._global_ba(old)
+    assert dt is not None and dj is not None
+    assert np.array_equal(bt.keyframes[k].pose, pg)
+    assert np.array_equal(dt[k], (pg @ np.linalg.inv(old[k])).astype(np.float32))
+    for i in np.flatnonzero(determined):
+        kt, kj = bt.keyframes[i].pose, bj.keyframes[i].pose
+        np.testing.assert_allclose(kt[:3, 3], kj[:3, 3], atol=5e-3)
+        assert rot_angle(kt[:3, :3], kj[:3, :3]) < 5e-3
+        np.testing.assert_allclose(dt[i, :3, 3], dj[i, :3, 3], atol=5e-3)
+
+
 def test_loop_closer_runs_on_the_backends_device():
     """The closer has no device of its own: it solves where its backend
     does (jax's _ba_ctx collapses onto the backend's device)."""

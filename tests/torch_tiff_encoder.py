@@ -1,7 +1,8 @@
 """A numpy TIFF writer for the port's TIFF decoder tests: what Pillow cannot
 write (predictor 2 or 3, big-endian files, old-style LZW, strips of a few
 rows, tiles, planar configuration 2, samples of 1, 2 or 4 bits, fill order
-2, extra samples, the forms the decoder refuses).
+2, extra samples, the forms the decoder refuses; BigTIFF, YCbCr data units
+and JPEG-in-TIFF).
 
 ``encode(img, ...)`` writes one image: (H, W) grey or (H, W, S) of S
 samples a pixel, of dtype uint8, uint16, int16, uint32, int32 or float32,
@@ -18,7 +19,7 @@ many bits each, most significant first, each row padded to a byte;
 compression); ``colormap`` writes ColorMap (tag 320: the 16-bit reds, then
 greens, then blues) and ``extra_samples`` ExtraSamples (tag 338).
 ``extra`` adds or replaces tags ({tag: (type, values)}), which is how the
-refused forms are made (three samples and JPEG compression)."""
+refused forms are made."""
 
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import zlib
 
 import numpy as np
 
-SHORT, LONG = 3, 4
+SHORT, LONG, RATIONAL, UNDEFINED, LONG8 = 3, 4, 5, 7, 16
 _SAMPLE_FORMAT = {"u": 1, "i": 2, "f": 3}
 
 
@@ -158,19 +159,42 @@ def _compress(raw: bytes, compression: int, row_bytes: int, old_lzw: bool) -> by
     raise ValueError(compression)
 
 
+def _units(block: np.ndarray, sub: tuple[int, int]) -> bytes:
+    """A strip or tile of full-resolution (rows, W, 3) YCbCr as TIFF's
+    subsampled data units: for each block of ``sub`` = (h, v) pixels, its
+    h x v luma samples row by row, then the chroma of its top-left pixel;
+    the blocks left to right, then down (edge blocks padded by repeating
+    the last row and column)."""
+    hs, vs = sub
+    r, w, _ = block.shape
+    pr, pw = -(-r // vs) * vs, -(-w // hs) * hs
+    full = np.pad(block, ((0, pr - r), (0, pw - w), (0, 0)), mode="edge")
+    y = full[..., 0].reshape(pr // vs, vs, pw // hs, hs).transpose(0, 2, 1, 3)
+    y = y.reshape(pr // vs, pw // hs, vs * hs)
+    c = full[::vs, ::hs, 1:]
+    return np.concatenate([y, c], axis=2).astype(np.uint8).tobytes()
+
+
 def encode(img: np.ndarray, order: str = "II", compression: int = 1, predictor: int = 1,
            rows_per_strip: int | None = None, old_lzw: bool = False, photometric: int = 1,
            extra: dict | None = None, tile: tuple[int, int] | None = None, planar: int = 1,
            bits: int | None = None, fill_order: int = 1, colormap=None,
-           extra_samples=None) -> bytes:
+           extra_samples=None, bigtiff: bool = False, subsampling=None,
+           chunks: list | None = None) -> bytes:
+    """``subsampling`` = (h, v) writes (H, W, 3) uint8 YCbCr as subsampled
+    data units (photometric 6; tag 530 only if ``extra`` gives it);
+    ``chunks`` gives the strips or tiles' bytes as they are (JPEG streams:
+    ``img`` then only gives the shape and dtype); ``bigtiff`` writes a
+    BigTIFF (``II+\\0`` / ``MM\\0+``, 8-byte counts and offsets, the
+    strip or tile offsets as LONG8)."""
     img = np.asarray(img)
     samples = img[..., None] if img.ndim == 2 else img
     h, w, spp = samples.shape
     bits = 8 * img.dtype.itemsize if bits is None else bits
-    e = "<" if order == "II" else ">"
     planes = [samples[..., i:i + 1] for i in range(spp)] if planar == 2 else [samples]
+    given = chunks
     chunks = []
-    for plane in planes:
+    for plane in [] if given is not None else planes:
         if tile is None:
             rps = h if rows_per_strip is None else rows_per_strip
             blocks = [plane[y:y + rps] for y in range(0, h, rps)]
@@ -184,9 +208,16 @@ def encode(img: np.ndarray, order: str = "II", compression: int = 1, predictor: 
                     b[:part.shape[0], :part.shape[1]] = part
                     blocks.append(b)
         for b in blocks:
-            raw = _chunk_bytes(b, predictor, order, bits)
-            data = _compress(raw, compression, len(raw) // len(b), old_lzw)
+            if subsampling is not None:
+                raw = _units(b, subsampling)
+                row_bytes = len(raw) // -(-len(b) // subsampling[1])
+            else:
+                raw = _chunk_bytes(b, predictor, order, bits)
+                row_bytes = len(raw) // len(b)
+            data = _compress(raw, compression, row_bytes, old_lzw)
             chunks.append(data.translate(_REVERSED) if fill_order == 2 else data)
+    if given is not None:
+        chunks = list(given)
     tags = {256: (LONG, [w]), 257: (LONG, [h]), 258: (SHORT, [bits] * spp),
             259: (SHORT, [compression]), 262: (SHORT, [photometric]), 277: (SHORT, [spp]),
             284: (SHORT, [planar]),
@@ -207,31 +238,75 @@ def encode(img: np.ndarray, order: str = "II", compression: int = 1, predictor: 
     if extra_samples is not None:
         tags[338] = (SHORT, list(extra_samples))
     tags.update(extra or {})
-    head = (b"II*\x00" if order == "II" else b"MM\x00*")
-    data = bytearray(head + b"\0\0\0\0")
+    return write(tags, chunks, 273 if tile is None else 324, order, bigtiff)
+
+
+# the field types written: their struct formats
+_FORMATS = {SHORT: "H", LONG: "I", RATIONAL: "II", UNDEFINED: "s", LONG8: "Q"}
+
+
+def _field(e: str, typ: int, vals) -> bytes:
+    if typ == UNDEFINED:
+        return bytes(vals)
+    if typ == RATIONAL:
+        return b"".join(struct.pack(e + "II", *v) for v in vals)
+    return struct.pack(e + _FORMATS[typ] * len(vals), *vals)
+
+
+def write(tags: dict, chunks: list, offsets_tag: int = 273, order: str = "II",
+          bigtiff: bool = False) -> bytes:
+    """A TIFF of one image: ``tags`` ({tag: (type, values)}; RATIONAL values
+    as (numerator, denominator) pairs, UNDEFINED as bytes), the
+    ``chunks`` after the header, their offsets written as ``offsets_tag``
+    (LONG, or LONG8 in a BigTIFF)."""
+    e = "<" if order == "II" else ">"
+    if bigtiff:
+        head = (b"II+\x00" if order == "II" else b"MM\x00+") + struct.pack(e + "HH", 8, 0)
+        head += b"\0" * 8
+        inline, entry, count_fmt, off_fmt = 8, "HHQ", "Q", "Q"
+    else:
+        head = (b"II*\x00" if order == "II" else b"MM\x00*") + b"\0" * 4
+        inline, entry, count_fmt, off_fmt = 4, "HHI", "H", "I"
+    data = bytearray(head)
     offsets = []
     for c in chunks:
         offsets.append(len(data))
         data += c
         if len(data) % 2:
             data += b"\0"
-    tags[273 if tile is None else 324] = (LONG, offsets)
+    tags = dict(tags)
+    tags[offsets_tag] = (LONG8 if bigtiff else LONG, offsets)
     # out-of-line values, then the IFD
+    fields = {tag: _field(e, typ, vals) for tag, (typ, vals) in tags.items()}
     blobs = {}
-    for tag, (typ, vals) in sorted(tags.items()):
-        fmt = "H" if typ == SHORT else "I"
-        if len(vals) * struct.calcsize(fmt) > 4:
+    for tag in sorted(tags):
+        if len(fields[tag]) > inline:
             blobs[tag] = len(data)
-            data += struct.pack(e + fmt * len(vals), *vals)
+            data += fields[tag]
+            if len(data) % 2:
+                data += b"\0"
     ifd = len(data)
-    data[4:8] = struct.pack(e + "I", ifd)
-    data += struct.pack(e + "H", len(tags))
+    data[len(head) - struct.calcsize(off_fmt):len(head)] = struct.pack(e + off_fmt, ifd)
+    data += struct.pack(e + count_fmt, len(tags))
     for tag, (typ, vals) in sorted(tags.items()):
-        fmt = "H" if typ == SHORT else "I"
-        if tag in blobs:
-            field = struct.pack(e + "I", blobs[tag])
-        else:
-            field = struct.pack(e + fmt * len(vals), *vals).ljust(4, b"\0")
-        data += struct.pack(e + "HHI", tag, typ, len(vals)) + field
-    data += b"\0\0\0\0"
+        field = (struct.pack(e + off_fmt, blobs[tag]) if tag in blobs
+                 else fields[tag].ljust(inline, b"\0"))
+        data += struct.pack(e + entry, tag, typ, len(vals)) + field
+    data += b"\0" * struct.calcsize(off_fmt)
     return bytes(data)
+
+
+def jpeg_tables(stream: bytes) -> tuple[bytes, bytes]:
+    """(a tables-only stream of ``stream``'s DQT and DHT segments, the
+    abbreviated stream left without them): the JPEGTables (tag 347) and
+    strip or tile of a JPEG-in-TIFF file."""
+    i, tables, rest = 2, b"\xff\xd8", b"\xff\xd8"
+    while stream[i + 1] != 0xDA:
+        n = (stream[i + 2] << 8) | stream[i + 3]
+        if stream[i + 1] in (0xDB, 0xC4):
+            tables += stream[i:i + 2 + n]
+        else:
+            rest += stream[i:i + 2 + n]
+        i += 2 + n
+    return tables + b"\xff\xd9", rest + stream[i:]
+
