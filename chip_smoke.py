@@ -111,8 +111,14 @@ and prints:
     (4, 2) and PackBits (1, 1), and BigTIFF RGB, plain, LZW tiled and
     JPEG) with the depth-forms fixture's depth as PNG, two frames as
     16-bit BigTIFF: the same checks, and greyscale JPEG and JPEG-in-TIFF
-    depth to their digests; PNG decode ms per filter type; a JSON line
-    ``{"run_tum": {...}}``;
+    depth to their digests, (l) a TUM-layout sequence of the TIFF-codecs
+    fixture ``tests/data/tiff_codecs`` (the first 9 frames' 16-bit depth as
+    ZSTD with predictor 1 and 2 in both byte orders, tiled and BigTIFF,
+    and LZMA with predictor 1 and 2, one tiled big-endian; frames 0-2's
+    colour as ZSTD and LZMA RGB with predictor 2 and ZSTD YCbCr (2, 2),
+    the rest the baseline JPEG): the same checks, and CCITT group 3 2D,
+    group 4, RLE/W and ThunderScan files to their digests; PNG decode ms
+    per filter type; a JSON line ``{"run_tum": {...}}``;
   - every tracking and normal setting of ``SLAMConfig``
     (``phase_tracking_modes``): the correspondence search, sparse ICP,
     bilinear photometric lookups (separate and joint), fixed
@@ -200,6 +206,7 @@ import copy
 import dataclasses
 import hashlib
 import json
+import lzma
 import os
 import struct
 import subprocess
@@ -379,6 +386,11 @@ def phase_card() -> str:
 
 
 def phase_build() -> dict:
+    # the port reads LZMA TIFF strips with Python's lzma (no decoder of its own)
+    if not all(lzma.is_check_supported(c) for c in (lzma.CHECK_CRC32, lzma.CHECK_CRC64,
+                                                      lzma.CHECK_SHA256)):
+        raise RuntimeError("Python's lzma lacks an .xz check: the port's LZMA TIFF route")
+    print(f"build: Python {sys.version.split()[0]}'s lzma reads .xz (CRC32, CRC64, SHA-256)")
     t0 = time.perf_counter()
     kernels.build()
     print(f"build: {len(set(SOURCES.values()))} sources loaded in "
@@ -1751,6 +1763,12 @@ def colour_form_bytes(entry: dict) -> bytes:
     raise ValueError(f"no writer {entry['writer']!r}")
 
 
+# (l) a TUM-layout sequence of depth in ZSTD and LZMA TIFF, colour in ZSTD
+# and LZMA RGB and ZSTD YCbCr TIFF for its first frames, and CCITT and
+# ThunderScan files held to their digests (the committed fixture,
+# scripts/make_tiff_codecs_fixture.py: the card's machine has no zstandard)
+TIFF_CODECS_DIR = ROOT / "tests" / "data" / "tiff_codecs"
+
 # (k) a TUM-layout sequence of colour in BigTIFF, JPEG-in-TIFF and YCbCr
 # TIFF (the committed fixture, scripts/make_tiff_forms_fixture.py: the first
 # frames of KLG_JPEG_DIR's, frame i in form i; the forms that are large or
@@ -2351,6 +2369,35 @@ def _tum_jpeg_cli(root: Path, out: Path, n: int, cmd) -> dict:
     return res
 
 
+def _main_in_process(label: str, what: str, root: Path, n: int, out: Path) -> dict:
+    """``run_tum.main`` on the TUM-layout sequence at ``root`` in this
+    process, under ``_sync_counts`` / ``_per_frame``: fails unless all ``n``
+    frames are consumed with 0 host syncs and every kernel in each dense
+    step, within the ATE gate.  Returns its fps, first-frame seconds, ATE
+    (mm), launches and host syncs per step."""
+    steps = []
+    with _sync_counts() as syncs, _per_frame(steps, syncs):
+        res = run_tum.main([str(root), "--camera", "TUM1", "--out", str(out)])
+    idle = [i for i, (_, per) in enumerate(steps) if min(per.values()) == 0]
+    step_syncs = [s for s, _ in steps]
+    ate_m = res.get("ate_m", float("nan"))
+    print(f"run_tum ({label}): `run_tum.main` on the {what} sequence in this process: "
+          f"{res['frames']} frames of {n} consumed, {res['fps']:.2f} fps (under sync-debug mode, "
+          f"the first frame after {res['first_frame_s']:.2f} s), ATE {ate_m * 1e3:.3f} mm "
+          f"(aligned, {res.get('ate_matched')} matched), keyframes {res['keyframes']}; host "
+          f"syncs per dense step {sorted(set(step_syncs))} over {len(steps)} steps, steps "
+          f"without every kernel {idle}; launches {json.dumps(res['launches'])}")
+    if res["frames"] != n or len(steps) != n or any(step_syncs) or idle:
+        raise RuntimeError(f"run_tum ({label}): {res['frames']} frames consumed, {len(steps)} "
+                           f"dense steps, host syncs {step_syncs}, steps without every kernel "
+                           f"{idle}")
+    if not (np.isfinite(ate_m) and ate_m < RUN_TUM_ATE_MAX):
+        raise RuntimeError(f"run_tum ({label}): ATE {ate_m} (limit {RUN_TUM_ATE_MAX})")
+    _driven(f"run_tum ({label})", res["launches"])
+    return dict(fps=res["fps"], first_frame_s=res["first_frame_s"], ate_mm=ate_m * 1e3,
+                launches=res["launches"], host_syncs_per_step=step_syncs)
+
+
 def _tum_forms(tmp: Path, depths, gt, ts, smi) -> dict:
     """(h) a TUM-layout sequence whose colour files are the JPEG forms
     fixture (CMYK, YCCK, luma 4x1, lossless, arithmetic sequential and
@@ -2424,28 +2471,10 @@ def _tum_forms(tmp: Path, depths, gt, ts, smi) -> dict:
           + "; bytes per form " + json.dumps(sizes))
 
     # (iii) run_tum.main on the sequence in this process
-    steps = []
-    with _sync_counts() as syncs, _per_frame(steps, syncs):
-        res = run_tum.main([str(root), "--camera", "TUM1", "--out", str(tmp / "out_h")])
-    idle = [i for i, (_, per) in enumerate(steps) if min(per.values()) == 0]
-    step_syncs = [s for s, _ in steps]
-    ate_m = res.get("ate_m", float("nan"))
-    print(f"run_tum (h): `run_tum.main` on the JPEG-forms sequence in this process: "
-          f"{res['frames']} frames of {n} consumed, {res['fps']:.2f} fps (under sync-debug mode, "
-          f"the first frame after {res['first_frame_s']:.2f} s), ATE {ate_m * 1e3:.3f} mm "
-          f"(aligned, {res.get('ate_matched')} matched), keyframes {res['keyframes']}; host "
-          f"syncs per dense step {sorted(set(step_syncs))} over {len(steps)} steps, steps "
-          f"without every kernel {idle}; launches {json.dumps(res['launches'])}")
-    if res["frames"] != n or len(steps) != n or any(step_syncs) or idle:
-        raise RuntimeError(f"run_tum (h): {res['frames']} frames consumed, {len(steps)} dense "
-                           f"steps, host syncs {step_syncs}, steps without every kernel {idle}")
-    if not (np.isfinite(ate_m) and ate_m < RUN_TUM_ATE_MAX):
-        raise RuntimeError(f"run_tum (h): ATE {ate_m} (limit {RUN_TUM_ATE_MAX})")
-    _driven("run_tum (h)", res["launches"])
+    run = _main_in_process("h", "JPEG-forms", root, n, tmp / "out_h")
     return dict(frames=n, forms=meta["forms"], library=native_loader.status()["library"],
                 digests_equal=True, decode_ms=decode_ms, decode_ms_all=ms, bytes=sizes,
-                fps=res["fps"], first_frame_s=res["first_frame_s"], ate_mm=ate_m * 1e3,
-                launches=res["launches"], host_syncs_per_step=step_syncs, device=smi)
+                device=smi, **run)
 
 
 def _sha(a: np.ndarray) -> str:
@@ -2519,28 +2548,10 @@ def _tum_depth_forms(tmp: Path, gt, ts, smi) -> dict:
           + "; bytes per form " + json.dumps({e["form"]: e["bytes"] for e in entries}))
 
     # (iii) run_tum.main on the sequence in this process
-    steps = []
-    with _sync_counts() as syncs, _per_frame(steps, syncs):
-        res = run_tum.main([str(root), "--camera", "TUM1", "--out", str(tmp / "out_i")])
-    idle = [i for i, (_, per) in enumerate(steps) if min(per.values()) == 0]
-    step_syncs = [s for s, _ in steps]
-    ate_m = res.get("ate_m", float("nan"))
-    print(f"run_tum (i): `run_tum.main` on the depth-forms sequence in this process: "
-          f"{res['frames']} frames of {n} consumed, {res['fps']:.2f} fps (under sync-debug mode, "
-          f"the first frame after {res['first_frame_s']:.2f} s), ATE {ate_m * 1e3:.3f} mm "
-          f"(aligned, {res.get('ate_matched')} matched), keyframes {res['keyframes']}; host "
-          f"syncs per dense step {sorted(set(step_syncs))} over {len(steps)} steps, steps "
-          f"without every kernel {idle}; launches {json.dumps(res['launches'])}")
-    if res["frames"] != n or len(steps) != n or any(step_syncs) or idle:
-        raise RuntimeError(f"run_tum (i): {res['frames']} frames consumed, {len(steps)} dense "
-                           f"steps, host syncs {step_syncs}, steps without every kernel {idle}")
-    if not (np.isfinite(ate_m) and ate_m < RUN_TUM_ATE_MAX):
-        raise RuntimeError(f"run_tum (i): ATE {ate_m} (limit {RUN_TUM_ATE_MAX})")
-    _driven("run_tum (i)", res["launches"])
+    run = _main_in_process("i", "depth-forms", root, n, tmp / "out_i")
     return dict(frames=n, forms=meta["forms"], digests_equal=True, decode_ms=decode_ms,
                 decode_ms_all=ms, bytes={e["form"]: e["bytes"] for e in entries},
-                fps=res["fps"], first_frame_s=res["first_frame_s"], ate_mm=ate_m * 1e3,
-                launches=res["launches"], host_syncs_per_step=step_syncs, device=smi)
+                device=smi, **run)
 
 
 def _tum_colour_forms(tmp: Path, gt, ts, smi) -> dict:
@@ -2621,28 +2632,10 @@ def _tum_colour_forms(tmp: Path, gt, ts, smi) -> dict:
           + "; bytes per form " + json.dumps({e["form"]: e["bytes"] for e in meta["frames"]}))
 
     # (iii) run_tum.main on the sequence in this process
-    steps = []
-    with _sync_counts() as syncs, _per_frame(steps, syncs):
-        res = run_tum.main([str(root), "--camera", "TUM1", "--out", str(tmp / "out_j")])
-    idle = [i for i, (_, per) in enumerate(steps) if min(per.values()) == 0]
-    step_syncs = [s for s, _ in steps]
-    ate_m = res.get("ate_m", float("nan"))
-    print(f"run_tum (j): `run_tum.main` on the colour-forms sequence in this process: "
-          f"{res['frames']} frames of {n} consumed, {res['fps']:.2f} fps (under sync-debug mode, "
-          f"the first frame after {res['first_frame_s']:.2f} s), ATE {ate_m * 1e3:.3f} mm "
-          f"(aligned, {res.get('ate_matched')} matched), keyframes {res['keyframes']}; host "
-          f"syncs per dense step {sorted(set(step_syncs))} over {len(steps)} steps, steps "
-          f"without every kernel {idle}; launches {json.dumps(res['launches'])}")
-    if res["frames"] != n or len(steps) != n or any(step_syncs) or idle:
-        raise RuntimeError(f"run_tum (j): {res['frames']} frames consumed, {len(steps)} dense "
-                           f"steps, host syncs {step_syncs}, steps without every kernel {idle}")
-    if not (np.isfinite(ate_m) and ate_m < RUN_TUM_ATE_MAX):
-        raise RuntimeError(f"run_tum (j): ATE {ate_m} (limit {RUN_TUM_ATE_MAX})")
-    _driven("run_tum (j)", res["launches"])
+    run = _main_in_process("j", "colour-forms", root, n, tmp / "out_j")
     return dict(frames=n, forms=meta["forms"], digests_equal=True, decode_ms=decode_ms,
                 decode_ms_all=ms, bytes={e["form"]: e["bytes"] for e in meta["frames"]},
-                fps=res["fps"], first_frame_s=res["first_frame_s"], ate_mm=ate_m * 1e3,
-                launches=res["launches"], host_syncs_per_step=step_syncs, device=smi)
+                device=smi, **run)
 
 
 def _ckpt_run(dev, frames, gt, stop=None, path=None):
@@ -2868,28 +2861,101 @@ def _tum_tiff_forms(tmp: Path, gt, ts, smi) -> dict:
           + "; bytes per form " + json.dumps({e["form"]: e["bytes"] for e in meta["frames"]}))
 
     # (iii) run_tum.main on the sequence in this process
-    steps = []
-    with _sync_counts() as syncs, _per_frame(steps, syncs):
-        res = run_tum.main([str(root), "--camera", "TUM1", "--out", str(tmp / "out_k")])
-    idle = [i for i, (_, per) in enumerate(steps) if min(per.values()) == 0]
-    step_syncs = [s for s, _ in steps]
-    ate_m = res.get("ate_m", float("nan"))
-    print(f"run_tum (k): `run_tum.main` on the TIFF-forms sequence in this process: "
-          f"{res['frames']} frames of {n} consumed, {res['fps']:.2f} fps (under sync-debug mode, "
-          f"the first frame after {res['first_frame_s']:.2f} s), ATE {ate_m * 1e3:.3f} mm "
-          f"(aligned, {res.get('ate_matched')} matched), keyframes {res['keyframes']}; host "
-          f"syncs per dense step {sorted(set(step_syncs))} over {len(steps)} steps, steps "
-          f"without every kernel {idle}; launches {json.dumps(res['launches'])}")
-    if res["frames"] != n or len(steps) != n or any(step_syncs) or idle:
-        raise RuntimeError(f"run_tum (k): {res['frames']} frames consumed, {len(steps)} dense "
-                           f"steps, host syncs {step_syncs}, steps without every kernel {idle}")
-    if not (np.isfinite(ate_m) and ate_m < RUN_TUM_ATE_MAX):
-        raise RuntimeError(f"run_tum (k): ATE {ate_m} (limit {RUN_TUM_ATE_MAX})")
-    _driven("run_tum (k)", res["launches"])
+    run = _main_in_process("k", "TIFF-forms", root, n, tmp / "out_k")
     return dict(frames=n, forms=meta["forms"], digests_equal=True, decode_ms=decode_ms,
                 decode_ms_all=ms, bytes={e["form"]: e["bytes"] for e in meta["frames"]},
-                fps=res["fps"], first_frame_s=res["first_frame_s"], ate_mm=ate_m * 1e3,
-                launches=res["launches"], host_syncs_per_step=step_syncs, device=smi)
+                device=smi, **run)
+
+
+def _tum_tiff_codecs(tmp: Path, gt, ts, smi) -> dict:
+    """(l) a TUM-layout sequence whose depth files are the TIFF-codecs
+    fixture's (16-bit ZSTD with predictor 1 and 2 in both byte orders, in
+    tiles and as BigTIFF, and LZMA with predictor 1 and 2, frame i in form
+    i) and whose colour is the fixture's ZSTD and LZMA RGB and ZSTD YCbCr
+    TIFF for its first frames and the baseline JPEG fixture's after them:
+    every file through ``image.read_depth`` / ``image.read_colour`` to its
+    Pillow digest, and the fixture's CCITT and ThunderScan files (1 and 4
+    bits: not TUM depth) to theirs; the host's decode ms per form, each
+    depth file in turns with its baseline JPEG; ``run_tum.main`` in this
+    process on the sequence: every frame consumed, the ATE gate, 0 host
+    syncs and every kernel in each dense step."""
+    meta = json.loads((TIFF_CODECS_DIR / "digests.json").read_text())
+    depth = [e for e in meta["frames"] if e["kind"] == "depth" and e.get("sequence", True)]
+    colour = {e["frame"]: e for e in meta["frames"] if e["kind"] == "colour"}
+    other = [e for e in meta["frames"] if not e.get("sequence", True)]
+    n = len(depth)
+    base = json.loads((KLG_JPEG_DIR / "digests.json").read_text())["frames"][:n]
+    root = tmp / "seq_tiff_codecs"
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    lines, depth_files, colour_files, jpegs, colour_sha = [], [], {}, [], []
+    for i, (e, b) in enumerate(zip(depth, base)):
+        name = f"{ts[i]:.6f}"
+        jpegs.append((KLG_JPEG_DIR / b["file"]).read_bytes())
+        if i in colour:
+            colour_files[i] = (TIFF_CODECS_DIR / colour[i]["file"]).read_bytes()
+            rgb = f"rgb/{name}.tif"
+            (root / rgb).write_bytes(colour_files[i])
+            colour_sha.append(colour[i]["rgb_sha256"])
+        else:
+            rgb = f"rgb/{name}.jpg"
+            (root / rgb).write_bytes(jpegs[-1])
+            colour_sha.append(b["rgb_sha256"])
+        depth_files.append((TIFF_CODECS_DIR / e["file"]).read_bytes())
+        dep = f"depth/{name}.tif"
+        (root / dep).write_bytes(depth_files[-1])
+        lines.append(f"{name} {rgb} {name} {dep}\n")
+    (root / "associations.txt").write_text("".join(lines))
+    traj.save_tum(str(root / "groundtruth.txt"), ts[:n], gt[:n])
+    other_files = [(TIFF_CODECS_DIR / e["file"]).read_bytes() for e in other]
+
+    # (i) every file to its digest, read as the TUM reader reads it
+    rows = [ln.split() for ln in lines]
+    wrong = {"depth": [i for i, (r, e) in enumerate(zip(rows, depth))
+                       if _sha(image.read_depth(str(root / r[3]))) != e["depth_sha256"]],
+             "colour": [i for i, (r, sha) in enumerate(zip(rows, colour_sha))
+                        if _sha(image.read_colour(str(root / r[1]))) != sha],
+             "other": [e["form"] for e in other
+                       if _sha(image.read_depth(str(TIFF_CODECS_DIR / e["file"])))
+                       != e["depth_sha256"]]}
+    print(f"run_tum (l): {n} depth files in {len(meta['forms'])} forms "
+          f"({', '.join(meta['forms'])}) beside {len(colour)} colour TIFF "
+          f"({', '.join(meta['colour_forms'])}) and {n - len(colour)} JPEG colour: equal to "
+          f"their Pillow digests through image.read_depth {n - len(wrong['depth'])} of {n} and "
+          f"image.read_colour {n - len(wrong['colour'])} of {n}; bilevel and 4-bit "
+          f"{len(other) - len(wrong['other'])} of {len(other)} "
+          f"({', '.join(e['form'] for e in other)}); differing {wrong}")
+    if any(wrong.values()):
+        raise RuntimeError(f"run_tum (l): decoded frames differ from Pillow's: {wrong}")
+
+    # (ii) host decode ms per form, each depth file in turns with its JPEG
+    extra = [(colour[i]["form"], image.decode_colour, data) for i, data in colour_files.items()]
+    extra += [(e["form"], image.decode_depth, data) for e, data in zip(other, other_files)]
+    ms = {label: [] for label in meta["forms"] + ["baseline_jpeg"] + [x[0] for x in extra]}
+    for _ in range(KLG_DECODE_REPEATS):
+        for i, (e, data) in enumerate(zip(depth, depth_files)):
+            for label, fn, payload in ((e["form"], image.decode_depth, data),
+                                       ("baseline_jpeg", jpeg.decode, jpegs[i])):
+                t0 = time.perf_counter()
+                fn(payload)
+                ms[label].append(1e3 * (time.perf_counter() - t0))
+        for label, fn, payload in extra:
+            t0 = time.perf_counter()
+            fn(payload)
+            ms[label].append(1e3 * (time.perf_counter() - t0))
+    decode_ms = {k: float(np.median(v)) for k, v in ms.items()}
+    h, w = depth[0]["height"], depth[0]["width"]
+    print(f"run_tum (l): host time on the card's machine ({smi}; {os.cpu_count()} CPUs): "
+          f"decode of one {w}x{h} frame, median (of {KLG_DECODE_REPEATS} x its files, each "
+          f"depth file in turns with its baseline JPEG colour): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in decode_ms.items())
+          + "; bytes per form " + json.dumps({e["form"]: e["bytes"] for e in meta["frames"]}))
+
+    # (iii) run_tum.main on the sequence in this process
+    run = _main_in_process("l", "TIFF-codecs", root, n, tmp / "out_l")
+    return dict(frames=n, forms=meta["forms"], colour_forms=meta["colour_forms"],
+                digests_equal=True, decode_ms=decode_ms, decode_ms_all=ms,
+                bytes={e["form"]: e["bytes"] for e in meta["frames"]}, device=smi, **run)
 
 
 def phase_run_tum(dev, cmd=None, smi="") -> dict:
@@ -2902,7 +2968,8 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
     arithmetic, unrefined progressive), (i) one with depth in PGM and TIFF
     and JPEG and PNG colour, (j) one with colour in netpbm, BMP and TIFF and
     PNG and tiled TIFF depth, (k) one with colour in BigTIFF, JPEG-in-TIFF
-    and YCbCr TIFF and PNG and BigTIFF depth.  ``cmd``: how
+    and YCbCr TIFF and PNG and BigTIFF depth, (l) one with depth in ZSTD
+    and LZMA TIFF and colour in ZSTD and LZMA TIFF and JPEG.  ``cmd``: how
     (a) and (g) start the entry point; ``smi``: the card's name and power
     limit."""
     t_phase = time.perf_counter()
@@ -2949,6 +3016,10 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
         out["tum_tiff_forms"] = _tum_tiff_forms(tmp, gt, ts, smi)
         out["tum_tiff_forms"]["seconds"] = time.perf_counter() - t0
         print(f"run_tum (k): {out['tum_tiff_forms']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        out["tum_tiff_codecs"] = _tum_tiff_codecs(tmp, gt, ts, smi)
+        out["tum_tiff_codecs"]["seconds"] = time.perf_counter() - t0
+        print(f"run_tum (l): {out['tum_tiff_codecs']['seconds']:.1f} s")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"run_tum: phase {out['seconds']:.1f} s")
     return out

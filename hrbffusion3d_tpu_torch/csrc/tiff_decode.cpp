@@ -2,7 +2,10 @@
 // TUM-layout sequences, which the JAX package opens with Pillow (through
 // libtiff).  io/tiff.py reads the container and applies the predictor;
 // this file only inflates a strip, byte-serial work that would cost tens of
-// milliseconds a frame in Python.
+// milliseconds a frame in Python.  ``tiff_decompress`` is the one entry of
+// every codec: the ones below, Zstandard (zstd_decode.cpp) and the CCITT
+// and ThunderScan codes (fax_decode.cpp); LZMA strips are read by Python's
+// standard library (io/tiff.py).
 //
 // Each codec fills ``dst`` with exactly ``dst_len`` bytes, as libtiff's
 // codecs fill a strip:
@@ -23,6 +26,8 @@
 #include <string>
 
 #include <zlib.h>
+
+#include "tiff_codecs.h"
 
 namespace {
 
@@ -196,12 +201,16 @@ bool deflate(const uint8_t* src, size_t n, uint8_t* dst, size_t dst_len, std::st
 
 extern "C" {
 
-// Decompresses one strip: ``src`` (``n`` bytes) in ``compression`` (5, 8,
-// 32946 or 32773) into exactly ``dst_len`` bytes of ``dst``.  Returns 0;
-// or -1 with a NUL-terminated message in ``err`` (at most ``err_len``
-// bytes).
-int tiff_decompress(const uint8_t* src, size_t n, int compression, uint8_t* dst,
-                    size_t dst_len, char* err, int err_len) {
+// Decompresses one strip or tile: ``src`` (``n`` bytes) in
+// ``compression`` (2, 3, 4, 5, 8, 32771, 32773, 32809, 32946 or 50000)
+// into exactly ``dst_len`` bytes of ``dst``.  ``width``: the pixels of a
+// row (CCITT and ThunderScan); ``options``: Group3Options (T4Options, tag
+// 292) for compression 3; ``odd``: the strip starts at an odd file offset
+// (32771).  Returns 0; or -1 with a NUL-terminated message in ``err`` (at
+// most ``err_len`` bytes).
+int tiff_decompress(const uint8_t* src, size_t n, int compression, int64_t width,
+                    uint32_t options, int odd, uint8_t* dst, size_t dst_len, char* err,
+                    int err_len) {
   std::string why;
   bool ok;
   switch (compression) {
@@ -214,6 +223,18 @@ int tiff_decompress(const uint8_t* src, size_t n, int compression, uint8_t* dst,
       break;
     case 32773:
       ok = packbits(src, n, dst, dst_len, &why);
+      break;
+    case 50000:
+      ok = hrbf_tiff::zstd(src, n, dst, dst_len, &why);
+      break;
+    case 2:
+    case 3:
+    case 4:
+    case 32771:
+      ok = hrbf_tiff::fax(src, n, compression, width, options, odd != 0, dst, dst_len, &why);
+      break;
+    case 32809:
+      ok = hrbf_tiff::thunderscan(src, n, width, dst, dst_len, &why);
       break;
     default:
       ok = false;

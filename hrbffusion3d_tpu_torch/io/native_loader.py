@@ -5,9 +5,12 @@ built or loaded.
 
 The JAX package loads a prebuilt ``native/libhrbfio.so``.  The port never
 reads that file and builds nothing outside its package: at first use it
-compiles ``csrc/klg_loader.cpp``, the port's JPEG decoder
+compiles (one compiler a source, in parallel, then a link)
+``csrc/klg_loader.cpp``, the port's JPEG decoder
 ``csrc/jpeg_decode.cpp``, its TIFF strip decompressors
-``csrc/tiff_decode.cpp`` and its BMP run-length decoder
+``csrc/tiff_decode.cpp`` (with its Zstandard decoder
+``csrc/zstd_decode.cpp`` and its CCITT and ThunderScan decoders
+``csrc/fax_decode.cpp``) and its BMP run-length decoder
 ``csrc/bmp_decode.cpp`` with the host C++ compiler into one library in
 ``hrbffusion3d_tpu_torch/_build/`` (named by the hash of every source file
 it reads and the command, so a changed source is rebuilt), beside the CUDA
@@ -46,8 +49,8 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCE = _CSRC / "klg_loader.cpp"
 # every file the build reads: the compiled sources and the header
 _SOURCES = (_SOURCE, _CSRC / "jpeg_decode.cpp", _CSRC / "tiff_decode.cpp",
-            _CSRC / "bmp_decode.cpp")
-_HEADERS = (_CSRC / "jpeg_decode.h",)
+            _CSRC / "zstd_decode.cpp", _CSRC / "fax_decode.cpp", _CSRC / "bmp_decode.cpp")
+_HEADERS = (_CSRC / "jpeg_decode.h", _CSRC / "tiff_codecs.h")
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
 # native/Makefile's flags, without libjpeg
 _CXXFLAGS = ["-O2", "-fPIC", "-std=c++17", "-Wall"]
@@ -77,15 +80,34 @@ def _build() -> Path:
     if lib.exists():
         return lib
     _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = _BUILD / f".libhrbfio_{key}.{os.getpid()}.so"
-    out = subprocess.run([cxx, *_CXXFLAGS, *map(str, _SOURCES), "-o", str(tmp), *_LDFLAGS],
-                         capture_output=True, text=True, timeout=300)
-    if out.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{Path(cxx).name} failed ({out.returncode}) on "
-                           f"{', '.join(src.name for src in _SOURCES)}:\n"
-                           + (out.stderr or out.stdout).strip())
-    os.replace(tmp, lib)
+    tmp = _BUILD / f".libhrbfio_{key}.{os.getpid()}"
+    objs = [Path(f"{tmp}.{src.stem}.o") for src in _SOURCES]
+    # one compiler a source, all started together, then the link
+    jobs = [subprocess.Popen([cxx, *_CXXFLAGS, "-c", str(src), "-o", str(obj)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(_SOURCES, objs)]
+    try:
+        failed = []
+        for src, job in zip(_SOURCES, jobs):
+            out = job.communicate(timeout=300)[0]
+            if job.returncode != 0:
+                failed.append((src, job.returncode, out))
+        if not failed:
+            link = subprocess.run([cxx, *map(str, objs), "-o", f"{tmp}.so", *_LDFLAGS],
+                                  capture_output=True, text=True, timeout=300)
+            if link.returncode != 0:
+                failed = [(Path("the link"), link.returncode, link.stderr or link.stdout)]
+    finally:
+        for job in jobs:
+            job.kill()
+            job.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    if failed:
+        Path(f"{tmp}.so").unlink(missing_ok=True)
+        raise RuntimeError("\n".join(f"{Path(cxx).name} failed ({rc}) on {src.name}:\n"
+                                     + out.strip() for src, rc, out in failed))
+    os.replace(f"{tmp}.so", lib)
     return lib
 
 
@@ -114,8 +136,9 @@ def _load_lib():
     ]
     lib.tiff_decompress.restype = ctypes.c_int
     lib.tiff_decompress.argtypes = [
-        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t, ctypes.c_char_p, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t, ctypes.c_char_p,
+        ctypes.c_int,
     ]
     lib.bmp_rle_decode.restype = ctypes.c_int
     lib.bmp_rle_decode.argtypes = [

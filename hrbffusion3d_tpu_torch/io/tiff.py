@@ -4,8 +4,10 @@ the JAX package opens with Pillow (``np.asarray(Image.open(path))`` and
 ``io/klg.py``; Pillow reads compressed TIFF through libtiff).
 
 The container is read here with numpy; strips and tiles are inflated by
-the port's C++ decompressors (``csrc/tiff_decode.cpp``) and JPEG strips
-and tiles decoded by its JPEG decoder (``csrc/jpeg_decode.cpp``), both
+the port's C++ decompressors (``csrc/tiff_decode.cpp``, its Zstandard
+decoder ``csrc/zstd_decode.cpp`` and its CCITT and ThunderScan decoders
+``csrc/fax_decode.cpp``; LZMA strips by Python's ``lzma``) and JPEG strips
+and tiles decoded by its JPEG decoder (``csrc/jpeg_decode.cpp``), all
 compiled into the native loader's library by ``io/native_loader`` (a
 library that does not build raises ``RuntimeError`` naming the build
 error).  It reads the first image of a TIFF or a little-endian BigTIFF
@@ -17,11 +19,14 @@ and 16 bits with the extra samples Pillow names (``X`` ignored, ``a``
 associated alpha, ``A``), palettes of 1, 2, 4 and 8 bits (``P``, ``PX``,
 ``PA``; the 16-bit ColorMap reduced to its high bytes), CMYK of 8 and 16
 bits and YCbCr; in strips or tiles (edge tiles cropped), with planar
-configuration 1 or 2, fill order 1 or 2, compressed with none (1), LZW
-(5), JPEG (7), deflate (8, 32946) or PackBits (32773), with predictor 1,
-2 (horizontal differencing of each sample, modulo its width, the samples
-of a pixel as its stride) or 3 (floating point); and the Orientation tag
-(274) applied as Pillow applies it.
+configuration 1 or 2, fill order 1 or 2, compressed with none (1), CCITT
+Modified Huffman (2), T.4 (3, 1D or 2D), T.6 (4), LZW (5), JPEG (7),
+deflate (8, 32946), CCITT RLE/W (32771), PackBits (32773), ThunderScan
+(32809), LZMA (34925) or Zstandard (50000): every compression Pillow 12.1
+opens but old-style JPEG (6); with predictor 1, 2 (horizontal
+differencing of each sample, modulo its width, the samples of a pixel as
+its stride) or 3 (floating point); and the Orientation tag (274) applied
+as Pillow applies it.
 
 It gives what Pillow 12 gives, quirks included, by taking Pillow's
 routes:
@@ -35,18 +40,26 @@ routes:
     the forms Pillow has none of are refused; YCbCr is read as ``RGBX``
     (4 bytes a pixel, as Pillow reads it: a truncated file where the
     data is shorter);
-  - LZW, deflate and PackBits: libtiff, then Pillow's unpacker: the bits
-    of each byte reversed before decompression for fill order 2; the
+  - the other compressions: libtiff, then Pillow's unpacker: the bits
+    of each byte reversed before decompression for fill order 2 (the
+    CCITT codecs read fill order 2 themselves, to the same effect); the
     samples of a big-endian file swapped to the host's order and the
-    predictor applied there (only with LZW and deflate, the codecs
-    libtiff applies it in); the ``;16B`` / ``;16L`` raw modes read as
+    predictor applied there (only with LZW, deflate, LZMA and ZSTD, the
+    codecs libtiff applies it in); the ``;16B`` / ``;16L`` raw modes read as
     ``;16N`` (so the other big-endian 16-bit signed, 32-bit and float
     modes come back byte-swapped, as Pillow swaps libtiff's native
     samples again); with planar configuration 2 and more than one band,
     each plane copied into its band, refused when the file has more
     samples than the mode has bands, and an RGB image of four samples
     with no ExtraSamples taken as associated alpha;
-  - YCbCr with LZW, deflate or PackBits: libtiff's RGBA interface
+  - a strip's codec as libtiff's reads it: ZSTD the strip's first frame
+    (a second frame, or a skippable one first, leaves it short; a frame
+    naming a dictionary, a reserved bit or a bad checksum is refused as
+    libzstd refuses it); LZMA one ``.xz`` stream, an error after the strip
+    is full ignored; CCITT (1 bit a sample) through ``tif_fax3.c``'s
+    steps, a row libtiff would pad (a bad code, a wrong length, data that
+    ends early) refused; ThunderScan (4 bits a sample, strips only);
+  - compressed YCbCr but JPEG: libtiff's RGBA interface
     (``_ycbcr``): YCbCrSubSampling's data units, its conversion tables;
   - JPEG (7): libtiff's JPEG codec, one stream a strip or tile
     (``_jpeg``).
@@ -55,16 +68,19 @@ routes:
 (16-bit unsigned in native byte order) and raises naming the mode of any
 other; ``io/image`` takes ``decode_mode`` to ``convert("RGB")`` through
 ``io/modes``.  Anything else raises ``ValueError`` with the tag and its
-value: old-style JPEG (6), CCITT (2-4) and other compressions, LAB (8),
-other bit depths and sample layouts (float16 and float64 samples, which
-Pillow does not open either), JPEG in separate planes or with extra
-samples, big-endian BigTIFF (which Pillow 12 fails to open).
+value: old-style JPEG (6), LAB (8) and JPEG in separate planes or with
+extra samples ("not read by the port yet"); SGILog (34676, 34677) and
+WebP (50001), which Pillow 12.1 cannot open either; other compressions,
+bit depths and sample layouts (float16 and float64 samples, which Pillow
+does not open either); big-endian BigTIFF (which Pillow 12 fails to
+open).
 """
 
 from __future__ import annotations
 
 import copy
 import ctypes
+import lzma
 import struct
 
 import numpy as np
@@ -75,9 +91,14 @@ from . import jpeg, modes, native_loader
 # bytes swapped (read in the byte order named), and BigTIFF's
 PREFIXES = (b"II*\x00", b"MM\x00*", b"MM*\x00", b"II\x00*", b"MM\x00+", b"II+\x00")
 NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS = 1, 5, 7, 8, 32946, 32773
-COMPRESSIONS = (NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS)
+CCITT_1D, CCITT_G3, CCITT_G4, CCITT_RLEW, THUNDERSCAN = 2, 3, 4, 32771, 32809
+LZMA, ZSTD = 34925, 50000
+COMPRESSIONS = (NONE, CCITT_1D, CCITT_G3, CCITT_G4, LZW, JPEG, DEFLATE, CCITT_RLEW, PACKBITS,
+                THUNDERSCAN, ADOBE_DEFLATE, LZMA, ZSTD)
 # libtiff's codecs that take a predictor
-_PREDICTED = (LZW, DEFLATE, ADOBE_DEFLATE)
+_PREDICTED = (LZW, DEFLATE, ADOBE_DEFLATE, LZMA, ZSTD)
+# libtiff's tif_fax3.c codecs (1 bit a sample)
+FAX = (CCITT_1D, CCITT_G3, CCITT_G4, CCITT_RLEW)
 # Pillow's TiffImagePlugin.OPEN_INFO but photometric 8 (LAB):
 # (byte orders, photometric, sample format, fill order, bits a sample x
 # samples, extra samples, mode, raw mode)
@@ -143,8 +164,15 @@ _TAG_NAMES = {258: "BitsPerSample", 259: "Compression", 262: "PhotometricInterpr
               339: "SampleFormat", 347: "JPEGTables", 529: "YCbCrCoefficients",
               530: "YCbCrSubSampling", 532: "ReferenceBlackWhite"}
 _REFUSED_PHOTOMETRIC = {8: "CIE L*a*b* (its conversion is littleCMS's)"}
-_REFUSED_COMPRESSION = {2: "CCITT 1D", 3: "CCITT group 3", 4: "CCITT group 4",
-                        6: "old-style JPEG"}
+_REFUSED_COMPRESSION = {6: "old-style JPEG"}
+# compressions in Pillow's COMPRESSION_INFO that Pillow 12.1 cannot open:
+# the port refuses them as Pillow fails
+_UNOPENED_COMPRESSION = {
+    34676: "SGILog (libtiff decodes it for photometric 32844 / 32845 only, which Pillow has no "
+           "mode for)",
+    34677: "SGILog24 (libtiff decodes it for photometric 32845 only, which Pillow has no mode "
+           "for)",
+    50001: "WebP (Pillow 12.1's libtiff is built without it)"}
 # the sizes of the TIFF field types (BigTIFF's LONG8, SLONG8 and IFD8 too)
 _TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4,
               16: 8, 17: 8, 18: 8}
@@ -248,9 +276,13 @@ class _Layout:
         if self.compression in _REFUSED_COMPRESSION:
             _refuse(259, self.compression, f"{_REFUSED_COMPRESSION[self.compression]} is not "
                     "read by the port yet")
+        if self.compression in _UNOPENED_COMPRESSION:
+            _refuse(259, self.compression, f"{_UNOPENED_COMPRESSION[self.compression]}: not a "
+                    "form Pillow opens")
         if self.compression not in COMPRESSIONS:
-            _refuse(259, self.compression, "not read (none 1, LZW 5, JPEG 7, deflate 8 / 32946 "
-                    "and PackBits 32773 are)")
+            _refuse(259, self.compression, "not read (none 1, CCITT 2 / 3 / 4 / 32771, LZW 5, "
+                    "JPEG 7, deflate 8 / 32946, PackBits 32773, ThunderScan 32809, LZMA 34925 "
+                    "and ZSTD 50000 are)")
         self.planar = _one(tags, 284, 1)
         photometric = _one(tags, 262, 0)
         if photometric in _REFUSED_PHOTOMETRIC:
@@ -289,6 +321,12 @@ class _Layout:
                              f"ExtraSamples {list(extra)} in {order * 2} byte order: not a form "
                              "Pillow opens")
         self.mode, self.rawmode = OPEN_INFO[key]
+        if self.compression in FAX and bits != (1,):
+            _refuse(259, self.compression, f"CCITT of BitsPerSample {list(bits)}: libtiff's "
+                    "codecs decode 1 bit a sample")
+        if self.compression == THUNDERSCAN and bits != (4,):
+            _refuse(259, self.compression, f"ThunderScan of BitsPerSample {list(bits)}: libtiff "
+                    "decodes 4 bits a sample")
         if self.jpeg and spp != _BASE_SAMPLES.get(photometric, 1):
             _refuse(277, spp, f"JPEG of photometric {photometric} with extra samples is not read "
                     "by the port yet")
@@ -310,6 +348,10 @@ class _Layout:
         # decoder reads strips when their offsets are given
         self.tiled = ((322 in tags or 323 in tags) if self.libtiff
                       else 273 not in tags and 324 in tags)
+        if self.tiled and self.compression == THUNDERSCAN:
+            _refuse(259, THUNDERSCAN, "ThunderScan in tiles: libtiff has no tile decoder for it")
+        # Group3Options (T4Options): bit 0, 2D coding
+        self.fax_options = _one(tags, 292, 0) if self.compression == CCITT_G3 else 0
         self.palette = None
         if self.mode in ("P", "PA"):
             if 320 not in tags:
@@ -385,10 +427,44 @@ def _raw(data: bytes, tags: dict, layout: _Layout) -> np.ndarray:
     return img
 
 
-def _inflate(lib, src: bytes, compression: int, want: int, what: str) -> np.ndarray:
+def _unxz(src: bytes, want: int, what: str) -> np.ndarray:
+    """libtiff's tif_lzma.c: one .xz stream (liblzma's stream decoder, no
+    concatenated streams) until the strip is full, by Python's ``lzma``.
+    libtiff ignores an error once the strip is full (a bad check, a cut
+    index): after an error the stream is fed again a byte at a time to
+    find how much came out before it."""
+    try:
+        out = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(src, want)
+    except lzma.LZMAError as e:
+        dec, parts, got = lzma.LZMADecompressor(lzma.FORMAT_XZ), [], 0
+        try:
+            for i in range(len(src)):
+                if got >= want or dec.eof:
+                    break
+                parts.append(dec.decompress(src[i:i + 1], want - got))
+                got += len(parts[-1])
+        except lzma.LZMAError:
+            pass
+        out = b"".join(parts)
+        if len(out) < want:
+            raise ValueError(f"{what}: LZMA: {e} after {len(out)} of the strip's {want} "
+                             "bytes") from None
+    if len(out) < want:
+        raise ValueError(f"{what}: LZMA: the stream ends after {len(out)} of the strip's {want} "
+                         "bytes")
+    return np.frombuffer(out, np.uint8)
+
+
+def _inflate(lib, src: bytes, compression: int, want: int, what: str, width: int = 0,
+             options: int = 0, odd: bool = False) -> np.ndarray:
+    """One strip or tile decompressed to ``want`` bytes; ``width``,
+    ``options`` and ``odd`` (the strip's file offset is odd) are the CCITT
+    and ThunderScan decoders' (``csrc/tiff_decode.cpp``)."""
+    if compression == LZMA:
+        return _unxz(src, want, what)
     out = np.empty(want, np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
-    if lib.tiff_decompress(src, len(src), compression,
+    if lib.tiff_decompress(src, len(src), compression, width, options, int(odd),
                            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), want, err,
                            _ERR_LEN) != 0:
         raise ValueError(f"{what}: {err.value.decode()}")
@@ -462,7 +538,8 @@ def _libtiff(data: bytes, tags: dict, layout: _Layout, e: str) -> np.ndarray:
             if layout.fill == 2:
                 src = _REVERSED[np.frombuffer(src, np.uint8)].tobytes()
             what = f"{'tile' if layout.tiled else 'strip'} {index}"
-            block = _inflate(lib, src, layout.compression, rows * row_bytes, what)
+            block = _inflate(lib, src, layout.compression, rows * row_bytes, what, cw,
+                             layout.fax_options, offsets[index] & 1)
             block = block.reshape(rows, row_bytes)
             if swap:
                 block = block.view(f">u{size}").astype(f"<u{size}").view(np.uint8)

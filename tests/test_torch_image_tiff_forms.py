@@ -346,13 +346,17 @@ def _refused(tmp_path, name: str, data: bytes, colour: bool = True) -> str:
 
 def test_refusals_name_file_and_tag(tmp_path):
     img, grey = _rgb(), _rgb()[..., 0]
-    # queued: old-style JPEG, CCITT, LAB
-    for tag, value, sample in ((259, 6, img), (259, 2, grey), (259, 3, grey), (259, 4, grey),
-                               (262, 8, img)):
+    # queued: old-style JPEG, LAB
+    for tag, value, sample in ((259, 6, img), (262, 8, img)):
         bad = encode(sample, photometric=2 if sample.ndim == 3 else 1,
                      extra={tag: (SHORT, [value])})
         msg = _refused(tmp_path, f"t{tag}_{value}.tif", bad)
         assert f"tag {tag}) = {value}" in msg and "not read by the port yet" in msg
+    # CCITT of 8-bit samples: libtiff decodes 1 bit a sample, Pillow fails
+    for value in (2, 3, 4):
+        bad = encode(grey, extra={259: (SHORT, [value])})
+        assert _pillow_fails(bad), value
+        assert f"tag 259) = {value}" in _refused(tmp_path, f"t259_{value}.tif", bad)
     # refused by Pillow too: float16 / float64 samples, big-endian BigTIFF,
     # YCbCr sampling libtiff does not convert, JPEG sampling libtiff rejects
     for name, bad, field in (

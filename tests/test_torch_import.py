@@ -3,9 +3,10 @@ package: importing the package, every one of its submodules (the sparse
 backend's, the full system's, the real-data entry point's, the
 distributed BA's, the row-sharded dense step's and the mesh's included) and
 ``chip_smoke``'s imports
-leaves ``jax``, ``PIL`` and every ``hrbffusion3d_tpu`` module out of
-``sys.modules``, and succeeds with the three blocked.  Nothing of the port includes
-``jpeglib.h`` or links libjpeg, and its native loader compiles only
+leaves ``jax``, ``PIL``, ``zstandard`` and every ``hrbffusion3d_tpu`` module
+out of ``sys.modules``, and succeeds with the four blocked.  Nothing of the
+port includes ``jpeglib.h`` or links libjpeg (its native library links zlib
+and pthread only), and its native loader compiles only
 sources inside the port's package.  The port's copies of the JAX package's
 numpy-only code (the BRIEF pattern, the reduction-plan construction,
 ``patch_information``, ``io/traj.py``, the loop closer's Horn alignment)
@@ -27,7 +28,7 @@ import importlib, importlib.abc, pkgutil, sys
 
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "hrbffusion3d_tpu", "PIL"):
+        if name.split(".")[0] in ("jax", "jaxlib", "hrbffusion3d_tpu", "PIL", "zstandard"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -38,8 +39,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # its imports only: main() runs under __main__
 leaked = sorted(m for m in sys.modules
-                if m in ("jax", "hrbffusion3d_tpu", "PIL")
-                or m.startswith(("jax.", "jaxlib", "hrbffusion3d_tpu.", "PIL.")))
+                if m in ("jax", "hrbffusion3d_tpu", "PIL", "zstandard")
+                or m.startswith(("jax.", "jaxlib", "hrbffusion3d_tpu.", "PIL.", "zstandard.")))
 print(len(names), leaked)
 """
 
@@ -73,7 +74,9 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 def test_port_links_no_libjpeg():
     """Nothing of the port includes ``jpeglib.h`` or links libjpeg: its JPEG
-    decoder is its own (``csrc/jpeg_decode.cpp``)."""
+    decoder is its own (``csrc/jpeg_decode.cpp``), as its Zstandard, CCITT
+    and ThunderScan decoders are; the native library links zlib and pthread
+    and nothing else."""
     from hrbffusion3d_tpu_torch.io import native_loader
 
     port = ROOT / "hrbffusion3d_tpu_torch"
@@ -84,6 +87,8 @@ def test_port_links_no_libjpeg():
     assert not including, including
     flags = native_loader._CXXFLAGS + native_loader._LDFLAGS
     assert not any("jpeg" in flag for flag in flags), flags
+    assert [f for f in flags if f.startswith("-l")] == ["-lz", "-lpthread"], flags
+    assert {"zstd_decode.cpp", "fax_decode.cpp"} <= {p.name for p in native_loader._SOURCES}
 
 
 def test_native_loader_builds_only_the_ports_sources():
