@@ -228,7 +228,7 @@ from hrbffusion3d_tpu_torch.config import TUM1, SLAMConfig
 from hrbffusion3d_tpu_torch.core import camera, lie
 from hrbffusion3d_tpu_torch.eval import mesh, recon, synth
 from hrbffusion3d_tpu_torch.eval.ate import ate_rmse
-from hrbffusion3d_tpu_torch.io import image, jpeg, klg, native_loader, ply, png, traj, tum
+from hrbffusion3d_tpu_torch.io import image, jpeg, klg, native_loader, ply, png, traj, tum, webp
 from hrbffusion3d_tpu_torch.map import surfel_map as sm
 from hrbffusion3d_tpu_torch.ops import kernels, preprocess, pyramid, raycast
 from hrbffusion3d_tpu_torch.parallel import dist_ba, multihost, sharded_step, sharding
@@ -1769,6 +1769,13 @@ def colour_form_bytes(entry: dict) -> bytes:
 # scripts/make_tiff_codecs_fixture.py: the card's machine has no zstandard)
 TIFF_CODECS_DIR = ROOT / "tests" / "data" / "tiff_codecs"
 
+# (m) a TUM-layout sequence of colour in WebP (lossy of five encoder
+# settings, with alpha in VP8X, lossless of two methods) and GIF, beside
+# DEPTH_FORMS_DIR's depth as PNG, and palette VP8L, raw alpha, animations
+# and GIF forms held to their digests (the committed fixture,
+# scripts/make_webp_gif_fixture.py: the card's machine has no Pillow)
+WEBP_GIF_DIR = ROOT / "tests" / "data" / "webp_gif"
+
 # (k) a TUM-layout sequence of colour in BigTIFF, JPEG-in-TIFF and YCbCr
 # TIFF (the committed fixture, scripts/make_tiff_forms_fixture.py: the first
 # frames of KLG_JPEG_DIR's, frame i in form i; the forms that are large or
@@ -2958,6 +2965,94 @@ def _tum_tiff_codecs(tmp: Path, gt, ts, smi) -> dict:
                 bytes={e["form"]: e["bytes"] for e in meta["frames"]}, device=smi, **run)
 
 
+def _tum_webp_gif(tmp: Path, gt, ts, smi) -> dict:
+    """(m) a TUM-layout sequence whose colour files are the WebP-GIF
+    fixture's (WebP lossy at Pillow's defaults, quality 100, the simple
+    filter, no filter with 8 partitions, one segment with sharpness 7, with
+    VP8L-compressed alpha and an ICC profile; lossless of methods 0 and 6;
+    GIF, adaptive palette, interlaced: frame i in form i) and whose depth is
+    the depth-forms fixture's frames as 16-bit PNG: every file through
+    ``image.read_colour`` / ``image.read_depth`` to its Pillow digest, the
+    fixture's other files too (palette VP8L, raw alpha, animations, GIF
+    forms), and every lossy file's Y, U and V planes to libwebp's; the
+    host's decode ms per form, each file in turns with its baseline JPEG;
+    ``run_tum.main`` in this process on the sequence: every frame consumed,
+    the ATE gate, 0 host syncs and every kernel in each dense step."""
+    meta = json.loads((WEBP_GIF_DIR / "digests.json").read_text())
+    colour = [e for e in meta["frames"] if e.get("sequence", True)]
+    other = [e for e in meta["frames"] if not e.get("sequence", True)]
+    depth_meta = json.loads((DEPTH_FORMS_DIR / "digests.json").read_text())["frames"]
+    n = len(colour)
+    base = json.loads((KLG_JPEG_DIR / "digests.json").read_text())["frames"][:n]
+    root = tmp / "seq_webp_gif"
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    lines, colour_files, jpegs, depth_sha = [], [], [], []
+    for i, (e, b) in enumerate(zip(colour, base)):
+        name = f"{ts[i]:.6f}"
+        jpegs.append((KLG_JPEG_DIR / b["file"]).read_bytes())
+        colour_files.append((WEBP_GIF_DIR / e["file"]).read_bytes())
+        rgb = f"rgb/{name}{Path(e['file']).suffix}"
+        (root / rgb).write_bytes(colour_files[-1])
+        dep = f"depth/{name}.png"
+        d16 = image.read_depth(str(DEPTH_FORMS_DIR / depth_meta[i]["file"])).astype(np.uint16)
+        (root / dep).write_bytes(png.encode(d16))
+        depth_sha.append(_sha(d16))
+        lines.append(f"{name} {rgb} {name} {dep}\n")
+    (root / "associations.txt").write_text("".join(lines))
+    traj.save_tum(str(root / "groundtruth.txt"), ts[:n], gt[:n])
+
+    # (i) every file to its digest, read as the TUM reader reads it
+    rows = [ln.split() for ln in lines]
+
+    def read(e, path):
+        return image.read_depth(path) if e["kind"] == "depth" else image.read_colour(path)
+
+    planes = [e for e in meta["frames"] if "yuv_sha256" in e]
+    wrong = {"colour": [i for i, (r, e) in enumerate(zip(rows, colour))
+                        if _sha(image.read_colour(str(root / r[1]))) != e["rgb_sha256"]],
+             "depth": [i for i, (r, sha) in enumerate(zip(rows, depth_sha))
+                       if _sha(image.read_depth(str(root / r[3]))) != sha],
+             "other": [e["form"] for e in other
+                       if _sha(read(e, str(WEBP_GIF_DIR / e["file"])))
+                       != e.get("rgb_sha256", e.get("depth_sha256"))],
+             "planes": [e["form"] for e in planes
+                        if [_sha(p) for p in webp.planes((WEBP_GIF_DIR / e["file"]).read_bytes())]
+                        != e["yuv_sha256"]]}
+    print(f"run_tum (m): {n} colour files in {len(meta['forms'])} forms "
+          f"({', '.join(meta['forms'])}) beside PNG depth: equal to their Pillow digests through "
+          f"image.read_colour {n - len(wrong['colour'])} of {n} and image.read_depth "
+          f"{n - len(wrong['depth'])} of {n}; held to digests only "
+          f"{len(other) - len(wrong['other'])} of {len(other)} ({', '.join(meta['extra_forms'])}); "
+          f"Y, U, V planes equal to libwebp's {len(planes) - len(wrong['planes'])} of "
+          f"{len(planes)}; differing {wrong}")
+    if any(wrong.values()):
+        raise RuntimeError(f"run_tum (m): decoded frames differ from Pillow's: {wrong}")
+
+    # (ii) host decode ms per form, each file in turns with its JPEG
+    ms = {label: [] for label in meta["forms"] + ["baseline_jpeg"]}
+    for _ in range(KLG_DECODE_REPEATS):
+        for i, (e, data) in enumerate(zip(colour, colour_files)):
+            for label, fn, payload in ((e["form"], image.decode_colour, data),
+                                       ("baseline_jpeg", jpeg.decode, jpegs[i])):
+                t0 = time.perf_counter()
+                fn(payload)
+                ms[label].append(1e3 * (time.perf_counter() - t0))
+    decode_ms = {k: float(np.median(v)) for k, v in ms.items()}
+    h, w = colour[0]["height"], colour[0]["width"]
+    print(f"run_tum (m): host time on the card's machine ({smi}; {os.cpu_count()} CPUs): "
+          f"decode of one {w}x{h} frame, median (of {KLG_DECODE_REPEATS} x its files, each "
+          f"colour file in turns with its baseline JPEG): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in decode_ms.items())
+          + "; bytes per form " + json.dumps({e["form"]: e["bytes"] for e in meta["frames"]}))
+
+    # (iii) run_tum.main on the sequence in this process
+    run = _main_in_process("m", "WebP-GIF", root, n, tmp / "out_m")
+    return dict(frames=n, forms=meta["forms"], digests_equal=True, decode_ms=decode_ms,
+                decode_ms_all=ms, bytes={e["form"]: e["bytes"] for e in meta["frames"]},
+                device=smi, **run)
+
+
 def phase_run_tum(dev, cmd=None, smi="") -> dict:
     """The real-data entry point on a TUM-format fixture written here:
     (a) the command line, (b) replay, (c) .klg through the native loader
@@ -2969,7 +3064,8 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
     and JPEG and PNG colour, (j) one with colour in netpbm, BMP and TIFF and
     PNG and tiled TIFF depth, (k) one with colour in BigTIFF, JPEG-in-TIFF
     and YCbCr TIFF and PNG and BigTIFF depth, (l) one with depth in ZSTD
-    and LZMA TIFF and colour in ZSTD and LZMA TIFF and JPEG.  ``cmd``: how
+    and LZMA TIFF and colour in ZSTD and LZMA TIFF and JPEG, (m) one with
+    colour in WebP and GIF and PNG depth.  ``cmd``: how
     (a) and (g) start the entry point; ``smi``: the card's name and power
     limit."""
     t_phase = time.perf_counter()
@@ -3020,6 +3116,10 @@ def phase_run_tum(dev, cmd=None, smi="") -> dict:
         out["tum_tiff_codecs"] = _tum_tiff_codecs(tmp, gt, ts, smi)
         out["tum_tiff_codecs"]["seconds"] = time.perf_counter() - t0
         print(f"run_tum (l): {out['tum_tiff_codecs']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        out["tum_webp_gif"] = _tum_webp_gif(tmp, gt, ts, smi)
+        out["tum_webp_gif"]["seconds"] = time.perf_counter() - t0
+        print(f"run_tum (m): {out['tum_webp_gif']['seconds']:.1f} s")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"run_tum: phase {out['seconds']:.1f} s")
     return out

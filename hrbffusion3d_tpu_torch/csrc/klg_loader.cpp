@@ -8,8 +8,8 @@
 // GUI/src/HRBF_fusion.cpp:216).  It differs from that file in three ways:
 //   - JPEG colour goes through the port's own decoder (jpeg_decode.cpp,
 //     linked into the same library), not libjpeg; like that file it reads
-//     no other colour payload, and a PNG, BMP, netpbm or TIFF one is an
-//     error that names its form;
+//     no other colour payload, and a PNG, BMP, netpbm, TIFF, GIF or WebP
+//     one is an error that names its form;
 //   - a frame that fails to decode is an error, not the end of the stream:
 //     klg_next returns -1 once the frames before it are consumed, and
 //     klg_error names the frame index and the cause (zlib's return code,
@@ -135,6 +135,12 @@ Next Loader::decode_next(Frame& out, std::string& err) {
       form = "netpbm";
     else if (isize >= 4 && (memcmp(p, "II*\0", 4) == 0 || memcmp(p, "MM\0*", 4) == 0))
       form = "TIFF";
+    else if (isize >= 6 && (memcmp(p, "GIF87a", 6) == 0 || memcmp(p, "GIF89a", 6) == 0))
+      form = "GIF";
+    else if (isize >= 16 && memcmp(p, "RIFF", 4) == 0 && memcmp(p + 8, "WEBP", 4) == 0 &&
+             (memcmp(p + 12, "VP8 ", 4) == 0 || memcmp(p + 12, "VP8L", 4) == 0 ||
+              memcmp(p + 12, "VP8X", 4) == 0))
+      form = "WebP";
     if (form)
       return fail(std::string(form) + " colour payload: this loader decodes JPEG colour only "
                   "(io/klg.frames reads " + form + " colour)");

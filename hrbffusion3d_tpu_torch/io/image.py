@@ -3,14 +3,17 @@ format from a file's first bytes (the JAX package opens TUM colour and
 depth files and non-raw ``.klg`` colour payloads with Pillow).
 
 ``form`` tells the format by the tests of Pillow's plugins, in the order
-``Image.open`` tries them (the plugins it loads first, then TIFF): ``BM``
-(BMP), a little-endian 32-bit info header size of 12, 40, 52, 56, 64, 108
-or 124 (a headerless DIB), a JPEG SOI marker, ``P1``-``P6``, ``Pf`` and
-Pillow's ``P0`` / ``Py`` magics (netpbm), the PNG signature, ``II*\\0`` / ``MM\\0*`` (TIFF; and the
-prefixes Pillow takes for TIFF too: the two bytes after the byte order
-swapped, and BigTIFF's ``II+\\0`` / ``MM\\0+``).  Each goes to
-the port's own decoder: ``io/bmp``, ``io/jpeg``, ``io/pnm``, ``io/png``,
-``io/tiff``.
+``Image.open`` tries them (the plugins it loads first, then TIFF and WebP,
+in ``Image.ID``'s order after ``Image.init()``): ``BM`` (BMP), a
+little-endian 32-bit info header size of 12, 40, 52, 56, 64, 108 or 124
+(a headerless DIB), ``GIF87a`` / ``GIF89a``, a JPEG SOI marker,
+``P1``-``P6``, ``Pf`` and Pillow's ``P0`` / ``Py`` magics (netpbm), the
+PNG signature, ``II*\\0`` / ``MM\\0*`` (TIFF; and the prefixes Pillow
+takes for TIFF too: the two bytes after the byte order swapped, and
+BigTIFF's ``II+\\0`` / ``MM\\0+``), ``RIFF`` .... ``WEBP`` and ``VP8 ``,
+``VP8L`` or ``VP8X`` (WebP).  Each goes to the port's own decoder:
+``io/bmp``, ``io/gif``, ``io/jpeg``, ``io/pnm``, ``io/png``, ``io/tiff``,
+``io/webp``.
 
 Colour (``decode_colour``): any of them, as Pillow's ``convert("RGB")``
 gives it, (H, W, 3) uint8 (``io/modes``).  Depth (``decode_depth``): any
@@ -25,10 +28,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import bmp, jpeg, modes, png, pnm, tiff
+from . import bmp, gif, jpeg, modes, png, pnm, tiff, webp
 
 JPEG_SOI = b"\xff\xd8"
-FORMS = ("BMP", "DIB", "JPEG", "netpbm", "PNG", "TIFF")
+FORMS = ("BMP", "DIB", "GIF", "JPEG", "netpbm", "PNG", "TIFF", "WEBP")
 
 
 def form(data: bytes) -> str | None:
@@ -38,6 +41,8 @@ def form(data: bytes) -> str | None:
         return "BMP"
     if bmp.is_dib(data):
         return "DIB"
+    if gif.accept(data):
+        return "GIF"
     if data[:2] == JPEG_SOI:
         return "JPEG"
     if data[:2] in pnm.MAGICS or (data[:1] == b"P" and data[1:2] in (b"0", b"y")):
@@ -46,14 +51,17 @@ def form(data: bytes) -> str | None:
         return "PNG"
     if data[:4] in tiff.PREFIXES:
         return "TIFF"
+    if webp.accept(data):
+        return "WEBP"
     return None
 
 
 def needs_library(head: bytes) -> bool:
     """Whether decoding a file that starts with ``head`` (its first 64 bytes)
-    calls the native library: JPEG, TIFF, and BMP run-length data."""
+    calls the native library: GIF, JPEG, TIFF, WebP, and BMP run-length
+    data."""
     kind = form(head)
-    if kind in ("JPEG", "TIFF"):
+    if kind in ("GIF", "JPEG", "TIFF", "WEBP"):
         return True
     if kind in ("BMP", "DIB"):
         at = 14 if kind == "BMP" else 0
@@ -73,6 +81,10 @@ def _decode_mode(data: bytes) -> tuple[str, np.ndarray, np.ndarray | None]:
         return mode, img, np.zeros((0, 3), np.uint8) if mode == "P" else None
     if kind == "TIFF":
         return tiff.decode_mode(data)
+    if kind == "GIF":
+        return gif.decode_mode(data)
+    if kind == "WEBP":
+        return webp.decode_mode(data)
     raise ValueError(f"not a form the port reads ({', '.join(FORMS)}): it starts with "
                      f"{bytes(data[:8])!r}")
 
@@ -84,6 +96,8 @@ def decode_colour(data: bytes) -> np.ndarray:
         return jpeg.decode(data)
     if kind == "PNG":
         return png.decode_rgb(data)
+    if kind == "GIF":
+        return gif.decode_colour(data)
     return modes.to_rgb(*_decode_mode(data))
 
 

@@ -10,8 +10,9 @@ The JAX package decodes a non-raw colour payload with Pillow, whatever
 its format.  The port has no imaging library: the payload is decoded by
 its content (``io/image.decode_colour``): a JPEG by the port's own JPEG
 decoder (``io/jpeg``, compiled into the native loader's library), a PNG,
-BMP, netpbm or TIFF image by ``io/png``, ``io/bmp``, ``io/pnm`` or
-``io/tiff``, each to Pillow's bytes.  A frame that fails to decode (a
+BMP, netpbm, TIFF, GIF or WebP image by ``io/png``, ``io/bmp``,
+``io/pnm``, ``io/tiff``, ``io/gif`` or ``io/webp``, each to Pillow's
+bytes.  A frame that fails to decode (a
 corrupt zlib or image payload, a payload of another format, a payload cut
 short, an image whose size is not ``width`` x ``height``, which the error
 names with the form it found) raises ``RuntimeError`` naming the frame's

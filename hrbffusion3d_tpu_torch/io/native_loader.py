@@ -10,15 +10,18 @@ compiles (one compiler a source, in parallel, then a link)
 ``csrc/jpeg_decode.cpp``, its TIFF strip decompressors
 ``csrc/tiff_decode.cpp`` (with its Zstandard decoder
 ``csrc/zstd_decode.cpp`` and its CCITT and ThunderScan decoders
-``csrc/fax_decode.cpp``) and its BMP run-length decoder
-``csrc/bmp_decode.cpp`` with the host C++ compiler into one library in
+``csrc/fax_decode.cpp``), its BMP run-length decoder
+``csrc/bmp_decode.cpp``, its WebP decoders ``csrc/vp8_decode.cpp`` (lossy,
+with the tables of ``csrc/vp8_tables.h``) and ``csrc/vp8l_decode.cpp``
+(lossless and alpha) and its GIF LZW decoder ``csrc/gif_decode.cpp`` with
+the host C++ compiler into one library in
 ``hrbffusion3d_tpu_torch/_build/`` (named by the hash of every source file
 it reads and the command, so a changed source is rebuilt), beside the CUDA
 kernels.  It links zlib and nothing else: no libjpeg.  The loader decodes
 zlib depth and JPEG colour on a worker thread of its own (a PNG, BMP,
-netpbm or TIFF colour payload is an error that names it: ``io/klg.frames``
-reads those); ``io/jpeg``,
-``io/tiff`` and ``io/bmp`` call the same library's decoders.
+netpbm, TIFF, GIF or WebP colour payload is an error that names it:
+``io/klg.frames`` reads those); ``io/jpeg``, ``io/tiff``, ``io/bmp``,
+``io/webp`` and ``io/gif`` call the same library's decoders.
 
 A frame that fails to decode (a corrupt zlib or JPEG payload, a payload cut
 short, a JPEG whose size is not ``width`` x ``height``) raises
@@ -49,8 +52,9 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCE = _CSRC / "klg_loader.cpp"
 # every file the build reads: the compiled sources and the header
 _SOURCES = (_SOURCE, _CSRC / "jpeg_decode.cpp", _CSRC / "tiff_decode.cpp",
-            _CSRC / "zstd_decode.cpp", _CSRC / "fax_decode.cpp", _CSRC / "bmp_decode.cpp")
-_HEADERS = (_CSRC / "jpeg_decode.h", _CSRC / "tiff_codecs.h")
+            _CSRC / "zstd_decode.cpp", _CSRC / "fax_decode.cpp", _CSRC / "bmp_decode.cpp",
+            _CSRC / "vp8_decode.cpp", _CSRC / "vp8l_decode.cpp", _CSRC / "gif_decode.cpp")
+_HEADERS = (_CSRC / "jpeg_decode.h", _CSRC / "tiff_codecs.h", _CSRC / "vp8_tables.h")
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
 # native/Makefile's flags, without libjpeg
 _CXXFLAGS = ["-O2", "-fPIC", "-std=c++17", "-Wall"]
@@ -146,6 +150,25 @@ def _load_lib():
         ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
         ctypes.c_char_p, ctypes.c_int,
     ]
+    u8p, ip = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
+    lib.vp8_decode_yuv.restype = ctypes.c_int
+    lib.vp8_decode_yuv.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                                   u8p, u8p, u8p, ctypes.c_char_p, ctypes.c_int]
+    lib.vp8_frame_info.restype = ctypes.c_int
+    lib.vp8_frame_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ip, ctypes.c_char_p,
+                                   ctypes.c_int]
+    lib.vp8_yuv_to_rgb.restype = None
+    lib.vp8_yuv_to_rgb.argtypes = [u8p, u8p, u8p, ctypes.c_int, ctypes.c_int, u8p]
+    lib.vp8l_decode.restype = ctypes.c_int
+    lib.vp8l_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                                u8p, ip, ctypes.c_char_p, ctypes.c_int]
+    lib.webp_alpha_decode.restype = ctypes.c_int
+    lib.webp_alpha_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                                      ctypes.c_int, u8p, ctypes.c_char_p, ctypes.c_int]
+    lib.gif_lzw_decode.restype = ctypes.c_int
+    lib.gif_lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int64, ctypes.c_int64, u8p,
+                                   ctypes.c_char_p, ctypes.c_int]
     _STATUS["library"] = str(path)
     return lib
 

@@ -7,10 +7,10 @@ parsing, 16-bit PNG depth (1/5000 m units), 8-bit RGB.  The JAX package
 opens every image with Pillow, which picks the format from the file's
 bytes; so does the port, with no imaging library (``io/image``): a colour
 file in JPEG (the port's own decoder, ``io/jpeg``), PNG (``io/png``, zlib
-and numpy), BMP (``io/bmp``), netpbm (``io/pnm``) or TIFF (``io/tiff``)
-is decoded to what Pillow's ``convert("RGB")`` gives in the JAX package;
-a depth file in any of them but JPEG is read as
-``np.asarray(Image.open(...))`` reads it, if it has one band.
+and numpy), BMP (``io/bmp``), netpbm (``io/pnm``), TIFF (``io/tiff``),
+GIF (``io/gif``) or WebP (``io/webp``) is decoded to what Pillow's
+``convert("RGB")`` gives in the JAX package; a depth file in any of them
+is read as ``np.asarray(Image.open(...))`` reads it, if it has one band.
 ``write_sequence`` writes a sequence in the same layout (tests, synthetic
 fixtures).
 """
@@ -85,9 +85,8 @@ def frames_prefetched(root: str, associations: str = "associations.txt",
     dense step's launches), so the pool is of processes, started with
     ``spawn`` (safe beside CUDA and threads) and shut down when the
     iteration ends.  When any file needs the native library (a JPEG, a
-    TIFF, a run-length BMP: ``image.needs_library``), the library that
-    holds the JPEG decoder, the TIFF decompressors and the BMP run-length
-    decoder is built or loaded here first (``RuntimeError`` naming the
+    TIFF, a GIF, a WebP, a run-length BMP: ``image.needs_library``), the
+    library that holds their decoders is built or loaded here first (``RuntimeError`` naming the
     build error if it cannot be), so that the workers only load it.
     Each worker imports the caller's main module, so a script that calls
     this keeps its own work under ``if __name__ == "__main__":``."""

@@ -191,7 +191,9 @@ def test_refused_forms_name_file_and_tag(tmp_path):
     ccitt = encode((d >> 8).astype(np.uint8), "MM", 1, 1, extra={259: (SHORT, [4])})
     assert "259" in _refused(tmp_path, "ccitt.tif", ccitt)
     assert "278" in _refused(tmp_path, "rows0.tif", encode(d, extra={278: (LONG, [0])}))
-    assert "not a form the port reads" in _refused(tmp_path, "depth.gif", b"GIF89a" + bytes(64))
+    assert "GIF file with no image" in _refused(tmp_path, "depth.gif", b"GIF89a" + bytes(64))
+    assert "not a form the port reads" in _refused(tmp_path, "depth.ico",
+                                                   b"\0\0\1\0" + bytes(64))
     assert "BMP info header size 0" in _refused(tmp_path, "depth.bmp", b"BM" + bytes(64))
     assert "maxval" in _refused(tmp_path, "zero.pgm", b"P5 2 2 0 \0\0\0\0")
     # the TUM reader names the file too

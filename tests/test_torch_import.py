@@ -59,14 +59,16 @@ def test_port_imports_without_jax_or_the_jax_package():
     # parallel.multihost) and the row-sharded step's (parallel.sharded_step,
     # parallel.mesh) and the JPEG decoder's binding (io.jpeg) and the
     # depth decoders and their dispatch (io.pnm, io.tiff, io.image) and the
-    # BMP decoder and Pillow's modes (io.bmp, io.modes) included
-    assert int(n_modules) >= 63, out.stdout
+    # BMP decoder and Pillow's modes (io.bmp, io.modes) and the GIF and
+    # WebP readers (io.gif, io.webp) included
+    assert int(n_modules) >= 65, out.stdout
     assert leaked == "[]", leaked
     for name in ("backend/brief_pattern", "backend/features", "backend/reduce_plan",
                  "backend/ba", "backend/keyframes", "backend/bow", "backend/vocab",
                  "backend/posegraph", "backend/loop", "pipeline/full_slam", "io/traj",
                  "io/ply", "run_tum", "io/png", "io/tum", "io/klg", "io/native_loader",
-                 "io/jpeg", "io/pnm", "io/tiff", "io/image", "io/bmp", "io/modes", "utils/timing", "utils/params",
+                 "io/jpeg", "io/pnm", "io/tiff", "io/image", "io/bmp", "io/modes", "io/gif",
+                 "io/webp", "utils/timing", "utils/params",
                  "utils/checkpoint", "viz/stats", "viz/viewer", "eval/recon", "eval/mesh", "parallel/sharding",
                  "parallel/dist_ba", "parallel/multihost", "parallel/sharded_step"):
         assert (ROOT / "hrbffusion3d_tpu_torch" / f"{name}.py").exists(), name
@@ -74,9 +76,9 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 def test_port_links_no_libjpeg():
     """Nothing of the port includes ``jpeglib.h`` or links libjpeg: its JPEG
-    decoder is its own (``csrc/jpeg_decode.cpp``), as its Zstandard, CCITT
-    and ThunderScan decoders are; the native library links zlib and pthread
-    and nothing else."""
+    decoder is its own (``csrc/jpeg_decode.cpp``), as its Zstandard, CCITT,
+    ThunderScan, WebP and GIF decoders are; the native library links zlib
+    and pthread and nothing else (no libwebp)."""
     from hrbffusion3d_tpu_torch.io import native_loader
 
     port = ROOT / "hrbffusion3d_tpu_torch"
@@ -86,9 +88,10 @@ def test_port_links_no_libjpeg():
     including = [str(p) for p in sources if "jpeglib.h" in p.read_text()]
     assert not including, including
     flags = native_loader._CXXFLAGS + native_loader._LDFLAGS
-    assert not any("jpeg" in flag for flag in flags), flags
+    assert not any("jpeg" in flag or "webp" in flag or "gif" in flag for flag in flags), flags
     assert [f for f in flags if f.startswith("-l")] == ["-lz", "-lpthread"], flags
-    assert {"zstd_decode.cpp", "fax_decode.cpp"} <= {p.name for p in native_loader._SOURCES}
+    assert {"zstd_decode.cpp", "fax_decode.cpp", "vp8_decode.cpp", "vp8l_decode.cpp",
+            "gif_decode.cpp"} <= {p.name for p in native_loader._SOURCES}
 
 
 def test_native_loader_builds_only_the_ports_sources():

@@ -157,7 +157,7 @@ def test_tum_jpeg_colour_matches_jax(tmp_path, monkeypatch, progressive):
             assert a.timestamp == b.timestamp
             np.testing.assert_array_equal(a.depth, b.depth)
             np.testing.assert_array_equal(a.rgb, b.rgb)
-    (tmp_path / "rgb" / "2.png").write_bytes(b"GIF89a" + bytes(20))
+    (tmp_path / "rgb" / "2.png").write_bytes(b"\0\0\1\0" + bytes(20))
     with pytest.raises(ValueError, match="rgb/2.png: not a form the port reads"):
         list(ttum.frames(root))
     # a library that cannot build: the parent raises, naming the build error
